@@ -149,20 +149,6 @@ void launch(const void* q, const void* ck, const void* cv, const void* valid, vo
                                               static_cast<__nv_bfloat16*>(out), NC);
 }
 
-template <int D>
-int dispatch_group(int G, const void* q, const void* ck, const void* cv, const void* valid,
-                   void* part_acc, void* part_ml, void* out, int B, int Hkv, int S, int layer,
-                   int NC, float scale_log2, cudaStream_t s) {
-  switch (G) {
-    case 1: launch<D, 1>(q, ck, cv, valid, part_acc, part_ml, out, B, Hkv, S, layer, NC, scale_log2, s); break;
-    case 2: launch<D, 2>(q, ck, cv, valid, part_acc, part_ml, out, B, Hkv, S, layer, NC, scale_log2, s); break;
-    case 4: launch<D, 4>(q, ck, cv, valid, part_acc, part_ml, out, B, Hkv, S, layer, NC, scale_log2, s); break;
-    case 8: launch<D, 8>(q, ck, cv, valid, part_acc, part_ml, out, B, Hkv, S, layer, NC, scale_log2, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return 0;
-}
-
 }  // namespace
 
 extern "C" int flash_decode_chunk() { return CK; }
@@ -171,16 +157,9 @@ extern "C" int flash_decode_launch(const void* q, const void* ck, const void* cv
                                    const void* valid, void* part_acc, void* part_ml, void* out,
                                    int B, int Hq, int Hkv, int S, int D, int layer, int NC,
                                    float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  const int G = Hq / Hkv;
-  const float sl = scale * 1.4426950408889634f;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  switch (D) {
-    case 64: rc = dispatch_group<64>(G, q, ck, cv, valid, part_acc, part_ml, out, B, Hkv, S, layer, NC, sl, s); break;
-    case 128: rc = dispatch_group<128>(G, q, ck, cv, valid, part_acc, part_ml, out, B, Hkv, S, layer, NC, sl, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (rc != 0) return rc;
+  // Instantiated for the LLM shape of every full-width preset: D = 128, G = 4.
+  if (D != 128 || Hkv <= 0 || Hq != 4 * Hkv) return (int)cudaErrorInvalidValue;
+  launch<128, 4>(q, ck, cv, valid, part_acc, part_ml, out, B, Hkv, S, layer, NC,
+                 scale * 1.4426950408889634f, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

@@ -33,8 +33,7 @@ KERNEL = CudaKernel(
     + [ctypes.c_int] * 8
     + [ctypes.c_float],
 )
-SUPPORTED_HEAD_DIMS = (64, 128)
-SUPPORTED_GROUPS = (1, 2, 4, 8)
+SUPPORTED_SHAPES = ((128, 4), (64, 1))  # (D, Hq // Hkv) pairs that csrc/flash_attention.cu instantiates
 
 
 def attention_reference(
@@ -81,7 +80,7 @@ def _launch(q, k, v, causal, q_segment_ids, kv_segment_ids, scale, q_offset):
     _, Hkv, Sk, Dk = k.shape
     if Dk != D or v.shape != k.shape or k.shape[0] != B:
         raise ValueError("q/k/v shapes disagree")
-    if D not in SUPPORTED_HEAD_DIMS or Hq % Hkv or Hq // Hkv not in SUPPORTED_GROUPS:
+    if Hq % Hkv or (D, Hq // Hkv) not in SUPPORTED_SHAPES:
         raise ValueError(f"unsupported attention shape D={D} Hq={Hq} Hkv={Hkv}")
     qs = ks = None
     if q_segment_ids is not None:

@@ -29,8 +29,7 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float],
 )
 CHUNK = 128  # keys per split-K block (csrc/flash_decode.cu CK)
-SUPPORTED_HEAD_DIMS = (64, 128)
-SUPPORTED_GROUPS = (1, 2, 4, 8)
+SUPPORTED_SHAPES = ((128, 4),)  # (D, Hq // Hkv) pairs that csrc/flash_decode.cu instantiates
 
 
 def flash_decode_reference(
@@ -68,7 +67,7 @@ def _launch(q, cache_k, cache_v, layer_idx, valid_mask, scale):
     L, Bc, Hkv, S, Dc = cache_k.shape
     if one != 1 or Bc != B or Dc != D or cache_v.shape != cache_k.shape:
         raise ValueError("q/cache shapes disagree")
-    if D not in SUPPORTED_HEAD_DIMS or Hq % Hkv or Hq // Hkv not in SUPPORTED_GROUPS:
+    if Hq % Hkv or (D, Hq // Hkv) not in SUPPORTED_SHAPES:
         raise ValueError(f"unsupported decode shape D={D} Hq={Hq} Hkv={Hkv}")
     if not 0 <= layer_idx < L:
         raise ValueError(f"layer {layer_idx} out of range {L}")
