@@ -1,9 +1,19 @@
 """InternLM2-style decoder (PyTorch port of callireader_tpu/models/internlm2.py).
 
-GQA attention with split wq/wk/wv, rotate-half RoPE with the dynamic-NTK
-rule, SwiGLU MLP, fp32 RMSNorm statistics, untied LM head; bf16 weights only
-(int8 is not ported). Same parameter tree as the JAX package (layers stacked
-on axis 0, kernels (in, out), vocab tables (V, E)).
+GQA attention, rotate-half RoPE with the dynamic-NTK rule, SwiGLU MLP, fp32
+RMSNorm statistics, untied LM head. Same parameter tree as the JAX package
+(layers stacked on axis 0, kernels (in, out), vocab tables (V, E)), in bf16
+or with int8 weight-only leaves (runtime/quantize.py): ``{name}_q`` +
+``{name}_scale``, split (wq/wk/wv, w1/w3) or fused (wqkv, w13), int8 vocab
+tables, optionally padded to a multiple of 128 (``pad_vocab``; logits of the
+pad rows are set to the dtype's minimum).
+
+int8 dispatch (the JAX rule, with no environment knob): a product of at most
+32 rows with K and N multiples of 128 goes through the int8 kernels
+(kernels/int8_matmul.py: the decode projections and the LM head); any other
+(the prefill's layer projections) takes the JAX package's XLA form,
+``(h @ q.to(h.dtype)) * scale.to(h.dtype)``, which rounds the product before
+the scale.
 
 Entry points: ``prefill`` (prompt -> last logits + a fresh cache; attention
 through kernels.attention.flash_attention) and ``decode_step`` (one token;
@@ -25,6 +35,7 @@ from callireader_tpu_torch.core.config import LLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.kernels.attention import flash_attention
 from callireader_tpu_torch.kernels.decode_attention import flash_decode
+from callireader_tpu_torch.kernels.int8_matmul import BLOCK, MAX_ROWS, int8_matmul, int8_matmul_nt
 
 Params = Dict[str, Any]
 
@@ -91,31 +102,105 @@ class KVCache:
 
 
 def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s leaves: views into the stacks, no copy (an int8 weight
+    q[i] is the layer's (K, N) block in place, which the TPU needed a
+    scalar-prefetch kernel for)."""
     return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _rows(h: torch.Tensor) -> int:
+    return h.numel() // h.shape[-1]
+
+
+def _int8_kernel_route(rows: int, K: int, N: int) -> bool:
+    return rows <= MAX_ROWS and K % BLOCK == 0 and N % BLOCK == 0
+
+
+def _int8_mm(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """h @ dequant(q (K, N), scale (N,) or (1, N)): the int8 kernel for few
+    rows, else the XLA form."""
+    K, N = q.shape
+    rows = _rows(h)
+    if _int8_kernel_route(rows, K, N):
+        y = int8_matmul(h.reshape(rows, K).contiguous(), q, scale.reshape(N))
+        return y.reshape(*h.shape[:-1], N)
+    return (h @ q.to(h.dtype)) * scale.reshape(N).to(h.dtype)
+
+
+def _proj(p: Dict[str, torch.Tensor], h: torch.Tensor, name: str) -> torch.Tensor:
+    """Linear ``name``: bf16 ``p[name]``, or int8 ``{name}_q`` + ``{name}_scale``."""
+    q = p.get(f"{name}_q")
+    if q is None:
+        return h @ p[name].to(h.dtype)
+    return _int8_mm(h, q, p[f"{name}_scale"])
 
 
 def _qkv(p, h, cfg: LLMConfig):
     B, S, _ = h.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, Hq, D).transpose(1, 2)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, Hkv, D).transpose(1, 2)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, Hkv, D).transpose(1, 2)
+    if "wqkv_q" in p:
+        q, k, v = torch.split(_proj(p, h, "wqkv"), [Hq * D, Hkv * D, Hkv * D], dim=-1)
+    else:
+        q, k, v = _proj(p, h, "wq"), _proj(p, h, "wk"), _proj(p, h, "wv")
+    q = q.reshape(B, S, Hq, D).transpose(1, 2)
+    k = k.reshape(B, S, Hkv, D).transpose(1, 2)
+    v = v.reshape(B, S, Hkv, D).transpose(1, 2)
     return q, k, v
 
 
 def _mlp(p, x, cfg: LLMConfig, policy: DTypePolicy):
     h = rms_norm(x, p["ffn_norm"], cfg.rms_norm_eps, policy)
-    gate = F.silu(h @ p["w1"].to(h.dtype))
-    up = h @ p["w3"].to(h.dtype)
-    return x + (gate * up) @ p["w2"].to(h.dtype)
+    if "w13_q" in p:
+        g, up = _proj(p, h, "w13").chunk(2, dim=-1)
+    else:
+        g, up = _proj(p, h, "w1"), _proj(p, h, "w3")
+    return x + _proj(p, F.silu(g) * up, "w2")
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    return params["tok_embeddings"][input_ids.long()].to(dtype)
+    """Token embedding lookup; int8 rows are dequantized after the gather."""
+    ids = input_ids.long()
+    if "tok_embeddings_q" in params:
+        return params["tok_embeddings_q"][ids].to(dtype) * params["tok_embeddings_scale"][ids].to(dtype)
+    return params["tok_embeddings"][ids].to(dtype)
 
 
-def _logits(params: Params, x: torch.Tensor, policy: DTypePolicy) -> torch.Tensor:
-    return (x @ params["output"].to(x.dtype).T).to(policy.logits_dtype)
+def _logits(params: Params, x: torch.Tensor, policy: DTypePolicy, cfg: LLMConfig) -> torch.Tensor:
+    if "output_q" in params:
+        q, scale = params["output_q"], params["output_scale"]  # (V, E), (V, 1)
+        N, K = q.shape
+        rows = _rows(x)
+        if _int8_kernel_route(rows, K, N):
+            y = int8_matmul_nt(x.reshape(rows, K).contiguous(), q, scale.reshape(N))
+            y = y.reshape(*x.shape[:-1], N).to(policy.logits_dtype)
+        else:
+            y = ((x @ q.T.to(x.dtype)) * scale[:, 0].to(x.dtype)).to(policy.logits_dtype)
+    else:
+        y = (x @ params["output"].to(x.dtype).T).to(policy.logits_dtype)
+    if cfg.real_vocab_size is not None and cfg.real_vocab_size < y.shape[-1]:
+        # padded vocab rows (pad_vocab) never win argmax
+        y[..., cfg.real_vocab_size:] = torch.finfo(y.dtype).min
+    return y
+
+
+def pad_vocab(params: Params, cfg: LLMConfig, multiple: int) -> Tuple[Params, LLMConfig]:
+    """Zero-pad the vocab tables to a multiple of ``multiple`` (92553 rows
+    become 92672 at 128, which the LM-head kernel needs); the returned config
+    records ``real_vocab_size`` so ``_logits`` masks the pad rows."""
+    if cfg.vocab_size % multiple == 0:
+        return params, cfg
+    V = cfg.vocab_size
+    Vp = -(-V // multiple) * multiple
+    out = dict(params)
+    for name in ("tok_embeddings", "output", "tok_embeddings_q", "output_q",
+                 "tok_embeddings_scale", "output_scale"):
+        if name in out:
+            w = out[name]
+            out[name] = torch.cat([w, w.new_zeros((Vp - V,) + tuple(w.shape[1:]))])
+    return out, dataclasses.replace(
+        cfg, vocab_size=Vp,
+        real_vocab_size=cfg.real_vocab_size if cfg.real_vocab_size is not None else V,
+    )
 
 
 def prefill(
@@ -151,11 +236,11 @@ def prefill(
         # in-place cache fill of this layer's prompt slots
         cache.k[i, :, :, :S] = k.to(cache_dtype)
         cache.v[i, :, :, :S] = v.to(cache_dtype)
-        x = x + ctx.transpose(1, 2).reshape(B, S, -1) @ p["wo"].to(x.dtype)
+        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
         x = _mlp(p, x, cfg, policy)
     x = rms_norm(x[:, -1:], params["norm"], cfg.rms_norm_eps, policy)
     cache.length = S
-    return _logits(params, x, policy)[:, 0], cache
+    return _logits(params, x, policy, cfg)[:, 0], cache
 
 
 def decode_step(
@@ -198,8 +283,8 @@ def decode_step(
         cache.k[i, :, :, slot] = k[:, :, 0].to(cache.k.dtype)
         cache.v[i, :, :, slot] = v[:, :, 0].to(cache.v.dtype)
         ctx = flash_decode(q, cache.k, cache.v, i, kv_valid_mask)
-        x = x + ctx.transpose(1, 2).reshape(B, S, -1) @ p["wo"].to(x.dtype)
+        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
         x = _mlp(p, x, cfg, policy)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps, policy)
     cache.length = slot + 1
-    return _logits(params, x, policy)[:, 0], cache
+    return _logits(params, x, policy, cfg)[:, 0], cache

@@ -597,15 +597,26 @@ def build_engine(
     *,
     seed: int = 0,
     tokenizer_path: str = DEFAULT_MODEL,
+    quant: Optional[str] = None,
 ) -> CalliReaderEngine:
     """Engine for ``preset`` with seeded random weights (no InternVL
     checkpoint ships with the repo; outputs are noise) and, where the
     preset's architecture matches, the committed trained detector,
-    OrderFormer and compact CalliAlign tower."""
+    OrderFormer and compact CalliAlign tower.
+
+    ``quant="int8"``: the JAX bench's flagship build. The LLM is drawn as
+    int8 weight-only in the fused wqkv / w13 layout, its vocab tables are
+    padded to a multiple of 128 (``real_vocab_size`` keeps the true size),
+    and the decode products run through the int8 kernels."""
+    if quant not in (None, "int8"):
+        raise ValueError(f"quant={quant!r}: the port has None (bf16) and 'int8'")
     dev = require_device(device)
     cfg = get_config(preset)
     g = torch.Generator(device=dev).manual_seed(seed)
-    params = weights.init_params(cfg, g, dtype=torch.bfloat16, device=dev)
+    params = weights.init_params(cfg, g, dtype=torch.bfloat16, device=dev, llm_int8=quant == "int8")
+    if quant == "int8":
+        params["llm"], llm_cfg = internlm2.pad_vocab(params["llm"], cfg.llm, 128)
+        cfg = dataclasses.replace(cfg, llm=llm_cfg)
     cfg, loaded = weights.overlay_trained_assets(params, cfg, dtype=torch.bfloat16, device=dev)
     if loaded:
         print(f"[engine] trained assets loaded: {', '.join(loaded)}", file=sys.stderr)

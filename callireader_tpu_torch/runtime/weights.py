@@ -25,6 +25,7 @@ from callireader_tpu_torch.core.config import (
     VLMConfig,
 )
 from callireader_tpu_torch.models import detector as detector_mod
+from callireader_tpu_torch.runtime import quantize
 
 ASSETS_DIR = Path(__file__).resolve().parents[2] / "callireader_tpu" / "assets"
 
@@ -40,7 +41,8 @@ def _to_tensor(x, device) -> torch.Tensor:
 
 def from_jax_params(tree, *, device):
     """JAX param pytree (dicts/lists of arrays) -> the same tree of torch
-    tensors on ``device``, dtypes kept."""
+    tensors on ``device``, dtypes kept (int8 weights and their fp32 scales
+    cross unchanged)."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device=device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -209,13 +211,17 @@ def init_detector(r: _Init, cfg: DetectorConfig) -> Dict[str, Any]:
 
 
 def init_params(cfg: VLMConfig, generator: torch.Generator, dtype=torch.bfloat16,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", *, llm_int8: bool = False) -> Dict[str, Any]:
     """Seeded full-width random init of the whole engine tree (the JAX
-    engine's ``init_all_params`` layout). Detector and OrderFormer are fp32."""
+    engine's ``init_all_params`` layout). Detector and OrderFormer are fp32.
+    ``llm_int8``: the LLM is drawn directly as int8 + scales in the fused
+    layout (runtime/quantize.init_llm_int8), never as a bf16 tree."""
     r = _Init(generator, device, dtype)
     V, E = cfg.llm.vocab_size, cfg.llm.hidden_size
+    llm = (quantize.init_llm_int8(cfg.llm, generator, dtype=dtype, device=device) if llm_int8
+           else init_llm(r, cfg.llm))
     out = {
-        "llm": init_llm(r, cfg.llm),
+        "llm": llm,
         "vision": init_vision(r, cfg.vision),
         "projector": init_projector(r, cfg),
         "resampler": init_resampler(r, cfg.resampler),

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from callireader_tpu_torch.kernels import attention as tattn
+from callireader_tpu_torch.core.dtypes import exact_fp32
 from callireader_tpu_torch.kernels import decode_attention as tdec
+from callireader_tpu_torch.kernels import int8_matmul as ti8
 from callireader_tpu_torch.kernels import tolerance
 from callireader_tpu_torch.kernels import vit_attention as tvit
 
@@ -267,3 +269,93 @@ def test_cuda_wrappers_refuse_bad_input(cuda):
     valid = torch.ones((1, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         tdec.flash_decode(q[:, :, :1].contiguous(), cache, cache, 0, valid)
+
+
+# ------------------------------------------------------- int8 products (card)
+
+
+def _int8(rng, shape, device):
+    return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(device)
+
+
+def _scales(rng, n, device):
+    return torch.from_numpy((rng.random(n) * 1e-3 + 1e-4).astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096), (256, 128)])
+def test_cuda_int8_matmul_matches_plain(cuda, M, K, N):
+    rng = np.random.default_rng(M + K)
+    h, q, s = _bf16(rng, (M, K), cuda), _int8(rng, (K, N), cuda), _scales(rng, N, cuda)
+    got = ti8.int8_matmul(h, q, s)
+    torch.cuda.synchronize()
+    with exact_fp32():
+        want = ti8.int8_matmul_reference(h.float(), q, s)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert tolerance.excess_error(got, want) <= tolerance.ATOL["int8_matmul"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("K,N", [(4096, 92672), (128, 256)])
+def test_cuda_int8_matmul_nt_matches_plain(cuda, M, K, N):
+    rng = np.random.default_rng(M + N)
+    h, q, s = _bf16(rng, (M, K), cuda), _int8(rng, (N, K), cuda), _scales(rng, N, cuda)
+    got = ti8.int8_matmul_nt(h, q, s)
+    torch.cuda.synchronize()
+    with exact_fp32():
+        want = ti8.int8_matmul_nt_reference(h.float(), q, s)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert tolerance.excess_error(got, want) <= tolerance.ATOL["int8_matmul_nt"]
+
+
+@pytest.mark.cuda
+def test_cuda_int8_stacked_reads_the_layer_in_place(cuda):
+    """The model's route for JAX's stacked kernel: layer ``i`` of the
+    (L, K, N) stack sliced as a view goes to the one (K, N) kernel, and gives
+    what a copy of that layer gives."""
+    from callireader_tpu_torch.models import internlm2 as tllm
+
+    rng = np.random.default_rng(5)
+    L, M, K, N = 4, 4, 1024, 768
+    h, q, s = _bf16(rng, (M, K), cuda), _int8(rng, (L, K, N), cuda), _scales(rng, L * N, cuda)
+    stack = {"layers": {"w_q": q, "w_scale": s.reshape(L, 1, N)}}
+    before = ti8.KERNEL.launches
+    for layer in range(L):
+        got = tllm._proj(tllm._layer(stack, layer), h, "w")
+        assert torch.equal(got, ti8.int8_matmul(h, q[layer].clone(), s.reshape(L, N)[layer].clone()))
+    assert ti8.KERNEL.launches == before + 2 * L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [(4096, 1024, 1024), (14336, 14336)])
+def test_cuda_int8_fused_equals_unfused_bitwise(cuda, parts):
+    """The fused wqkv / w13 product, split, equals the separate products bit
+    for bit: each column's summation order depends on K alone."""
+    rng = np.random.default_rng(len(parts))
+    M, K = 4, 4096
+    h = _bf16(rng, (M, K), cuda)
+    qs = [_int8(rng, (K, n), cuda) for n in parts]
+    ss = [_scales(rng, n, cuda) for n in parts]
+    fused = ti8.int8_matmul(h, torch.cat(qs, dim=1), torch.cat(ss))
+    for got, q, s in zip(torch.split(fused, list(parts), dim=1), qs, ss):
+        assert torch.equal(got, ti8.int8_matmul(h, q, s))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_wrappers_refuse_bad_input(cuda):
+    rng = np.random.default_rng(6)
+    q, s = _int8(rng, (512, 256), cuda), _scales(rng, 256, cuda)
+    qt, st = _int8(rng, (256, 512), cuda), _scales(rng, 256, cuda)
+    for fn, w, sc in ((ti8.int8_matmul, q, s), (ti8.int8_matmul_nt, qt, st)):
+        with pytest.raises(ValueError):
+            fn(_bf16(rng, (33, 512), cuda), w, sc)  # M = 33
+        with pytest.raises(ValueError):
+            fn(_bf16(rng, (4, 512), cuda).float(), w, sc)  # fp32 rows
+        with pytest.raises(ValueError):
+            fn(_bf16(rng, (4, 512), cuda), w.T.contiguous().T, sc)  # non-contiguous weight
+    with pytest.raises(ValueError):  # K = 192 is no multiple of 128
+        ti8.int8_matmul(_bf16(rng, (4, 192), cuda), _int8(rng, (192, 256), cuda), s)
+    with pytest.raises(ValueError):
+        ti8.int8_matmul_nt(_bf16(rng, (4, 192), cuda), _int8(rng, (256, 192), cuda), st)
