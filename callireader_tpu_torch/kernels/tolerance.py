@@ -15,9 +15,10 @@ outputs v itself, |v| up to ~4) does not set the bar for the typical output,
 which is ~0.03-0.05 for random inputs over thousands of keys. ``ATOL`` holds
 what is left, the summation-order error. ``chip_smoke.py`` measured it on an
 H100 80GB HBM3 (700 W) at the main path's shapes: at most 1.8e-7 (ViT),
-2.5e-7 (prefill), 0 (decode), 4.7e-8 (int8, K x N weights) and 1.2e-7
-(int8 LM head). ATOL sits 40-200x above that and far below what a lost
-64-key tile or 128-deep K block costs (tests/test_torch_kernels.py,
+2.5e-7 (prefill), 1.3e-8 (decode), 3.0e-9 (paged decode), 4.7e-8 (int8,
+K x N weights) and 1.2e-7 (int8 LM head). ATOL sits 40-200x above that and
+far below what a lost 64-key tile, page or 128-deep K block costs
+(tests/test_torch_kernels.py, tests/test_torch_paged.py,
 tests/test_torch_int8.py).
 """
 
@@ -27,7 +28,7 @@ import torch
 
 BF16_ROUNDING = 2.0**-8
 ATOL = {"vit_attention": 1e-5, "flash_attention": 1e-5, "flash_decode": 1e-5,
-        "int8_matmul": 1e-5, "int8_matmul_nt": 1e-5}
+        "int8_matmul": 1e-5, "int8_matmul_nt": 1e-5, "paged_flash_decode": 1e-5}
 
 
 def excess_error(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -20,7 +20,9 @@ through kernels.attention.flash_attention) and ``decode_step`` (one token;
 kernels.decode_attention.flash_decode over the stacked cache). The KV cache
 is one preallocated (L, B, Hkv, max_len, D) buffer per K and V that both
 entry points write IN PLACE: prefill fills [0, S), each decode step writes
-slot ``cache.length`` of every layer.
+slot ``cache.length`` of every layer. For serving: ``prefill_with_prefix``
+(suffix-only prefill over a cached prefix KV) and ``decode_step_multislot``
+(every slot of a caller-owned cache advances one token at its own position).
 """
 
 from __future__ import annotations
@@ -288,3 +290,117 @@ def decode_step(
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps, policy)
     cache.length = slot + 1
     return _logits(params, x, policy, cfg)[:, 0], cache
+
+
+def prefill_with_prefix(
+    params: Params,
+    cfg: LLMConfig,
+    *,
+    inputs_embeds: torch.Tensor,  # (B, S, E) suffix rows, left-padded
+    attention_mask: torch.Tensor,  # (B, S) 1 = valid
+    prefix_k: torch.Tensor,  # (L, Hkv, P, D) cached prefix KV (RoPE'd at positions 0..P-1)
+    prefix_v: torch.Tensor,
+    max_len: int,
+    cache_dtype=torch.bfloat16,
+    policy: DTypePolicy = DEFAULT_POLICY,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Chunked prefill over an already-computed prefix KV (the serving prefix
+    cache): only the suffix tokens run through the layers; their queries
+    attend the prefix in full and each other causally
+    (``flash_attention(..., q_offset=P)``).
+
+    Returns (last logits (B, V), cache) whose per-row region is laid out
+    ``[pad | prefix | suffix]`` at ``[padlen, P + S)``, the contiguous
+    left-padded region the multislot decode expects."""
+    x = inputs_embeds.to(policy.compute_dtype)
+    B, S, _ = x.shape
+    P = prefix_k.shape[2]
+    dev = x.device
+    attention_mask = attention_mask.to(torch.int32)
+    # suffix positions continue the prefix's 0..P-1 (valid tokens only)
+    positions = P + torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
+    q_seg = torch.where(attention_mask > 0, 0, -1).to(torch.int32)
+    kv_seg = torch.cat([torch.zeros((B, P), dtype=torch.int32, device=dev), q_seg], dim=1)
+    cos, sin = cos_sin_for(cfg, positions, P + S)
+    cache = KVCache.create(cfg, B, max_len, cache_dtype, dev)
+
+    # a layer's keys come out as [prefix | pad | suffix] per row (the suffix
+    # rows were left-padded); the cache wants [pad | prefix | suffix]: column
+    # j reads prefix[j - padlen] inside [padlen, padlen + P) and its own
+    # column beyond. Columns below padlen are dead (outside [start, length)).
+    padlen = (attention_mask == 0).sum(dim=1)  # (B,)
+    j = torch.arange(P + S, device=dev)[None]
+    gidx = torch.where(j < padlen[:, None] + P,
+                       torch.clamp(j - padlen[:, None], 0, P - 1), j)  # (B, P+S)
+    Hkv, D = cfg.num_key_value_heads, cfg.head_dim
+    gidx = gidx[:, None, :, None].expand(B, Hkv, P + S, D)
+
+    for i in range(cfg.num_hidden_layers):
+        p = _layer(params, i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
+        q, k, v = _qkv(p, h, cfg)
+        q = apply_rope(q, cos, sin).contiguous()
+        k = apply_rope(k, cos, sin)
+        kf = torch.cat([prefix_k[i].to(k.dtype)[None].expand(B, -1, -1, -1), k], dim=2)
+        vf = torch.cat([prefix_v[i].to(v.dtype)[None].expand(B, -1, -1, -1), v], dim=2)
+        ctx = flash_attention(q, kf, vf, causal=True, q_segment_ids=q_seg,
+                              kv_segment_ids=kv_seg, q_offset=P)
+        cache.k[i, :, :, :P + S] = torch.gather(kf, 2, gidx).to(cache_dtype)
+        cache.v[i, :, :, :P + S] = torch.gather(vf, 2, gidx).to(cache_dtype)
+        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
+        x = _mlp(p, x, cfg, policy)
+    x = rms_norm(x[:, -1:], params["norm"], cfg.rms_norm_eps, policy)
+    cache.length = P + S
+    return _logits(params, x, policy, cfg)[:, 0], cache
+
+
+def decode_step_multislot(
+    params: Params,
+    cfg: LLMConfig,
+    *,
+    input_ids: torch.Tensor,  # (B, 1), one in-flight token per slot
+    cache_k: torch.Tensor,  # (L, B, Hkv, max_len, D), written in place
+    cache_v: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) tokens written per slot = this step's write position
+    starts: Optional[torch.Tensor] = None,  # (B,) first attendable cache position
+    policy: DTypePolicy = DEFAULT_POLICY,
+) -> torch.Tensor:
+    """Continuous-batching decode: every slot advances one token at its own
+    position -> logits (B, V). Each layer scatters the new K/V to
+    ``(layer, b, :, lengths[b], :)`` of the caller's cache IN PLACE and attends
+    ``starts[b] <= pos <= lengths[b]``; RoPE uses the true position
+    ``lengths - starts``. The caller advances ``lengths`` for its active
+    slots; inactive slots compute garbage that the caller ignores, so their
+    ``lengths`` must still index inside the cache."""
+    x = embed_tokens(params, input_ids, policy.compute_dtype)
+    B, S, _ = x.shape
+    dev = x.device
+    max_len = cache_k.shape[3]
+    lengths = lengths.to(dev, torch.int64)
+    slot_pos = torch.arange(max_len, device=dev)[None, :]
+    valid = slot_pos <= lengths[:, None]
+    positions = lengths[:, None]
+    if starts is not None:
+        # left-padded prompts: positions before `starts` hold masked pad k/v
+        starts = starts.to(dev, torch.int64)
+        valid = valid & (slot_pos >= starts[:, None])
+        positions = (lengths - starts)[:, None]
+    cos, sin = cos_sin_for(cfg, positions, max_len)
+    kv_valid = valid.to(torch.int32)
+    batch_idx = torch.arange(B, device=dev)
+
+    for i in range(cfg.num_hidden_layers):
+        p = _layer(params, i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
+        q, k, v = _qkv(p, h, cfg)
+        q = apply_rope(q, cos, sin).contiguous()
+        k = apply_rope(k, cos, sin)
+        # the two index tensors are split by a slice, so the indexed dim comes
+        # first: the target is (B, Hkv, D), which k[:, :, 0] already is
+        cache_k[i][batch_idx, :, lengths] = k[:, :, 0].to(cache_k.dtype)
+        cache_v[i][batch_idx, :, lengths] = v[:, :, 0].to(cache_v.dtype)
+        ctx = flash_decode(q, cache_k, cache_v, i, kv_valid)
+        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
+        x = _mlp(p, x, cfg, policy)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps, policy)
+    return _logits(params, x, policy, cfg)[:, 0]

@@ -1,5 +1,6 @@
 """CalliReader engine, batched full-page ``chat_ocr`` (PyTorch port of
-callireader_tpu/runtime/engine.py, the ``batch_chat_ocr`` path).
+callireader_tpu/runtime/engine.py: the ``batch_chat_ocr`` path, and the
+per-request pieces the servers call, ``calli_align`` and ``_build_row_embeds``).
 
     pages -> on-device dynamic tiling -> InternViT tile tower + projector
           -> YOLO detector + host NMS -> dedup / k-means / column merge
@@ -426,6 +427,25 @@ class CalliReaderEngine:
             out.append((pseudo, idx))
         return out
 
+    def calli_align(self, image: np.ndarray):
+        """One page -> (pseudo (3 * chars, E), indices (chars, 3)) on the
+        device, or (None, None) when the detector finds no character."""
+        with self._span("yolo_orderformer"):
+            ordered = self.sort_boxes(image)
+        t0 = time.perf_counter()
+        raw_crops = []
+        for x1, y1, x2, y2 in ordered:
+            x1, y1, x2, y2 = int(x1), int(y1), int(x2), int(y2)
+            if x2 <= x1 or y2 <= y1:
+                continue
+            raw_crops.append(image[y1:y2, x1:x2])
+        self.timings.add("char_crops", time.perf_counter() - t0)
+        if not raw_crops:
+            return None, None
+        parts = self._char_parts(raw_crops)
+        with self._span("vit_resampler_vq"):
+            return self._reorder(*parts)
+
     # ------------------------------------------------------------ chat
 
     def _tokenize_prompt(self, query: str) -> np.ndarray:
@@ -447,6 +467,19 @@ class CalliReaderEngine:
             embeds = vq_mod.splice_embeds(embeds, input_ids, pseudo_embeds,
                                           self.cfg.aligned_token_id)
         return embeds
+
+    def _build_row_embeds(self, input_ids: np.ndarray, img_embeds, pseudo_embeds, bucket: int):
+        """One request's prompt -> (embeds (1, bucket, E) on the device, mask
+        (1, bucket)), left-padded. (The JAX engine also pads the replacement
+        rows to buckets so that its splice compiles once per bucket; the
+        splice ignores extra rows and nothing compiles here.)"""
+        S = len(input_ids)
+        padded_ids = np.full((1, bucket), self.tok.pad_token_id, np.int32)
+        padded_ids[0, bucket - S:] = input_ids
+        mask = np.zeros((1, bucket), np.int32)
+        mask[0, bucket - S:] = 1
+        img = None if img_embeds is None else img_embeds.reshape(-1, img_embeds.shape[-1])
+        return self._build_embeds(self._to_dev(padded_ids), img, pseudo_embeds), mask
 
     def batch_build_rows(
         self,

@@ -2,14 +2,15 @@
 callireader_tpu/vision/preprocess.py without PIL.
 
 Pages arrive as uint8 RGB arrays. Tile-grid selection, the tile/char
-buckets, the [200, 350] char-content rule and the host path for crops that
-would be downscaled (PIL-compatible antialiased BICUBIC from
-vision/resample.py, white-padded to a content canvas) live here.
+buckets, host dynamic tiling (``load_image``, what the server runs per page),
+the [200, 350] char-content rule and the host path for crops that would be
+downscaled live here; every resize is the PIL-compatible antialiased BICUBIC
+of vision/resample.py (PIL's default ``resize`` filter).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -69,6 +70,43 @@ def tile_grid(
         key=lambda x: x[0] * x[1],
     )
     return find_closest_aspect_ratio(aspect, ratios, ow, oh, image_size)
+
+
+def to_tensor_uint8(img: np.ndarray, input_size: int) -> np.ndarray:
+    """Bicubic resize to (input_size, input_size), uint8 HWC; ImageNet
+    normalization happens on the device (models/internvit)."""
+    return resample.pil_resize(as_rgb_array(img), (input_size, input_size), "bicubic")
+
+
+def dynamic_tile(
+    image: np.ndarray,
+    min_num: int = 1,
+    max_num: int = 12,
+    image_size: int = 448,
+    use_thumbnail: bool = False,
+) -> List[np.ndarray]:
+    """Aspect-ratio-aware tiling on the host: bicubic resize to the grid
+    ``tile_grid`` picks, row-major split, thumbnail appended for a page of
+    more than one tile."""
+    oh, ow = image.shape[:2]
+    cols, rows = tile_grid(ow, oh, min_num, max_num, image_size)
+    resized = resample.pil_resize(image, (image_size * cols, image_size * rows), "bicubic")
+    tiles = [
+        resized[r * image_size:(r + 1) * image_size, c * image_size:(c + 1) * image_size]
+        for r in range(rows) for c in range(cols)
+    ]
+    if use_thumbnail and len(tiles) != 1:
+        tiles.append(resample.pil_resize(image, (image_size, image_size), "bicubic"))
+    return tiles
+
+
+def load_image(
+    image, input_size: int = 448, max_num: int = 12, use_thumbnail: bool = True
+) -> np.ndarray:
+    """Main-image pipeline on the host -> (num_tiles, H, W, 3) uint8."""
+    img = as_rgb_array(image)
+    tiles = dynamic_tile(img, image_size=input_size, use_thumbnail=use_thumbnail, max_num=max_num)
+    return np.stack([to_tensor_uint8(t, input_size) for t in tiles])
 
 
 def char_content_canvas(input_size: int = 448) -> int:

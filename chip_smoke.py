@@ -41,7 +41,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      the weights cold in L2 (the (K, N) kernel walks the layers), beside
      the yardstick (bf16 torch.matmul against a dequantized bf16 copy of the
      weight, which the port never calls); the fused wqkv / w13 products,
-     split, must equal the separate products bit for bit.
+     split, must equal the separate products bit for bit;
+  9. serve, paged: on the same 8b int8 engine, 8 request rows built from
+     synthetic pages the way cli/serve.py prepares a wave (batch_calli_align,
+     host load_image, encode_image_tiles, _build_row_embeds) go through a
+     PagedBatcher(num_slots=8, page_size=128, max_pages_per_slot=32,
+     num_pages=257: the CLI's sizes for --slots 8 --max-len 4096) with 256 new
+     tokens, once with steps_per_sync=1 and once with 8. Counts zeroed before,
+     read after: the paged kernel launched 32 times per decode step and
+     flash_decode not at all; every request finished with token ids below the
+     real vocabulary; every page returned. Admissions, prefill seconds, ms per
+     decode step, tokens per second and peak memory are printed, then host
+     against device ms a step from a profiler trace, for both settings;
+ 10. serve, pressure: the same rows against a pool too small for them: at
+     least one preemption, every request completes or fails with its own
+     error, every page returns;
+ 11. serve, HTTP: serve_http on a loopback port over a paged batcher: /health,
+     one text-only /v1/chat/completions over a real socket, two page images
+     through SchedulerLoop.submit; then a short ContinuousBatcher run (the
+     contiguous scheduler's decode goes through flash_decode);
+ 12. reference: admission plus one paged decode step of a small batcher
+     through the kernels against the same model with every kernel swapped for
+     its plain version;
+ 13. the paged kernel against its plain version with the page table and
+     validity of the serve phase's last decode step, at the deepest layer,
+     beside the yardstick (gather of the slots' pages +
+     scaled_dot_product_attention, which the port never calls).
 Prints the ``kernels`` JSON line, then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
 port's sources next to it.
@@ -50,13 +75,18 @@ port's sources next to it.
 import json
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 
 N_PAGES = 4
 MAX_NEW_TOKENS = 64
 MAX_NEW_TOKENS_8B = 256
+SERVE_SLOTS, SERVE_PAGE, SERVE_PAGES_PER_SLOT = 8, 128, 32  # serve --slots 8 --max-len 4096
+SERVE_NEW_TOKENS = 256
+PRESSURE_FREE_PAGES, PRESSURE_NEW_TOKENS = 118, 160
 PAGE_W, PAGE_H = 788, 2000
 N_COLS, CHARS_PER_COL = 6, 16
 QUESTION = "读出图中所有文字。"
@@ -158,6 +188,11 @@ class ShapeLog:
         "flash_decode": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[3], a[4].clone()),
         "int8_matmul": lambda a: (a[0].shape[0], *a[1].shape),  # (M, K, N)
         "int8_matmul_nt": lambda a: (a[0].shape[0], a[1].shape[1], a[1].shape[0]),
+        # (q, kpool, vpool, layer, page_table, valid, scale): the table and the
+        # validity of the deepest layer's call only (one clone a decode step)
+        "paged_flash_decode": lambda a: (
+            (tuple(a[0].shape), tuple(a[1].shape), a[3], a[4].clone(), a[5].clone())
+            if a[3] == a[1].shape[0] - 1 else None),
     }
 
     def __init__(self, kernels):
@@ -172,9 +207,10 @@ class ShapeLog:
 
             def rec(*args, _orig=orig, _name=name):
                 summary = self.SUMMARY[_name](args)
-                if _name == "flash_decode":  # keep the last step's mask only
+                if _name in ("flash_decode", "paged_flash_decode"):  # the last step's mask only
                     self.calls[_name] = self.calls[_name][-1:]
-                self.calls[_name].append(summary)
+                if summary is not None:
+                    self.calls[_name].append(summary)
                 return _orig(*args)
 
             setattr(k.module, k.launch, rec)
@@ -246,11 +282,16 @@ def main() -> int:
         from callireader_tpu_torch.kernels import attention as k_attn
         from callireader_tpu_torch.kernels import decode_attention as k_dec
         from callireader_tpu_torch.kernels import int8_matmul as k_i8
+        from callireader_tpu_torch.kernels import paged_decode as k_paged
         from callireader_tpu_torch.kernels import tolerance
         from callireader_tpu_torch.kernels import vit_attention as k_vit
         from callireader_tpu_torch.models import internlm2, internvit
-        from callireader_tpu_torch.runtime.engine import build_engine
+        from callireader_tpu_torch.runtime import generate as gen_mod
+        from callireader_tpu_torch.runtime import http_server, paged_cache, serving
+        from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
+        from callireader_tpu_torch.runtime.engine import ALIGNED, build_engine
         from callireader_tpu_torch.runtime.quantize import param_bytes
+        from callireader_tpu_torch.vision import preprocess
     except ImportError as e:
         print(f"[chip_smoke] the port is not importable here: {e}", file=sys.stderr)
         return 2
@@ -277,8 +318,14 @@ def main() -> int:
                               "int8_matmul"),
         "int8_matmul_nt": kernel(k_i8, k_i8.KERNEL_NT, "_launch_nt", "int8_matmul",
                                  "int8_matmul.py:74", "int8_matmul_nt"),
+        "paged_flash_decode": kernel(k_paged, k_paged.KERNEL, "_launch", "paged_decode",
+                                     "paged_decode.py:93 paged_flash_decode (:144)",
+                                     "paged_flash_decode"),
     }
     attention = ("vit_attention", "flash_attention", "flash_decode")
+    batch_path = attention + ("int8_matmul", "int8_matmul_nt")  # batch_chat_ocr, 8b int8
+    serve_path = ("vit_attention", "flash_attention", "paged_flash_decode", "int8_matmul",
+                  "int8_matmul_nt")  # serve --paged, 8b int8
 
     def zero_counts():
         for k in kernels.values():
@@ -529,7 +576,7 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     run8 = run_main_path(engine, MAX_NEW_TOKENS_8B, "8b")
     launches_8b = run8.launches
-    missing = [n for n, c in launches_8b.items() if c == 0]
+    missing = [n for n in batch_path if launches_8b[n] == 0]
     if missing:
         fail(f"kernels never launched on the 8b int8 main path: {missing}")
     n_steps = run8.steps.n["decode_step"]
@@ -667,6 +714,293 @@ def main() -> int:
             if not torch.equal(got, k_i8.int8_matmul(x, qp.contiguous(), sp.contiguous())):
                 fail(f"fused {label} part {i} differs from its separate product")
     log("fused wqkv / w13 outputs, split, equal the separate products bit for bit")
+
+    # ---------------------------------------------------------- 9. serve, paged
+    del x, fused
+    torch.cuda.empty_cache()
+    vcfg = engine.cfg
+    vocab = cfg.real_vocab_size or cfg.vocab_size
+    eos = (engine.tok.convert_tokens_to_ids(get_conv_template(vcfg.template).sep),)
+    serve_pages = [make_page(seed)[0] for seed in range(SERVE_SLOTS)]
+
+    def serve_rows(pages_np):
+        """One wave of request rows the way cli/serve.py prepares it; logs
+        the seconds of each part (a device sync ends each)."""
+        spans, t0 = {}, time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            torch.cuda.synchronize()
+            spans[name], t0 = round(time.perf_counter() - t0, 4), time.perf_counter()
+
+        aligned = engine.batch_calli_align(pages_np)
+        lap("batch_calli_align")
+        pixel = [preprocess.load_image(pg, vcfg.force_image_size, vcfg.max_dynamic_patch,
+                                       vcfg.use_thumbnail) for pg in pages_np]
+        lap("host_load_image")
+        feats = engine.encode_image_tiles(engine._to_dev(np.concatenate(pixel, axis=0)))
+        lap("encode_image_tiles")
+        rows, off = [], 0
+        for (pseudo, _idx), px in zip(aligned, pixel):
+            n = px.shape[0]
+            question = "<image>\n" + QUESTION
+            if pseudo is not None:
+                question += ALIGNED * pseudo.shape[0]
+            query = engine._expand_image_tokens(build_chat_prompt(question).get_prompt(), [n])
+            ids = engine._tokenize_prompt(query)
+            bucket = gen_mod.bucket_length(len(ids))
+            embeds, _mask = engine._build_row_embeds(ids, feats[off:off + n], pseudo, bucket)
+            off += n
+            rows.append(embeds[0, bucket - len(ids):])
+        lap("tokenize_build_rows")
+        log(f"[serve] front half of {len(pages_np)} pages ({sum(p.shape[0] for p in pixel)} tiles), "
+            f"seconds: {json.dumps(spans)}")
+        return rows
+
+    def paged_batcher(steps_per_sync=1, num_pages=SERVE_SLOTS * SERVE_PAGES_PER_SLOT + 1, **kw):
+        return paged_cache.PagedBatcher(
+            llm, cfg, num_slots=SERVE_SLOTS, num_pages=num_pages, page_size=SERVE_PAGE,
+            max_pages_per_slot=SERVE_PAGES_PER_SLOT, policy=engine.policy,
+            steps_per_sync=steps_per_sync, **kw)
+
+    def requests_for(rows, max_new):
+        return [serving.Request(uid, row.float().cpu().numpy(), dev_embeds=row,
+                                max_new_tokens=max_new, eos_token_ids=eos)
+                for uid, row in enumerate(rows)]
+
+    def check_done(label, done, n, batcher, num_pages):
+        if len(done) != n:
+            fail(f"[{label}] {len(done)} of {n} requests came back")
+        for r in done:
+            if r.error is None and not (r.tokens and all(0 <= t < vocab for t in r.tokens)):
+                fail(f"[{label}] request {r.uid}: no tokens, or ids outside the vocabulary ({vocab})")
+        if len(batcher.pool.free) != num_pages - 1 or any(sl is not None for sl in batcher.slots):
+            fail(f"[{label}] {num_pages - 1 - len(batcher.pool.free)} pages did not return to the pool")
+
+    def serve_run(label, steps_per_sync, rows=None):
+        """Submit 8 rows to a fresh PagedBatcher and drain it; every count
+        zeroed just before, read just after. ``rows`` None: the wave's front
+        half (tiling, detector, char path, tile tower) runs inside the counted
+        region too."""
+        num_pages = SERVE_SLOTS * SERVE_PAGES_PER_SLOT + 1
+        batcher = paged_batcher(steps_per_sync)
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t_prep = time.time()
+        with ShapeLog(kernels) as shapes, \
+                CallCount(internlm2, ("prefill",), timed=("prefill",), torch=torch) as pre, \
+                CallCount(paged_cache.PagedBatcher, ("_decode",)) as dec:
+            if rows is None:
+                rows = serve_rows(serve_pages)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for r in requests_for(rows, SERVE_NEW_TOKENS):
+                batcher.submit(r)
+            done = batcher.run()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_done(label, done, len(rows), batcher, num_pages)
+        if any(r.error is not None for r in done):
+            fail(f"[{label}] a request failed: {[r.error for r in done if r.error]}")
+        n_dec, n_pre = dec.n["_decode"], pre.n["prefill"]
+        n_tok = sum(len(r.tokens) for r in done)
+        log(f"[{label}] front half {t0 - t_prep:.3f} s; {len(rows)} rows of "
+            f"{[int(r.shape[0]) for r in rows]} tokens, {batcher._admit_seq} admissions in {n_pre} "
+            f"prefill(s) of {pre.seconds['prefill']:.4f} s; {n_dec} decode steps at "
+            f"{(wall - pre.seconds['prefill']) / n_dec * 1e3:.3f} ms a step (host clock, run minus "
+            f"prefill); {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; "
+            f"{batcher.n_preempted} preemptions; peak memory {peak:.2f} GiB; launches {launches}")
+        if n_dec < 1 or launches["paged_flash_decode"] != L * n_dec:
+            fail(f"[{label}] paged kernel launches {launches['paged_flash_decode']} != {L} x {n_dec}")
+        if launches["flash_decode"] != 0:
+            fail(f"[{label}] flash_decode launched {launches['flash_decode']} times on the paged path")
+        if launches["int8_matmul"] != 4 * L * n_dec or launches["int8_matmul_nt"] != n_dec + n_pre:
+            fail(f"[{label}] int8 launches {launches['int8_matmul']} / {launches['int8_matmul_nt']} "
+                 f"!= 4 x {L} x {n_dec} / {n_dec} + {n_pre}")
+        if launches["flash_attention"] != L * n_pre:
+            fail(f"[{label}] prefill attention launches {launches['flash_attention']} != {L} x {n_pre}")
+        return types.SimpleNamespace(rows=rows, launches=launches, shapes=shapes, n_dec=n_dec)
+
+    serve1 = serve_run("serve k=1", 1)
+    missing = [n for n in serve_path if serve1.launches[n] == 0]
+    if missing:
+        fail(f"kernels never launched on the paged serve path: {missing}")
+    rows = serve1.rows
+    serve_run("serve k=8", 8, rows=rows)
+
+    def step_profile(k):
+        """Host clock against device kernel time of a decode step, all 8
+        slots live: 16 steps timed with a sync at the end, then 16 under
+        torch.profiler."""
+        batcher = paged_batcher(k)
+        for r in requests_for(rows, 100_000):
+            batcher.submit(r)
+        n_calls = max(1, 16 // k)
+        for _ in range(max(1, 8 // k)):  # admission + warm-up
+            batcher.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            batcher.step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / (n_calls * k) * 1e3
+        kern = device_kernels(batcher.step, torch, n_calls)
+        if not kern:
+            log(f"[serve k={k}] step profile: {host_ms:.3f} ms a step on the host clock; the "
+                f"profiler trace holds no device events (device ms not measured)")
+            return
+        steps = n_calls * k
+        busy_ms = sum(us for us, _ in kern.values()) / steps / 1e3
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
+        log(f"[serve k={k}] step profile: {host_ms:.3f} ms a step on the host clock (no profiler), "
+            f"{busy_ms:.3f} ms of device kernels a step ({sum(c for _, c in kern.values()) / steps:.0f} "
+            f"kernels), device idle {100 * (1 - busy_ms / host_ms):.1f}%; by kernel (us a step, "
+            f"launches a step): " + "; ".join(
+                f"{name[:40]} {us / steps:.1f} ({c / steps:.0f})" for name, (us, c) in top))
+
+    for k in (1, 8, 8, 1):  # in turns: the host's speed drifts within a run
+        step_profile(k)
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 10. serve, pressure
+    n_pool = PRESSURE_FREE_PAGES + 1
+    batcher = paged_batcher(num_pages=n_pool, alloc_watermark=0)
+    t0 = time.time()
+    for r in requests_for(rows, PRESSURE_NEW_TOKENS):
+        batcher.submit(r)
+    done = batcher.run()
+    torch.cuda.synchronize()
+    check_done("pressure", done, len(rows), batcher, n_pool)
+    log(f"[pressure] {PRESSURE_FREE_PAGES} free pages for {len(rows)} requests of 28 + 2 pages: "
+        f"{batcher.n_preempted} preemptions, {batcher._admit_seq} admissions, tokens per request "
+        f"{[len(r.tokens) for r in sorted(done, key=lambda r: r.uid)]}, errors "
+        f"{[r.error for r in done if r.error]}, {time.time() - t0:.3f} s")
+    if batcher.n_preempted < 1:
+        fail("[pressure] the pool was not oversubscribed: no preemption")
+    del batcher
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 11. serve, HTTP
+    batcher = paged_batcher()
+    server, loop = http_server.serve_http(engine, batcher, port=0, model_name="callireader-8b")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    t0 = time.time()
+    try:
+        with opener.open(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+            health = json.loads(r.read())
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/chat/completions", method="POST",
+            headers={"Content-Type": "application/json"},
+            data=json.dumps({"messages": [{"role": "user", "content": "你好"}],
+                             "max_tokens": 8}).encode())
+        with opener.open(req, timeout=300) as r:
+            chat = json.loads(r.read())
+        sessions = [loop.submit({"question": QUESTION, "image": pg, "max_new_tokens": 16},
+                                stream=False) for pg in serve_pages[:2]]
+        ocr = [sess.events.get(timeout=600) for sess in sessions]
+        snap = loop.snapshot()
+    finally:
+        server.shutdown()
+        loop.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive() or loop._thread.is_alive():
+        fail("[http] a server thread did not stop")
+    if health.get("status") != "ok" or health.get("slots_total") != SERVE_SLOTS:
+        fail(f"[http] /health says {health}")
+    if chat["usage"]["completion_tokens"] < 1 or not isinstance(
+            chat["choices"][0]["message"]["content"], str):
+        fail(f"[http] bad completion {chat}")
+    if any(kind != "done" or info["completion_tokens"] < 1 for kind, info in ocr):
+        fail(f"[http] a page request failed: {ocr}")
+    if snap["requests_completed"] != 3 or len(batcher.pool.free) != SERVE_SLOTS * SERVE_PAGES_PER_SLOT:
+        fail(f"[http] counters {snap}, free pages {len(batcher.pool.free)}")
+    log(f"[http] /health ok; text completion {chat['usage']}; 2 pages through SchedulerLoop.submit: "
+        f"{[(i['prompt_tokens'], i['completion_tokens'], i['finish_reason']) for _, i in ocr]}; "
+        f"{time.time() - t0:.3f} s")
+    del batcher, loop, server
+    torch.cuda.empty_cache()
+
+    # the contiguous scheduler, briefly: its decode goes through flash_decode
+    cont = serving.ContinuousBatcher(llm, cfg, num_slots=2, max_len=512, policy=engine.policy)
+    zero_counts()
+    with CallCount(internlm2, ("decode_step_multislot",)) as dec:
+        for uid in range(2):
+            row = rows[uid][-(100 + 28 * uid):]
+            cont.submit(serving.Request(uid, row.float().cpu().numpy(), max_new_tokens=4,
+                                        eos_token_ids=eos))
+        done = cont.run()
+    n_dec = dec.n["decode_step_multislot"]
+    if len(done) != 2 or any(r.error or not all(0 <= t < vocab for t in r.tokens) for r in done) \
+            or read_counts()["flash_decode"] != L * n_dec or n_dec < 1:
+        fail(f"[contiguous] {[(r.tokens, r.error) for r in done]}, launches {read_counts()}, "
+             f"{n_dec} decode steps")
+    log(f"[contiguous] ContinuousBatcher: 2 requests, {n_dec} multislot decode steps, flash_decode "
+        f"launched {read_counts()['flash_decode']} times")
+    del cont
+
+    # ---------------------------------------------------------- 12. reference, paged step
+    def paged_step_logits(forced=None):
+        """Admit two short rows into a small pool and take one decode step ->
+        (prefill logits, decode logits). ``forced``: prefill logits to pick
+        the step's tokens from (so both runs decode the same tokens)."""
+        b = paged_cache.PagedBatcher(llm, cfg, num_slots=2, num_pages=5, page_size=SERVE_PAGE,
+                                     max_pages_per_slot=2, policy=engine.policy)
+        for uid in range(2):
+            b.submit(serving.Request(uid, rows[uid][-(128 - 17 * uid):].float().cpu().numpy(),
+                                     max_new_tokens=4, eos_token_ids=eos))
+        with torch.inference_mode():
+            b._admit()
+            lg0 = b.last_logits.clone()
+            if forced is not None:
+                b.last_logits.copy_(forced)
+        b.step()
+        return lg0, b.last_logits.clone()
+
+    plain_all = dict(plain_attention, **plain_int8)
+    lg0_k, lg1_k = paged_step_logits()
+    with Swap(internlm2, **plain_all), \
+            Swap(paged_cache, paged_flash_decode=k_paged.paged_flash_decode_reference):
+        lg0_p, lg1_p = paged_step_logits(forced=lg0_k)
+    paged_rel = max(((a[:, :vocab] - b[:, :vocab]).abs().max() / b[:, :vocab].abs().max()).item()
+                    for a, b in ((lg0_k, lg0_p), (lg1_k, lg1_p)))
+    log(f"[serve] reference check: admission + one paged decode step, logits rel err {paged_rel:.3e} "
+        f"(every kernel against its plain version)")
+    if not paged_rel <= 5e-2:
+        fail("the paged decode step through the kernels disagrees with the plain-version model")
+
+    # ---------------------------------------------------------- 13. paged kernel
+    q_shape, pool_shape, lay, table, valid = serve1.shapes.calls["paged_flash_decode"][-1]
+    Bs, Hq = q_shape[:2]
+    _, NP, Hkv, page, D = pool_shape
+    P = table.shape[1]
+    qd, kpool, vpool = rnd(q_shape), rnd(pool_shape), rnd(pool_shape)
+    n_valid = int((valid > 0).sum().item())
+    live_pages = int(((valid > 0).sum(-1) > 0).sum().item())
+
+    def paged_yardstick():
+        kg = kpool[lay][table.long()].permute(0, 2, 1, 3, 4).reshape(Bs, Hkv, P * page, D)
+        vg = vpool[lay][table.long()].permute(0, 2, 1, 3, 4).reshape(Bs, Hkv, P * page, D)
+        return F.scaled_dot_product_attention(qd, kg, vg, enable_gqa=True,
+                                              attn_mask=(valid > 0).reshape(Bs, 1, 1, P * page))
+
+    r = row_for("paged_flash_decode",
+                f"[serve] B={Bs} Hq={Hq} Hkv={Hkv} D={D} page={page} P={P} NPAGES={NP} L={pool_shape[0]} "
+                f"layer={lay}, {n_valid} live keys on {live_pages} of {Bs * P} table entries",
+                lambda: k_paged.paged_flash_decode(qd, kpool, vpool, lay, table, valid),
+                lambda: k_paged.paged_flash_decode_reference(qd.float(), kpool, vpool, lay, table, valid),
+                paged_yardstick,
+                nbytes=2 * (2 * n_valid * Hkv * D + 2 * qd.numel()) + 4 * (valid.numel() + table.numel()),
+                flops=4 * n_valid * Hq * D)
+    results.setdefault("paged_flash_decode", []).append(
+        (f"serve B={Bs} P={P} page={page}", serve1.launches["paged_flash_decode"], r))
+    del qd, kpool, vpool
+    torch.cuda.empty_cache()
 
     line = []
     for name, entries in results.items():

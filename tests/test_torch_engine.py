@@ -83,3 +83,37 @@ def test_batch_chat_ocr_runs_char_path(engines):
     assert torch.isfinite(pseudo).all()
     resp = teng.batch_chat_ocr([page], QUESTIONS[:1], ordered_lists=[boxes], max_new_tokens=3)
     assert len(resp) == 1 and isinstance(resp[0], str)
+
+
+def test_calli_align_and_build_row_embeds_match_jax(engines, monkeypatch):
+    """The per-request pieces the servers call: single-page ``calli_align``
+    (reading-order boxes given in place of the untrained detector's) and the
+    left-padded prompt row of ``_build_row_embeds``, against the JAX engine."""
+    jeng, teng = engines
+    page, boxes = _page(3, 70, 96)
+    monkeypatch.setattr(jeng, "sort_boxes", lambda image: boxes)
+    monkeypatch.setattr(teng, "sort_boxes", lambda image: boxes)
+    jps, jix = jeng.calli_align(page)
+    tps, tix = teng.calli_align(page)
+    assert (tix.numpy() == np.asarray(jix)).all()
+    np.testing.assert_allclose(tps.numpy(), np.asarray(jps), atol=1e-4)
+    monkeypatch.setattr(teng, "sort_boxes", lambda image: [])
+    assert teng.calli_align(page) == (None, None)
+
+    from callireader_tpu.vision import preprocess as jpre
+    from callireader_tpu_torch.vision import preprocess as tpre
+
+    cfg = teng.cfg
+    tiles = tpre.load_image(page, cfg.force_image_size, cfg.max_dynamic_patch, cfg.use_thumbnail)
+    assert (tiles == jpre.load_image(page, cfg.force_image_size, cfg.max_dynamic_patch,
+                                     cfg.use_thumbnail, as_uint8=True)).all()
+    jfeats = jeng.encode_image_tiles(tiles)
+    tfeats = teng.encode_image_tiles(torch.from_numpy(tiles))
+    query = teng._expand_image_tokens(
+        "<image>\n" + QUESTIONS[0] + "[UNUSED_TOKEN_140]" * tps.shape[0], [tiles.shape[0]])
+    ids = teng._tokenize_prompt(query)
+    assert (ids == jeng._tokenize_prompt(query)).all()
+    jemb, jmask = jeng._build_row_embeds(ids, jfeats, jps, 512)
+    temb, tmask = teng._build_row_embeds(ids, tfeats, tps, 512)
+    assert (tmask == jmask).all() and temb.shape == (1, 512, cfg.llm.hidden_size)
+    np.testing.assert_allclose(temb.numpy(), np.asarray(jemb), atol=1e-4)

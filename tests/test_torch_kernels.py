@@ -21,6 +21,7 @@ from callireader_tpu_torch.kernels import attention as tattn
 from callireader_tpu_torch.core.dtypes import exact_fp32
 from callireader_tpu_torch.kernels import decode_attention as tdec
 from callireader_tpu_torch.kernels import int8_matmul as ti8
+from callireader_tpu_torch.kernels import paged_decode as tpaged
 from callireader_tpu_torch.kernels import tolerance
 from callireader_tpu_torch.kernels import vit_attention as tvit
 
@@ -255,6 +256,69 @@ def test_cuda_decode_matches_plain(cuda, S, layer):
     assert tolerance.excess_error(got, want) <= tolerance.ATOL["flash_decode"]
 
 
+def _paged_case(rng, device, page, P, spans, L=3):
+    """Pools, a scattered page table (dead entries point at page 0 or at
+    another slot's live page) and the validity of ``spans`` = per-slot
+    (start, end) token ranges; an empty range is an empty slot."""
+    B, Hq, Hkv, D = len(spans), 32, 8, 128
+    NP = 3 + sum(-(-hi // page) for _, hi in spans)
+    q = _bf16(rng, (B, Hq, 1, D), device)
+    kpool = _bf16(rng, (L, NP, Hkv, page, D), device)
+    vpool = _bf16(rng, (L, NP, Hkv, page, D), device)
+    perm = rng.permutation(np.arange(1, NP))
+    table = np.zeros((B, P), np.int32)
+    valid = np.zeros((B, P * page), np.int32)
+    used = 0
+    for b, (lo, hi) in enumerate(spans):
+        n = -(-hi // page)
+        table[b, :n] = perm[used:used + n]
+        table[b, n:] = perm[0] if b % 2 else 0
+        used += n
+        valid[b, lo:hi] = 1
+    valid = valid.reshape(B, P, page)
+    return q, kpool, vpool, torch.from_numpy(table).to(device), torch.from_numpy(valid).to(device)
+
+
+PAGED_CASES = {
+    # name: (page, P, spans)
+    "path_shape": (128, 32, [(0, 3585), (100, 3700), (0, 3840), (3583, 3584), (5, 129), (0, 128),
+                             (0, 4096), (2000, 2300)]),
+    "partial_dead_empty": (128, 8, [(17, 300), (0, 0), (0, 1), (127, 129)]),
+    "page_64": (64, 6, [(0, 384), (70, 200), (0, 0), (63, 65)]),
+    "page_16": (16, 5, [(3, 50), (0, 80), (15, 17)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_cuda_paged_decode_matches_plain(cuda, case):
+    page, P, spans = PAGED_CASES[case]
+    rng = np.random.default_rng(len(case))
+    q, kpool, vpool, table, valid = _paged_case(rng, cuda, page, P, spans)
+    before = tpaged.KERNEL.launches
+    for layer in (0, 2):
+        got = tpaged.paged_flash_decode(q, kpool, vpool, layer, table, valid)
+        torch.cuda.synchronize()
+        want = tpaged.paged_flash_decode_reference(q.float(), kpool, vpool, layer, table, valid)
+        assert tolerance.excess_error(got, want) <= tolerance.ATOL["paged_flash_decode"]
+        for b, (lo, hi) in enumerate(spans):
+            if hi == lo:
+                assert got[b].abs().max().item() == 0  # an empty slot gives zeros
+    assert tpaged.KERNEL.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_never_reads_dead_entries(cuda):
+    """Dead table entries may point anywhere, outside the pool too."""
+    page, P, spans = PAGED_CASES["partial_dead_empty"]
+    rng = np.random.default_rng(3)
+    q, kpool, vpool, table, valid = _paged_case(rng, cuda, page, P, spans)
+    base = tpaged.paged_flash_decode(q, kpool, vpool, 1, table, valid)
+    wild = table.clone()
+    wild[(valid.sum(-1) == 0)] = 10**6
+    assert torch.equal(tpaged.paged_flash_decode(q, kpool, vpool, 1, wild, valid), base)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_input(cuda):
     qkv = torch.zeros((1, 10, 3 * 2 * 16), dtype=torch.bfloat16, device=cuda)
@@ -269,6 +333,21 @@ def test_cuda_wrappers_refuse_bad_input(cuda):
     valid = torch.ones((1, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         tdec.flash_decode(q[:, :, :1].contiguous(), cache, cache, 0, valid)
+    q1 = torch.zeros((1, 32, 1, 128), dtype=torch.bfloat16, device=cuda)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    for page in (24, 256):  # no multiple of 16; more than one thread per key allows
+        pool = torch.zeros((1, 3, 8, page, 128), dtype=torch.bfloat16, device=cuda)
+        ok = torch.ones((1, 2, page), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="page size"):
+            tpaged.paged_flash_decode(q1, pool, pool, 0, table, ok)
+    pool = torch.zeros((1, 3, 8, 128, 128), dtype=torch.bfloat16, device=cuda)
+    ok = torch.ones((1, 2, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tpaged.paged_flash_decode(q1, pool, pool, 1, table, ok)  # layer out of range
+    with pytest.raises(ValueError):
+        tpaged.paged_flash_decode(q1, pool, pool, 0, table.cpu(), ok)
+    with pytest.raises(ValueError):
+        tpaged.paged_flash_decode(q1.float(), pool, pool, 0, table, ok)
 
 
 # ------------------------------------------------------- int8 products (card)

@@ -41,9 +41,12 @@ def _probe():
 def test_port_imports_no_jax_and_no_jax_package():
     res = _probe()
     assert len(res["modules"]) >= 20
+    for name in ("cli.serve", "runtime.serving", "runtime.paged_cache", "runtime.http_server",
+                 "kernels.paged_decode"):
+        assert f"callireader_tpu_torch.{name}" in res["modules"]
     assert res["jax"] == []
     assert res["jax_package"] == []
-    assert res["banned"] == []
+    assert res["banned"] == []  # PIL among them: the servers import it per request only
 
 
 def test_entry_points_default_to_cuda():
