@@ -58,7 +58,7 @@ def test_parse_chat_messages():
     ])
     assert (q, hist, system, image) == ("这幅作品\n的风格？", [("你好", "你好！")], "你是书法助手。", None)
     for bad in ([{"role": "assistant", "content": "x"}],
-                [{"role": "tool", "content": "x"}, {"role": "user", "content": "y"}],
+                [{"role": "critic", "content": "x"}, {"role": "user", "content": "y"}],
                 [{"role": "user", "content": 3}],
                 [{"role": "user", "content": [{"type": "audio"}]}],
                 [{"role": "user", "content": [{"type": "image_url", "image_url": {"url": "data:,x"}}]},
