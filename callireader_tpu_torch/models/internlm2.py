@@ -28,7 +28,7 @@ slot ``cache.length`` of every layer. For serving: ``prefill_with_prefix``
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -245,6 +245,40 @@ def prefill(
     return _logits(params, x, policy, cfg)[:, 0], cache
 
 
+def decode_layers(
+    params: Params,
+    cfg: LLMConfig,
+    *,
+    input_ids: torch.Tensor,  # (B, 1)
+    positions: torch.Tensor,  # (B, 1) RoPE position of each row's token
+    kv_seq_len: int,  # cache capacity (the dynamic-NTK rule reads it)
+    write_kv: Callable[[int, torch.Tensor, torch.Tensor], None],
+    attend: Callable[[int, torch.Tensor], torch.Tensor],
+    policy: DTypePolicy = DEFAULT_POLICY,
+) -> torch.Tensor:
+    """The decoder stack for one new token per row -> logits (B, V). What
+    differs between the decode entry points is where the cache lives:
+    ``write_kv(layer, k, v)`` stores the token's RoPE'd key and its value
+    (each (B, Hkv, D)) and ``attend(layer, q)`` maps the RoPE'd query
+    (B, Hq, 1, D) to the context of the same shape, reading what was just
+    written."""
+    x = embed_tokens(params, input_ids, policy.compute_dtype)
+    B, S, _ = x.shape
+    cos, sin = cos_sin_for(cfg, positions, kv_seq_len)
+    for i in range(cfg.num_hidden_layers):
+        p = _layer(params, i)
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
+        q, k, v = _qkv(p, h, cfg)
+        q = apply_rope(q, cos, sin).contiguous()
+        k = apply_rope(k, cos, sin)
+        write_kv(i, k[:, :, 0], v[:, :, 0])
+        ctx = attend(i, q)
+        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
+        x = _mlp(p, x, cfg, policy)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps, policy)
+    return _logits(params, x, policy, cfg)[:, 0]
+
+
 def decode_step(
     params: Params,
     cfg: LLMConfig,
@@ -261,13 +295,11 @@ def decode_step(
     when called without positions (generate.py); for left-padded rows that
     differs from the prefill's count of valid tokens (a caveat of the
     reference, kept for token parity)."""
-    x = embed_tokens(params, input_ids, policy.compute_dtype)
-    B, S, _ = x.shape
-    dev = x.device
+    B = input_ids.shape[0]
+    dev = cache.k.device
     max_len = cache.max_len
     slot = cache.length
-    positions = torch.full((B, S), slot, dtype=torch.int64, device=dev)
-    cos, sin = cos_sin_for(cfg, positions, max_len)
+    positions = torch.full((B, 1), slot, dtype=torch.int64, device=dev)
     if kv_valid_mask is None:
         kv_valid_mask = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
         kv_valid_mask[:, : slot + 1] = 1
@@ -275,21 +307,16 @@ def decode_step(
         kv_valid_mask = kv_valid_mask.to(torch.int32).clone()
         kv_valid_mask[:, slot] = 1  # the freshly written position
 
-    for i in range(cfg.num_hidden_layers):
-        p = _layer(params, i)
-        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
-        q, k, v = _qkv(p, h, cfg)
-        q = apply_rope(q, cos, sin).contiguous()
-        k = apply_rope(k, cos, sin)
-        # in-place single-slot cache write
-        cache.k[i, :, :, slot] = k[:, :, 0].to(cache.k.dtype)
-        cache.v[i, :, :, slot] = v[:, :, 0].to(cache.v.dtype)
-        ctx = flash_decode(q, cache.k, cache.v, i, kv_valid_mask)
-        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
-        x = _mlp(p, x, cfg, policy)
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps, policy)
+    def write_kv(i, k, v):  # in-place single-slot cache write
+        cache.k[i, :, :, slot] = k.to(cache.k.dtype)
+        cache.v[i, :, :, slot] = v.to(cache.v.dtype)
+
+    logits = decode_layers(
+        params, cfg, input_ids=input_ids, positions=positions, kv_seq_len=max_len,
+        write_kv=write_kv, policy=policy,
+        attend=lambda i, q: flash_decode(q, cache.k, cache.v, i, kv_valid_mask))
     cache.length = slot + 1
-    return _logits(params, x, policy, cfg)[:, 0], cache
+    return logits, cache
 
 
 def prefill_with_prefix(
@@ -372,9 +399,8 @@ def decode_step_multislot(
     ``lengths - starts``. The caller advances ``lengths`` for its active
     slots; inactive slots compute garbage that the caller ignores, so their
     ``lengths`` must still index inside the cache."""
-    x = embed_tokens(params, input_ids, policy.compute_dtype)
-    B, S, _ = x.shape
-    dev = x.device
+    B = input_ids.shape[0]
+    dev = cache_k.device
     max_len = cache_k.shape[3]
     lengths = lengths.to(dev, torch.int64)
     slot_pos = torch.arange(max_len, device=dev)[None, :]
@@ -385,22 +411,16 @@ def decode_step_multislot(
         starts = starts.to(dev, torch.int64)
         valid = valid & (slot_pos >= starts[:, None])
         positions = (lengths - starts)[:, None]
-    cos, sin = cos_sin_for(cfg, positions, max_len)
     kv_valid = valid.to(torch.int32)
     batch_idx = torch.arange(B, device=dev)
 
-    for i in range(cfg.num_hidden_layers):
-        p = _layer(params, i)
-        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
-        q, k, v = _qkv(p, h, cfg)
-        q = apply_rope(q, cos, sin).contiguous()
-        k = apply_rope(k, cos, sin)
+    def write_kv(i, k, v):
         # the two index tensors are split by a slice, so the indexed dim comes
-        # first: the target is (B, Hkv, D), which k[:, :, 0] already is
-        cache_k[i][batch_idx, :, lengths] = k[:, :, 0].to(cache_k.dtype)
-        cache_v[i][batch_idx, :, lengths] = v[:, :, 0].to(cache_v.dtype)
-        ctx = flash_decode(q, cache_k, cache_v, i, kv_valid)
-        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
-        x = _mlp(p, x, cfg, policy)
-    x = rms_norm(x, params["norm"], cfg.rms_norm_eps, policy)
-    return _logits(params, x, policy, cfg)[:, 0]
+        # first: the target is (B, Hkv, D), which k and v already are
+        cache_k[i][batch_idx, :, lengths] = k.to(cache_k.dtype)
+        cache_v[i][batch_idx, :, lengths] = v.to(cache_v.dtype)
+
+    return decode_layers(
+        params, cfg, input_ids=input_ids, positions=positions, kv_seq_len=max_len,
+        write_kv=write_kv, policy=policy,
+        attend=lambda i, q: flash_decode(q, cache_k, cache_v, i, kv_valid))

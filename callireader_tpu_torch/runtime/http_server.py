@@ -41,6 +41,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from callireader_tpu_torch.runtime import generate as gen
 from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
@@ -181,6 +182,7 @@ class SchedulerLoop:
         # recur in history.
         self.prefix_cache = prefix_cache and hasattr(batcher, "register_prefix")
         self.n_prefix_registered = 0
+        self.n_prefix_failed = 0
         cfg = engine.cfg
         sep = get_conv_template(cfg.template).sep
         self.sep = sep
@@ -234,6 +236,7 @@ class SchedulerLoop:
                 "tokens_generated": self.n_tokens_out,
                 "prefix_cache": self.prefix_cache,
                 "prefix_registered": self.n_prefix_registered,
+                "prefix_failed": self.n_prefix_failed,
                 "prefix_hits": getattr(b, "prefix_hits", 0),
             }
 
@@ -284,8 +287,11 @@ class SchedulerLoop:
             try:
                 if self.batcher.register_prefix(row):
                     self.n_prefix_registered += 1
-            except Exception:
-                pass  # registration is an optimization; never fail the request
+            except (ValueError, MemoryError, torch.cuda.OutOfMemoryError):
+                # registration is an optimization: a prompt that does not fit
+                # (shape, device memory) goes on without it. Anything else (a
+                # kernel that fails to build or launch) fails the request
+                self.n_prefix_failed += 1
         self._sessions.append(sess)
         self.batcher.submit(req)
 

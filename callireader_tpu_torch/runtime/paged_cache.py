@@ -147,25 +147,16 @@ class PagedBatcher(PrefixCacheMixin):
         the new token's K/V into (layer, page, :, offset) of the pools per
         slot (inactive slots all write page 0, offset 0: the trash page,
         whichever write wins) and attends through the paged kernel."""
-        cfg, policy = self.cfg, self.policy
-        x = internlm2.embed_tokens(self.params, ids, policy.compute_dtype)
-        B, S, _ = x.shape
-        cos, sin = internlm2.cos_sin_for(cfg, positions, self.P * self.page)
-        for i in range(cfg.num_hidden_layers):
-            p = internlm2._layer(self.params, i)
-            h = internlm2.rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
-            q, k, v = internlm2._qkv(p, h, cfg)
-            q = internlm2.apply_rope(q, cos, sin).contiguous()
-            k = internlm2.apply_rope(k, cos, sin)
+        def write_kv(i, k, v):
             # index tensors on dims 0 and 2 of (NPAGES, Hkv, page, D), a slice
             # between them: the indexed dim comes first, target (B, Hkv, D)
-            self.kpool[i][write_page, :, write_off] = k[:, :, 0].to(self.kpool.dtype)
-            self.vpool[i][write_page, :, write_off] = v[:, :, 0].to(self.vpool.dtype)
-            ctx = paged_flash_decode(q, self.kpool, self.vpool, i, page_table, valid)
-            x = x + internlm2._proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
-            x = internlm2._mlp(p, x, cfg, policy)
-        x = internlm2.rms_norm(x, self.params["norm"], cfg.rms_norm_eps, policy)
-        return internlm2._logits(self.params, x, policy, cfg)[:, 0]
+            self.kpool[i][write_page, :, write_off] = k.to(self.kpool.dtype)
+            self.vpool[i][write_page, :, write_off] = v.to(self.vpool.dtype)
+
+        return internlm2.decode_layers(
+            self.params, self.cfg, input_ids=ids, positions=positions,
+            kv_seq_len=self.P * self.page, write_kv=write_kv, policy=self.policy,
+            attend=lambda i, q: paged_flash_decode(q, self.kpool, self.vpool, i, page_table, valid))
 
     def _derive_step_arrays(self, page_table, lengths, starts, active):
         """(B,) lengths/starts/active -> (valid (B, P, page), write_page,

@@ -59,14 +59,21 @@ Phases (any failure exits non-zero; nothing is caught and continued):
  11. serve, HTTP: serve_http on a loopback port over a paged batcher: /health,
      one text-only /v1/chat/completions over a real socket, two page images
      through SchedulerLoop.submit; then a short ContinuousBatcher run (the
-     contiguous scheduler's decode goes through flash_decode);
- 12. reference: admission plus one paged decode step of a small batcher
-     through the kernels against the same model with every kernel swapped for
-     its plain version;
- 13. the paged kernel against its plain version with the page table and
-     validity of the serve phase's last decode step, at the deepest layer,
-     beside the yardstick (gather of the slots' pages +
-     scaled_dot_product_attention, which the port never calls).
+     contiguous scheduler's decode goes through flash_decode). Both with the
+     counts zeroed before and read after, and their shapes logged;
+ 12. reference: three page rows into a batcher of the serve sizes, one
+     step() (admission prefill + the first paged decode step) through the
+     kernels against the same model with every kernel swapped for its plain
+     version (the plain decode step starts from the kernels' admission, so
+     both decode the same tokens over the same pools);
+ 13. kernels of the serving paths: for the paged serve run, the HTTP run and
+     the ContinuousBatcher run, every kernel that run launched against its
+     plain version at that run's shapes (the 88-tile ViT batch, the 8-row
+     prefill, the int8 products at M=8 / 2 / 1, flash_decode at B=2 S=512,
+     the paged kernel with the page table and validity of the run's last
+     decode step beside the yardstick: gather of the slots' pages +
+     scaled_dot_product_attention, which the port never calls), each entry
+     carrying that run's launch counts.
 Prints the ``kernels`` JSON line, then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
 port's sources next to it.
@@ -170,10 +177,18 @@ def device_kernels(fn, torch, n: int):
 
 
 def device_ms(fn, torch, n: int = 16):
-    """Device time per call (ms): the summed durations of the kernels that
-    ``n`` calls launched, over ``n``; None if the trace has no device events."""
+    """Device time per call from a profiler trace of ``n`` calls -> (ms,
+    calls the trace holds), or (None, 0) if it has no device events: for each
+    kernel the mean duration of its events times its launches per call. The
+    trace of a process that has launched many kernels lacks the events of some
+    calls at one edge (seen: 1 to 12 of 16), so a kernel's launches per call
+    are counted against the kernel with the fewest events (every call
+    launches each of its kernels at least once), not against ``n``."""
     kern = device_kernels(fn, torch, n)
-    return sum(us for us, _ in kern.values()) / n / 1e3 if kern else None
+    if not kern:
+        return None, 0
+    calls = min(c for _, c in kern.values())
+    return sum(us / c * round(c / calls) for us, c in kern.values()) / 1e3, calls
 
 
 class ShapeLog:
@@ -468,8 +483,8 @@ def main() -> int:
         ms = time_ms(time_k or run_k, torch)
         plain_ms = time_ms(run_plain, torch, max_iters=5)
         lib_ms = time_ms(run_lib, torch) if run_lib is not None else None
-        dev_ms = device_ms(time_k or run_k, torch)
-        dev_lib = device_ms(run_lib, torch) if run_lib is not None else None
+        dev_ms, dev_calls = device_ms(time_k or run_k, torch)
+        dev_lib, lib_calls = device_ms(run_lib, torch) if run_lib is not None else (None, 0)
         b_ms, b_by = bound(nbytes, flops)
         tol = tolerance.ATOL[kernels[name].tol]
         log(f"{name} {shape_desc}: max_abs_err {err:.3e}, beyond bf16 output rounding "
@@ -477,19 +492,18 @@ def main() -> int:
             f"plain {plain_ms:.4f} ms, library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {b_ms:.4f} ms ({b_by}); device time from the profiler: kernel "
             f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms, library "
-            f"{dev_lib if dev_lib is None else round(dev_lib, 4)} ms")
+            f"{dev_lib if dev_lib is None else round(dev_lib, 4)} ms ({dev_calls} and {lib_calls} "
+            f"of 16 calls in the trace)")
         if excess > tol:
             fail(f"{name} disagrees with its plain version at {shape_desc}")
         return err, ms, plain_ms, lib_ms, b_ms, b_by, dev_ms
 
     results = {}
 
-    def attention_rows(path, shapes, launches):
-        """Each attention kernel against its plain version at the shapes the
-        ``path`` main path launched it with; one row per kernel and shape,
-        carrying that run's launch counts."""
-        # ViT: the tile tower (D=64) and the char tower (D=32), each at the
-        # largest batch the main path launched it with; launches split by tower
+    def vit_rows(path, shapes, launches):
+        """The ViT kernel against its plain version: the tile tower (D=64) and
+        the char tower (D=32), each at the largest batch ``path`` launched it
+        with; launches split by tower."""
         towers = {}
         for (B, S, threeE), H in shapes.calls["vit_attention"]:
             key = (S, H, threeE // 3 // H)
@@ -512,31 +526,53 @@ def main() -> int:
                 (f"{path} " + "x".join(map(str, (B, S, H, D))), n_calls, r))
             del qkv, x, qv, kv_, vv
 
-        # prefill flash attention at the main path's shape and segment ids
-        q_shape, k_shape, causal, qseg, kseg, q_off = shapes.calls["flash_attention"][0]
-        B, Hq, Sq, D = q_shape
-        Hkv, Sk = k_shape[1], k_shape[2]
-        q, k, v = rnd(q_shape), rnd(k_shape), rnd(k_shape)
-        seg_mask = qseg[:, :, None] == kseg[:, None, :]
-        causal_mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev).tril(q_off)
-        allowed = seg_mask & causal_mask
-        pairs = int(allowed.sum().item())
-        r = row_for("flash_attention", f"[{path}] B={B} Hq={Hq} Hkv={Hkv} S={Sq} D={D} causal",
-                    lambda: k_attn.flash_attention(q, k, v, causal=True, q_segment_ids=qseg,
-                                                   kv_segment_ids=kseg),
-                    lambda: k_attn.attention_reference(q.float(), k.float(), v.float(), causal=True,
-                                                       q_segment_ids=qseg, kv_segment_ids=kseg),
-                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed[:, None],
-                                                           enable_gqa=True),
-                    nbytes=2 * (2 * q.numel() + 2 * k.numel()) + 4 * (qseg.numel() + kseg.numel()),
-                    flops=4 * pairs * Hq * D)
-        results.setdefault("flash_attention", []).append(
-            (f"{path} B={B} S={Sq}", launches["flash_attention"], r))
-        del allowed, seg_mask, causal_mask, q, k, v
-        torch.cuda.empty_cache()
+    def flash_attention_rows(path, shapes, launches):
+        """Prefill attention against its plain version at every shape ``path``
+        launched it with, under that shape's first segment ids. The plain
+        version takes the rows four at a time (its fp32 scores of eight
+        3584-token rows would not fit beside the model)."""
+        groups = {}
+        for call in shapes.calls["flash_attention"]:
+            key = (call[0], call[1], call[5])
+            n, first = groups.get(key, (0, call))
+            groups[key] = (n + 1, first)
+        if sum(n for n, _ in groups.values()) != launches["flash_attention"]:
+            fail(f"[{path}] prefill attention launches by shape disagree with the kernel's count "
+                 f"{launches['flash_attention']}")
+        for n_calls, (q_shape, k_shape, causal, qseg, kseg, q_off) in groups.values():
+            B, Hq, Sq, D = q_shape
+            Hkv, Sk = k_shape[1], k_shape[2]
+            q, k, v = rnd(q_shape), rnd(k_shape), rnd(k_shape)
+            seg_mask = qseg[:, :, None] == kseg[:, None, :]
+            causal_mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev).tril(q_off)
+            allowed = seg_mask & causal_mask if causal else seg_mask
+            pairs = int(allowed.sum().item())
 
-        # decode over the whole stacked cache at the main path's last step,
-        # at its deepest layer
+            def plain():
+                return torch.cat([k_attn.attention_reference(
+                    q[i:i + 4].float(), k[i:i + 4].float(), v[i:i + 4].float(), causal=causal,
+                    q_segment_ids=qseg[i:i + 4], kv_segment_ids=kseg[i:i + 4], q_offset=q_off)
+                    for i in range(0, B, 4)])
+
+            r = row_for("flash_attention",
+                        f"[{path}] B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} causal={causal} "
+                        f"q_offset={q_off}",
+                        lambda: k_attn.flash_attention(q, k, v, causal=causal, q_segment_ids=qseg,
+                                                       kv_segment_ids=kseg, q_offset=q_off),
+                        plain,
+                        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed[:, None],
+                                                               enable_gqa=True),
+                        nbytes=2 * (2 * q.numel() + 2 * k.numel()) + 4 * (qseg.numel() + kseg.numel()),
+                        flops=4 * pairs * Hq * D)
+            results.setdefault("flash_attention", []).append(
+                (f"{path} B={B} S={Sq}", n_calls, r))
+            del allowed, seg_mask, causal_mask, q, k, v
+            torch.cuda.empty_cache()
+
+    def flash_decode_row(path, shapes, launches):
+        """Decode attention over the whole stacked cache against its plain
+        version, with the validity of ``path``'s last step, at the deepest
+        layer."""
         q_shape, c_shape, _layer, valid_d = shapes.calls["flash_decode"][-1]
         L, B, Hkv, S, D = c_shape
         Hq = q_shape[1]
@@ -553,9 +589,54 @@ def main() -> int:
                     nbytes=2 * (2 * n_valid * Hkv * D + 2 * qd.numel()) + 4 * valid.numel(),
                     flops=4 * n_valid * Hq * D)
         results.setdefault("flash_decode", []).append(
-            (f"{path} L={L} S={S}", launches["flash_decode"], r))
+            (f"{path} B={B} L={L} S={S}", launches["flash_decode"], r))
         del qd, ckd, cvd
         torch.cuda.empty_cache()
+
+    def paged_row(path, shapes, launches):
+        """The paged kernel against its plain version with the page table and
+        validity of ``path``'s last decode step, at the deepest layer, beside
+        the yardstick (gather of the slots' pages + SDPA)."""
+        q_shape, pool_shape, lay, table, valid = shapes.calls["paged_flash_decode"][-1]
+        Bs, Hq = q_shape[:2]
+        _, NP, Hkv, page, D = pool_shape
+        P = table.shape[1]
+        qd, kpool, vpool = rnd(q_shape), rnd(pool_shape), rnd(pool_shape)
+        n_valid = int((valid > 0).sum().item())
+        live_pages = int(((valid > 0).sum(-1) > 0).sum().item())
+
+        def yardstick():
+            kg = kpool[lay][table.long()].permute(0, 2, 1, 3, 4).reshape(Bs, Hkv, P * page, D)
+            vg = vpool[lay][table.long()].permute(0, 2, 1, 3, 4).reshape(Bs, Hkv, P * page, D)
+            return F.scaled_dot_product_attention(qd, kg, vg, enable_gqa=True,
+                                                  attn_mask=(valid > 0).reshape(Bs, 1, 1, P * page))
+
+        r = row_for("paged_flash_decode",
+                    f"[{path}] B={Bs} Hq={Hq} Hkv={Hkv} D={D} page={page} P={P} NPAGES={NP} "
+                    f"L={pool_shape[0]} layer={lay}, {n_valid} live keys on {live_pages} of {Bs * P} "
+                    f"table entries",
+                    lambda: k_paged.paged_flash_decode(qd, kpool, vpool, lay, table, valid),
+                    lambda: k_paged.paged_flash_decode_reference(qd.float(), kpool, vpool, lay, table,
+                                                                 valid),
+                    yardstick,
+                    nbytes=2 * (2 * n_valid * Hkv * D + 2 * qd.numel())
+                    + 4 * (valid.numel() + table.numel()),
+                    flops=4 * n_valid * Hq * D)
+        results.setdefault("paged_flash_decode", []).append(
+            (f"{path} B={Bs} P={P} page={page} keys={n_valid}", launches["paged_flash_decode"], r))
+        del qd, kpool, vpool
+        torch.cuda.empty_cache()
+
+    ATTENTION_ROWS = {"vit_attention": vit_rows, "flash_attention": flash_attention_rows,
+                      "flash_decode": flash_decode_row, "paged_flash_decode": paged_row}
+
+    def attention_rows(path, shapes, launches):
+        """Each attention kernel ``path`` launched against its plain version
+        at the shapes of that path; one row per kernel and shape, carrying
+        that run's launch counts."""
+        for name, rows_fn in ATTENTION_ROWS.items():
+            if launches[name]:
+                rows_fn(path, shapes, launches)
 
     attention_rows("2b", shapes, launches_2b)
     del shapes
@@ -586,8 +667,6 @@ def main() -> int:
         fail(f"[8b] (K, N) int8 launches {launches_8b['int8_matmul']} != 4 x {L} x {n_steps}")
     if launches_8b["int8_matmul_nt"] != n_steps + 1:
         fail(f"[8b] LM-head int8 launches {launches_8b['int8_matmul_nt']} != {n_steps} + 1")
-    if len(run8.shapes.calls["int8_matmul"]) != launches_8b["int8_matmul"]:
-        fail("[8b] int8 launches seen by the shape log disagree with the kernel's count")
     prefill_s = run8.steps.seconds["prefill"]
     decode_ms = (run8.spans["generate"] - prefill_s) / n_steps * 1e3
     floor_ms = step_bytes / PEAK_BYTES_S * 1e3
@@ -646,14 +725,7 @@ def main() -> int:
     attention_rows("8b", run8.shapes, launches_8b)
 
     # ---------------------------------------------------------- 8. int8 kernels
-    kn_shapes = {}
-    for shape in run8.shapes.calls["int8_matmul"]:
-        kn_shapes[shape] = kn_shapes.get(shape, 0) + 1
-    nt_shapes = set(run8.shapes.calls["int8_matmul_nt"])
-    del run8
-    torch.cuda.empty_cache()
     layers = llm["layers"]
-    M = N_PAGES
 
     def int8_row(name, label, run_k, time_k, run_plain, wd, nt, M, K, N, n_launch):
         x = rnd((M, K))
@@ -667,39 +739,65 @@ def main() -> int:
         r = row_for(name, f"{label} M={M} K={K} N={N}", lambda: run_k(x), lambda: run_plain(x.float()),
                     lib, nbytes=K * N + 4 * N + 2 * M * K + 2 * M * N, flops=2 * M * K * N,
                     time_k=lambda: time_k(x))
-        results.setdefault(name, []).append((f"8b {label} {M}x{K}x{N}", n_launch, r))
+        results.setdefault(name, []).append((f"{label} {M}x{K}x{N}", n_launch, r))
 
-    for label in ("wqkv", "wo", "w13", "w2"):
-        q, s = layers[f"{label}_q"], layers[f"{label}_scale"]
-        K, N = q.shape[1:]
-        n_launch = kn_shapes.get((M, K, N), 0)
-        if n_launch != L * n_steps:
-            fail(f"[8b] {label} ({M}x{K}x{N}) launched {n_launch} times, expected {L} x {n_steps}")
-        walk = [0]
+    def int8_rows(path, shapes, launches):
+        """Each int8 kernel against its plain version at every (M, K, N)
+        ``path`` launched it with (the four layer projections at the last
+        layer, the LM head) -> {(projection, M): launches}."""
+        kn_shapes = {}
+        for shape in shapes.calls["int8_matmul"]:
+            kn_shapes[shape] = kn_shapes.get(shape, 0) + 1
+        nt_shapes = {}
+        for shape in shapes.calls["int8_matmul_nt"]:
+            nt_shapes[shape] = nt_shapes.get(shape, 0) + 1
+        if sum(kn_shapes.values()) != launches["int8_matmul"] \
+                or sum(nt_shapes.values()) != launches["int8_matmul_nt"]:
+            fail(f"[{path}] int8 launches seen by the shape log disagree with the kernels' counts")
+        counts = {}
+        for label in ("wqkv", "wo", "w13", "w2"):
+            q, s = layers[f"{label}_q"], layers[f"{label}_scale"]
+            K, N = q.shape[1:]
+            walk = [0]
 
-        def time_k(x, q=q, s=s):  # cold: one layer after the other, as in decode
-            walk[0] = (walk[0] + 1) % L
-            return k_i8.int8_matmul(x, q[walk[0]], s[walk[0]])
+            def time_k(x, q=q, s=s):  # cold: one layer after the other, as in decode
+                walk[0] = (walk[0] + 1) % L
+                return k_i8.int8_matmul(x, q[walk[0]], s[walk[0]])
 
-        n_copies = max(1, -(-200_000_000 // (K * N * 2)))
-        wd = [(q[L - 1 - i].float() * s[L - 1 - i]).bfloat16() for i in range(min(n_copies, L))]
-        int8_row("int8_matmul", label,
-                 lambda x, q=q, s=s: k_i8.int8_matmul(x, q[L - 1], s[L - 1]), time_k,
-                 lambda xf, q=q, s=s: k_i8.int8_matmul_reference(xf, q[L - 1], s[L - 1]),
-                 wd, False, M, K, N, n_launch)
+            n_copies = max(1, -(-200_000_000 // (K * N * 2)))
+            wd = [(q[L - 1 - i].float() * s[L - 1 - i]).bfloat16() for i in range(min(n_copies, L))]
+            for M in sorted(m for (m, k, n) in kn_shapes if (k, n) == (K, N)):
+                counts[label, M] = kn_shapes.pop((M, K, N))
+                int8_row("int8_matmul", f"{path} {label}",
+                         lambda x, q=q, s=s: k_i8.int8_matmul(x, q[L - 1], s[L - 1]), time_k,
+                         lambda xf, q=q, s=s: k_i8.int8_matmul_reference(xf, q[L - 1], s[L - 1]),
+                         wd, False, M, K, N, counts[label, M])
+            del wd
+            torch.cuda.empty_cache()
+        if kn_shapes:
+            fail(f"[{path}] (K, N) int8 launches at shapes of no layer projection: {kn_shapes}")
+
+        q, s = llm["output_q"], llm["output_scale"].reshape(-1)
+        N, K = q.shape
+        wd = [(q.float() * s[:, None]).bfloat16()]
+        for (M, k, n), n_launch in sorted(nt_shapes.items()):
+            if (k, n) != (K, N):
+                fail(f"[{path}] LM-head kernel launched at {(M, k, n)}, the head is {(K, N)}")
+            counts["lm_head", M] = n_launch
+            int8_row("int8_matmul_nt", f"{path} lm_head", lambda x: k_i8.int8_matmul_nt(x, q, s),
+                     lambda x: k_i8.int8_matmul_nt(x, q, s),
+                     lambda xf: k_i8.int8_matmul_nt_reference(xf, q, s), wd, True, M, K, N, n_launch)
         del wd
         torch.cuda.empty_cache()
+        return counts
 
-    q, s = llm["output_q"], llm["output_scale"].reshape(-1)
-    N, K = q.shape
-    if nt_shapes != {(M, K, N)}:
-        fail(f"[8b] LM-head launches at {nt_shapes}, expected {(M, K, N)}")
-    wd = [(q.float() * s[:, None]).bfloat16()]
-    int8_row("int8_matmul_nt", "lm_head", lambda x: k_i8.int8_matmul_nt(x, q, s),
-             lambda x: k_i8.int8_matmul_nt(x, q, s),
-             lambda xf: k_i8.int8_matmul_nt_reference(xf, q, s), wd, True, M, K, N,
-             launches_8b["int8_matmul_nt"])
-    del wd
+    counts = int8_rows("8b", run8.shapes, launches_8b)
+    M = N_PAGES
+    want = {**{(label, M): L * n_steps for label in ("wqkv", "wo", "w13", "w2")},
+            ("lm_head", M): n_steps + 1}
+    if counts != want:
+        fail(f"[8b] int8 launches by projection and rows {counts}, expected {want}")
+    del run8
     torch.cuda.empty_cache()
 
     # fused products, split, equal the separate products bit for bit
@@ -884,6 +982,9 @@ def main() -> int:
 
     # ---------------------------------------------------------- 11. serve, HTTP
     batcher = paged_batcher()
+    zero_counts()
+    http_shapes = ShapeLog(kernels)
+    http_shapes.__enter__()  # the scheduler thread launches through the logging wrappers
     server, loop = http_server.serve_http(engine, batcher, port=0, model_name="callireader-8b")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -909,6 +1010,8 @@ def main() -> int:
         loop.shutdown()
         server.server_close()
         thread.join(timeout=60)
+        http_shapes.__exit__()
+    http_launches = read_counts()
     if thread.is_alive() or loop._thread.is_alive():
         fail("[http] a server thread did not stop")
     if health.get("status") != "ok" or health.get("slots_total") != SERVE_SLOTS:
@@ -920,87 +1023,103 @@ def main() -> int:
         fail(f"[http] a page request failed: {ocr}")
     if snap["requests_completed"] != 3 or len(batcher.pool.free) != SERVE_SLOTS * SERVE_PAGES_PER_SLOT:
         fail(f"[http] counters {snap}, free pages {len(batcher.pool.free)}")
+    missing = [n for n in serve_path if http_launches[n] == 0]
+    if missing or http_launches["flash_decode"]:
+        fail(f"[http] kernels never launched behind the HTTP server: {missing}; launches {http_launches}")
     log(f"[http] /health ok; text completion {chat['usage']}; 2 pages through SchedulerLoop.submit: "
         f"{[(i['prompt_tokens'], i['completion_tokens'], i['finish_reason']) for _, i in ocr]}; "
-        f"{time.time() - t0:.3f} s")
+        f"{time.time() - t0:.3f} s; launches {http_launches}")
     del batcher, loop, server
     torch.cuda.empty_cache()
 
     # the contiguous scheduler, briefly: its decode goes through flash_decode
     cont = serving.ContinuousBatcher(llm, cfg, num_slots=2, max_len=512, policy=engine.policy)
     zero_counts()
-    with CallCount(internlm2, ("decode_step_multislot",)) as dec:
+    with ShapeLog(kernels) as cont_shapes, CallCount(internlm2, ("decode_step_multislot",)) as dec:
         for uid in range(2):
             row = rows[uid][-(100 + 28 * uid):]
             cont.submit(serving.Request(uid, row.float().cpu().numpy(), max_new_tokens=4,
                                         eos_token_ids=eos))
         done = cont.run()
     n_dec = dec.n["decode_step_multislot"]
+    cont_launches = read_counts()
     if len(done) != 2 or any(r.error or not all(0 <= t < vocab for t in r.tokens) for r in done) \
-            or read_counts()["flash_decode"] != L * n_dec or n_dec < 1:
-        fail(f"[contiguous] {[(r.tokens, r.error) for r in done]}, launches {read_counts()}, "
+            or cont_launches["flash_decode"] != L * n_dec or n_dec < 1 \
+            or cont_launches["paged_flash_decode"]:
+        fail(f"[contiguous] {[(r.tokens, r.error) for r in done]}, launches {cont_launches}, "
              f"{n_dec} decode steps")
-    log(f"[contiguous] ContinuousBatcher: 2 requests, {n_dec} multislot decode steps, flash_decode "
-        f"launched {read_counts()['flash_decode']} times")
+    log(f"[contiguous] ContinuousBatcher: 2 requests, {n_dec} multislot decode steps, launches "
+        f"{cont_launches}")
     del cont
 
     # ---------------------------------------------------------- 12. reference, paged step
-    def paged_step_logits(forced=None):
-        """Admit two short rows into a small pool and take one decode step ->
-        (prefill logits, decode logits). ``forced``: prefill logits to pick
-        the step's tokens from (so both runs decode the same tokens)."""
-        b = paged_cache.PagedBatcher(llm, cfg, num_slots=2, num_pages=5, page_size=SERVE_PAGE,
-                                     max_pages_per_slot=2, policy=engine.policy)
-        for uid in range(2):
-            b.submit(serving.Request(uid, rows[uid][-(128 - 17 * uid):].float().cpu().numpy(),
-                                     max_new_tokens=4, eos_token_ids=eos))
-        with torch.inference_mode():
-            b._admit()
-            lg0 = b.last_logits.clone()
-            if forced is not None:
-                b.last_logits.copy_(forced)
+    class Recorded:
+        """Wraps a function: keeps the arguments and the result of its last
+        call, or (``replay``) returns a kept result without calling it."""
+
+        def __init__(self, fn, replay=None):
+            self.fn, self.replay = fn, replay
+
+        def __call__(self, *a, **kw):
+            if self.replay is not None:
+                return self.replay
+            self.args, self.kwargs = a, kw
+            self.result = self.fn(*a, **kw)
+            return self.result
+
+    def paged_first_step(n_rows):
+        """``n_rows`` page requests into a batcher of the serve sizes, one
+        step(): admission (one prefill) and the first paged decode step ->
+        the active slots' logits after that step."""
+        b = paged_batcher()
+        for r in requests_for(rows[:n_rows], 4):
+            b.submit(r)
         b.step()
-        return lg0, b.last_logits.clone()
+        live = [s for s, r in enumerate(b.slot_req) if r is not None]
+        if len(live) != n_rows:
+            fail(f"[serve] reference check: {len(live)} of {n_rows} rows live after one step")
+        return b.last_logits[live].clone()
+
+    def rel_err(a, b):
+        return ((a[:, :vocab] - b[:, :vocab]).abs().max() / b[:, :vocab].abs().max()).item()
 
     plain_all = dict(plain_attention, **plain_int8)
-    lg0_k, lg1_k = paged_step_logits()
-    with Swap(internlm2, **plain_all), \
+    prefill_k = Recorded(internlm2.prefill)
+    with Swap(internlm2, prefill=prefill_k):
+        lg1_k = paged_first_step(3)
+    lg0_k = prefill_k.result[0]
+    # the plain-version model: its admission prefill on the same rows, then
+    # its decode step from the kernels' admission (same pools, same tokens)
+    with torch.inference_mode(), Swap(internlm2, **plain_all):
+        lg0_p = internlm2.prefill(*prefill_k.args, **prefill_k.kwargs)[0]
+    with Swap(internlm2, prefill=Recorded(None, replay=prefill_k.result), **plain_all), \
             Swap(paged_cache, paged_flash_decode=k_paged.paged_flash_decode_reference):
-        lg0_p, lg1_p = paged_step_logits(forced=lg0_k)
-    paged_rel = max(((a[:, :vocab] - b[:, :vocab]).abs().max() / b[:, :vocab].abs().max()).item()
-                    for a, b in ((lg0_k, lg0_p), (lg1_k, lg1_p)))
-    log(f"[serve] reference check: admission + one paged decode step, logits rel err {paged_rel:.3e} "
-        f"(every kernel against its plain version)")
+        zero_counts()
+        lg1_p = paged_first_step(3)
+        if any(read_counts().values()):
+            fail(f"[serve] the plain-version step launched kernels: {read_counts()}")
+    paged_rel = max(rel_err(lg0_k, lg0_p), rel_err(lg1_k, lg1_p))
+    log(f"[serve] reference check: 3 rows into {SERVE_SLOTS} slots x {SERVE_PAGES_PER_SLOT} pages, "
+        f"admission prefill logits rel err {rel_err(lg0_k, lg0_p):.3e}, first paged decode step "
+        f"{rel_err(lg1_k, lg1_p):.3e} (every kernel against its plain version)")
     if not paged_rel <= 5e-2:
         fail("the paged decode step through the kernels disagrees with the plain-version model")
-
-    # ---------------------------------------------------------- 13. paged kernel
-    q_shape, pool_shape, lay, table, valid = serve1.shapes.calls["paged_flash_decode"][-1]
-    Bs, Hq = q_shape[:2]
-    _, NP, Hkv, page, D = pool_shape
-    P = table.shape[1]
-    qd, kpool, vpool = rnd(q_shape), rnd(pool_shape), rnd(pool_shape)
-    n_valid = int((valid > 0).sum().item())
-    live_pages = int(((valid > 0).sum(-1) > 0).sum().item())
-
-    def paged_yardstick():
-        kg = kpool[lay][table.long()].permute(0, 2, 1, 3, 4).reshape(Bs, Hkv, P * page, D)
-        vg = vpool[lay][table.long()].permute(0, 2, 1, 3, 4).reshape(Bs, Hkv, P * page, D)
-        return F.scaled_dot_product_attention(qd, kg, vg, enable_gqa=True,
-                                              attn_mask=(valid > 0).reshape(Bs, 1, 1, P * page))
-
-    r = row_for("paged_flash_decode",
-                f"[serve] B={Bs} Hq={Hq} Hkv={Hkv} D={D} page={page} P={P} NPAGES={NP} L={pool_shape[0]} "
-                f"layer={lay}, {n_valid} live keys on {live_pages} of {Bs * P} table entries",
-                lambda: k_paged.paged_flash_decode(qd, kpool, vpool, lay, table, valid),
-                lambda: k_paged.paged_flash_decode_reference(qd.float(), kpool, vpool, lay, table, valid),
-                paged_yardstick,
-                nbytes=2 * (2 * n_valid * Hkv * D + 2 * qd.numel()) + 4 * (valid.numel() + table.numel()),
-                flops=4 * n_valid * Hq * D)
-    results.setdefault("paged_flash_decode", []).append(
-        (f"serve B={Bs} P={P} page={page}", serve1.launches["paged_flash_decode"], r))
-    del qd, kpool, vpool
+    del prefill_k, lg0_k, lg0_p, lg1_k, lg1_p
     torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 13. kernels of the serve paths
+    for path, shp, lch in (("serve", serve1.shapes, serve1.launches),
+                           ("http", http_shapes, http_launches),
+                           ("contiguous", cont_shapes, cont_launches)):
+        attention_rows(path, shp, lch)
+        counts = int8_rows(path, shp, lch)
+        log(f"[{path}] int8 launches by projection and rows: "
+            + ", ".join(f"{label} M={M}: {n}" for (label, M), n in counts.items()))
+        if path == "serve":  # every decode step runs all 8 slots' rows, and so did the one prefill
+            want = {**{(label, SERVE_SLOTS): L * serve1.n_dec for label in ("wqkv", "wo", "w13", "w2")},
+                    ("lm_head", SERVE_SLOTS): serve1.n_dec + 1}
+            if counts != want:
+                fail(f"[serve] int8 launches by projection and rows {counts}, expected {want}")
 
     line = []
     for name, entries in results.items():

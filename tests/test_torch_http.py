@@ -298,3 +298,34 @@ def test_http_concurrent_requests_share_slots(http):
     assert snap["tokens_generated"] - before["tokens_generated"] == 3 + 4 + 5 + 6
     assert snap["slots_busy"] == 0 and snap["queue_depth"] == 0
     assert len(batcher.pool.free) == 8  # every page returned
+
+
+@pytest.mark.parametrize("exc,kind", [
+    (ValueError("the prefix does not fit"), "done"),
+    (RuntimeError("flash_attention_launch failed: cudaError 700"), "error"),
+])
+def test_prefix_registration_failure_is_not_swallowed(engine, exc, kind):
+    """Registering a prompt as a prefix is an optimization: a prompt that does
+    not fit goes on without it (and is counted), but a failing kernel inside
+    the registration's prefill fails the request with its error."""
+    batcher = PagedBatcher(engine.params["llm"], engine.cfg.llm, num_slots=2, num_pages=9,
+                           page_size=128, max_pages_per_slot=4, policy=engine.policy)
+
+    def register_prefix(row):
+        raise exc
+
+    batcher.register_prefix = register_prefix
+    loop = http_server.SchedulerLoop(engine, batcher, prefix_cache=True).start()
+    try:
+        sess = loop.submit({"question": "你好", "max_new_tokens": 2}, stream=False)
+        got, payload = sess.events.get(timeout=300)
+        snap = loop.snapshot()
+    finally:
+        loop.shutdown()
+    assert got == kind, payload
+    if kind == "error":
+        assert "cudaError 700" in payload
+        assert snap["requests_rejected"] == 1 and snap["prefix_failed"] == 0
+    else:
+        assert payload["completion_tokens"] == 2
+        assert snap["prefix_failed"] == 1 and snap["requests_completed"] == 1

@@ -256,6 +256,68 @@ def test_cuda_decode_matches_plain(cuda, S, layer):
     assert tolerance.excess_error(got, want) <= tolerance.ATOL["flash_decode"]
 
 
+@pytest.fixture(scope="module")
+def single_file_decode(tmp_path_factory):
+    """The decode kernel built from tests/data/flash_decode_single_file.cu
+    (its source before the passes moved into the shared header), bound with
+    the wrapper's own argument types -> launch(q, ck, cv, layer, valid)."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from callireader_tpu_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    src = Path(__file__).parent / "data" / "flash_decode_single_file.cu"
+    so = tmp_path_factory.mktemp("single_file_decode") / "flash_decode_single_file.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(so)).flash_decode_launch
+    fn.argtypes = tdec.KERNEL.argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(q, ck, cv, layer, valid):
+        B, Hq, _, D = q.shape
+        _, _, Hkv, S, _ = ck.shape
+        nc = -(-S // tdec.CHUNK)
+        part_acc = torch.empty((B, Hq, nc, D), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, Hq, nc, 2), dtype=torch.float32, device=q.device)
+        out = torch.empty_like(q)
+        rc = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), valid.data_ptr(), part_acc.data_ptr(),
+                part_ml.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D, layer, nc, D ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        return out
+
+    return launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,L,layer", [(4, 3840, 8, 7), (4, 3648, 8, 0), (2, 512, 4, 3),
+                                         (3, 300, 2, 1), (8, 4096, 2, 1)])
+def test_cuda_decode_bitwise_equals_single_file_source(cuda, single_file_decode, B, S, L, layer):
+    # sharing its passes with the paged kernel must not change one bit of the
+    # contiguous kernel's output: full, ragged, single-key and empty rows
+    rng = np.random.default_rng(B * S)
+    Hq, Hkv, D = 32, 8, 128
+    q = _bf16(rng, (B, Hq, 1, D), cuda)
+    ck = _bf16(rng, (L, B, Hkv, S, D), cuda)
+    cv = _bf16(rng, (L, B, Hkv, S, D), cuda)
+    valid = torch.zeros((B, S), dtype=torch.int32, device=cuda)
+    valid[0, 10:S - 40] = 1
+    valid[1, :] = 1
+    if B > 2:
+        valid[2, S // 2] = 1  # row 3 (where there is one) stays empty
+    if B > 4:
+        valid[4:] = torch.from_numpy(rng.integers(0, 2, (B - 4, S)).astype(np.int32)).to(cuda)
+    got = tdec.flash_decode(q, ck, cv, layer, valid)
+    want = single_file_decode(q, ck, cv, layer, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got[0].abs().max().item() > 0
+
+
 def _paged_case(rng, device, page, P, spans, L=3):
     """Pools, a scattered page table (dead entries point at page 0 or at
     another slot's live page) and the validity of ``spans`` = per-slot
