@@ -16,10 +16,13 @@ which is ~0.03-0.05 for random inputs over thousands of keys. ``ATOL`` holds
 what is left, the summation-order error. ``chip_smoke.py`` measured it on an
 H100 80GB HBM3 (700 W) at the main path's shapes: at most 1.8e-7 (ViT),
 2.5e-7 (prefill), 1.3e-8 (decode), 3.0e-9 (paged decode), 4.7e-8 (int8,
-K x N weights) and 1.2e-7 (int8 LM head). ATOL sits 40-200x above that and
-far below what a lost 64-key tile, page or 128-deep K block costs
-(tests/test_torch_kernels.py, tests/test_torch_paged.py,
-tests/test_torch_int8.py).
+K x N weights) and 1.2e-7 (int8 LM head); for the training attention at
+B=2 S=2048 and B=1 S=8192 (D=128, G=4, random inputs), 1.6e-7 (forward),
+9.3e-7 (dq) and 4.6e-6 (dk/dv: each sums G x S terms). ATOL sits 40-200x
+above that and far below what a lost 64-key tile, page, 64-query tile or
+128-deep K block costs (tests/test_torch_kernels.py,
+tests/test_torch_paged.py, tests/test_torch_int8.py,
+tests/test_torch_attention_bwd.py).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 
 BF16_ROUNDING = 2.0**-8
 ATOL = {"vit_attention": 1e-5, "flash_attention": 1e-5, "flash_decode": 1e-5,
-        "int8_matmul": 1e-5, "int8_matmul_nt": 1e-5, "paged_flash_decode": 1e-5}
+        "int8_matmul": 1e-5, "int8_matmul_nt": 1e-5, "paged_flash_decode": 1e-5,
+        "attn_train_fwd": 1e-5, "attn_train_dq": 1e-4, "attn_train_dkv": 2e-4}
 
 
 def excess_error(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -11,11 +11,19 @@ pad rows are set to the dtype's minimum).
 int8 dispatch (the JAX rule, with no environment knob): a product of at most
 32 rows with K and N multiples of 128 goes through the int8 kernels
 (kernels/int8_matmul.py: the decode projections and the LM head); any other
-(the prefill's layer projections) takes the JAX package's XLA form,
+(the prefill's layer projections, and any product whose activation autograd
+tracks, since the kernels have no backward) takes the JAX package's XLA form,
 ``(h @ q.to(h.dtype)) * scale.to(h.dtype)``, which rounds the product before
 the scale.
 
-Entry points: ``prefill`` (prompt -> last logits + a fresh cache; attention
+LoRA adapters (train/lora.py) are extra leaves ``{name}_lora_a`` (in, r),
+``{name}_lora_b`` (r, out) and ``lora_scale`` in the layer stack; ``_proj``
+adds ``((h @ a) @ b) * scale`` in ``h``'s dtype, as the JAX ``_proj`` does.
+
+Entry points: ``forward`` (the full-sequence forward of training, no cache;
+attention through kernels.attention_bwd.flash_attention_trainable, which
+autograd differentiates; ``remat=True`` recomputes each layer in the
+backward), ``prefill`` (prompt -> last logits + a fresh cache; attention
 through kernels.attention.flash_attention) and ``decode_step`` (one token;
 kernels.decode_attention.flash_decode over the stacked cache). The KV cache
 is one preallocated (L, B, Hkv, max_len, D) buffer per K and V that both
@@ -32,10 +40,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from callireader_tpu_torch.core.config import LLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.kernels.attention import flash_attention
+from callireader_tpu_torch.kernels.attention_bwd import flash_attention_trainable
 from callireader_tpu_torch.kernels.decode_attention import flash_decode
 from callireader_tpu_torch.kernels.int8_matmul import BLOCK, MAX_ROWS, int8_matmul, int8_matmul_nt
 
@@ -114,8 +124,13 @@ def _rows(h: torch.Tensor) -> int:
     return h.numel() // h.shape[-1]
 
 
-def _int8_kernel_route(rows: int, K: int, N: int) -> bool:
-    return rows <= MAX_ROWS and K % BLOCK == 0 and N % BLOCK == 0
+def _int8_kernel_route(h: torch.Tensor, K: int, N: int) -> bool:
+    """The int8 kernels take few rows with K, N multiples of 128. An ``h``
+    that autograd tracks (training over an int8 base) takes the XLA form:
+    the kernels have no backward."""
+    if h.requires_grad and torch.is_grad_enabled():
+        return False
+    return _rows(h) <= MAX_ROWS and K % BLOCK == 0 and N % BLOCK == 0
 
 
 def _int8_mm(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -123,18 +138,21 @@ def _int8_mm(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Ten
     rows, else the XLA form."""
     K, N = q.shape
     rows = _rows(h)
-    if _int8_kernel_route(rows, K, N):
+    if _int8_kernel_route(h, K, N):
         y = int8_matmul(h.reshape(rows, K).contiguous(), q, scale.reshape(N))
         return y.reshape(*h.shape[:-1], N)
     return (h @ q.to(h.dtype)) * scale.reshape(N).to(h.dtype)
 
 
 def _proj(p: Dict[str, torch.Tensor], h: torch.Tensor, name: str) -> torch.Tensor:
-    """Linear ``name``: bf16 ``p[name]``, or int8 ``{name}_q`` + ``{name}_scale``."""
+    """Linear ``name``: bf16 ``p[name]``, or int8 ``{name}_q`` + ``{name}_scale``;
+    plus the LoRA adapter ``{name}_lora_a/b`` where the layer has one."""
     q = p.get(f"{name}_q")
-    if q is None:
-        return h @ p[name].to(h.dtype)
-    return _int8_mm(h, q, p[f"{name}_scale"])
+    y = h @ p[name].to(h.dtype) if q is None else _int8_mm(h, q, p[f"{name}_scale"])
+    a = p.get(f"{name}_lora_a")
+    if a is not None:
+        y = y + ((h @ a.to(h.dtype)) @ p[f"{name}_lora_b"].to(h.dtype)) * p["lora_scale"].to(h.dtype)
+    return y
 
 
 def _qkv(p, h, cfg: LLMConfig):
@@ -172,7 +190,7 @@ def _logits(params: Params, x: torch.Tensor, policy: DTypePolicy, cfg: LLMConfig
         q, scale = params["output_q"], params["output_scale"]  # (V, E), (V, 1)
         N, K = q.shape
         rows = _rows(x)
-        if _int8_kernel_route(rows, K, N):
+        if _int8_kernel_route(x, K, N):
             y = int8_matmul_nt(x.reshape(rows, K).contiguous(), q, scale.reshape(N))
             y = y.reshape(*x.shape[:-1], N).to(policy.logits_dtype)
         else:
@@ -180,8 +198,10 @@ def _logits(params: Params, x: torch.Tensor, policy: DTypePolicy, cfg: LLMConfig
     else:
         y = (x @ params["output"].to(x.dtype).T).to(policy.logits_dtype)
     if cfg.real_vocab_size is not None and cfg.real_vocab_size < y.shape[-1]:
-        # padded vocab rows (pad_vocab) never win argmax
-        y[..., cfg.real_vocab_size:] = torch.finfo(y.dtype).min
+        # padded vocab rows (pad_vocab) never win argmax; out of place, so
+        # that autograd can differentiate through the logits
+        pad = torch.arange(y.shape[-1], device=y.device) >= cfg.real_vocab_size
+        y = y.masked_fill(pad, torch.finfo(y.dtype).min)
     return y
 
 
@@ -203,6 +223,60 @@ def pad_vocab(params: Params, cfg: LLMConfig, multiple: int) -> Tuple[Params, LL
         cfg, vocab_size=Vp,
         real_vocab_size=cfg.real_vocab_size if cfg.real_vocab_size is not None else V,
     )
+
+
+def _train_layer(p, x, cos, sin, segment_ids, cfg: LLMConfig, policy: DTypePolicy):
+    """One decoder layer of the full-sequence forward (no cache)."""
+    B, S, _ = x.shape
+    h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
+    q, k, v = _qkv(p, h, cfg)
+    q = apply_rope(q, cos, sin).contiguous()
+    k = apply_rope(k, cos, sin).contiguous()
+    ctx = flash_attention_trainable(q, k, v.contiguous(), segment_ids, segment_ids, True, None)
+    x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
+    return _mlp(p, x, cfg, policy)
+
+
+def forward(
+    params: Params,
+    cfg: LLMConfig,
+    *,
+    input_ids: Optional[torch.Tensor] = None,  # (B, S)
+    inputs_embeds: Optional[torch.Tensor] = None,  # (B, S, E)
+    positions: Optional[torch.Tensor] = None,  # (B, S), default 0..S-1
+    segment_ids: Optional[torch.Tensor] = None,  # (B, S), pad -1
+    policy: DTypePolicy = DEFAULT_POLICY,
+    remat: bool = False,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Full-sequence forward (training / eval) -> logits (B, S, V) in the
+    policy's logits dtype, or the final hidden states if ``return_hidden``.
+    Causal attention within equal segment ids. ``remat=True`` checkpoints
+    each layer (its activations are recomputed in the backward), as
+    ``jax.checkpoint`` does the JAX scan body."""
+    if inputs_embeds is None:
+        inputs_embeds = embed_tokens(params, input_ids, policy.compute_dtype)
+    x = inputs_embeds.to(policy.compute_dtype)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    cos, sin = cos_sin_for(cfg, positions, S)
+    # one unbind per stacked leaf: its backward stacks the 32 layers' grads
+    # once, where indexing layer by layer would add a full-size zero tensor
+    # per layer
+    names = list(params["layers"])
+    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    for leaves in per_layer:
+        p = dict(zip(names, leaves))
+        if remat:
+            x = checkpoint(_train_layer, p, x, cos, sin, segment_ids, cfg, policy,
+                           use_reentrant=False)
+        else:
+            x = _train_layer(p, x, cos, sin, segment_ids, cfg, policy)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps, policy)
+    if return_hidden:
+        return x
+    return _logits(params, x, policy, cfg)
 
 
 def prefill(

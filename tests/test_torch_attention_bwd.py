@@ -1,0 +1,287 @@
+"""Trainable flash attention of the port (kernels/attention_bwd.py).
+
+CPU: the autograd Function (its plain forward and FlashAttention-2 backward)
+against the JAX ``flash_attention_trainable`` in interpret mode at blocks of
+32, outputs and ``jax.grad`` dq / dk / dv, with the bars of
+tests/test_flash_bwd.py: 2e-5 for outputs, 5e-4 for grads (fp32, summation
+order only). The plain backward against torch autograd through the port's
+``attention_reference``: 1e-5 (same math, fp32). The kernels' ATOLs
+(kernels/tolerance.py) against what dropping one 64-key or 64-query tile
+costs.
+
+Card (marked ``cuda``): each kernel against its plain version on the same
+bf16 inputs, elementwise within the output's bf16 rounding plus the kernel's
+ATOL; lse (fp32 output) within 1e-4; rows that attend to nothing; equal bits
+run to run; launch counts of the LLM forward and backward with and without
+remat.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from callireader_tpu_torch.kernels import attention as tattn
+from callireader_tpu_torch.kernels import attention_bwd as tbwd
+from callireader_tpu_torch.kernels import tolerance
+
+OUT_TOL, GRAD_TOL = 2e-5, 5e-4
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX kernel (imported here so the card-only cases of this file run
+    where JAX is absent: ``pytest --noconftest -m cuda``)."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from callireader_tpu.kernels.attention_bwd import flash_attention_trainable
+
+    return types.SimpleNamespace(jax=jax, jnp=jnp, fat=flash_attention_trainable)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _weights(shape):
+    """The cotangent of tests/test_flash_bwd.py: loss = sum(out * cos(i))."""
+    return np.cos(np.arange(int(np.prod(shape)), dtype=np.float32)).reshape(shape)
+
+
+def _jax_out_grads(jx, q, k, v, qseg, kseg, causal):
+    jnp = jx.jnp
+    segs = (None, None) if qseg is None else (jnp.asarray(qseg), jnp.asarray(kseg))
+
+    def run(q, k, v):
+        return jx.fat(q, k, v, *segs, causal, None, 32, 32, True)
+
+    w = jnp.asarray(_weights(q.shape))
+    args = tuple(jnp.asarray(a) for a in (q, k, v))
+    out = run(*args)
+    grads = jx.jax.grad(lambda *a: jnp.sum(run(*a) * w), argnums=(0, 1, 2))(*args)
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _torch_out_grads(q, k, v, qseg, kseg, causal):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    segs = (None, None) if qseg is None else (torch.from_numpy(qseg), torch.from_numpy(kseg))
+    out = tbwd.flash_attention_trainable(*ts, *segs, causal)
+    (out * torch.from_numpy(_weights(q.shape))).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+def _qkv(seed, B, Hq, Hkv, S, D):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hq, S, D), dtype=np.float32),
+            rng.standard_normal((B, Hkv, S, D), dtype=np.float32),
+            rng.standard_normal((B, Hkv, S, D), dtype=np.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (4, 2)])
+def test_trainable_matches_jax(jx, causal, Hq, Hkv):
+    q, k, v = _qkv(0, 2, Hq, Hkv, 64, 32)
+    want, jgrads = _jax_out_grads(jx, q, k, v, None, None, causal)
+    got, tgrads = _torch_out_grads(q, k, v, None, None, causal)
+    np.testing.assert_allclose(got, want, atol=OUT_TOL, rtol=OUT_TOL)
+    for a, b, name in zip(tgrads, jgrads, "qkv"):
+        np.testing.assert_allclose(a, b, atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+def test_trainable_segments_padding_and_empty_row_match_jax(jx):
+    """Ragged right padding (-1 on both sides, as the collator pads), two
+    packed segments, S = 48 (not a multiple of the JAX blocks), and one query
+    whose segment id no key has. The JAX kernel writes that row's output as
+    an average of V (its online softmax saw only masked keys); the port
+    writes zeros and lse = -1e30. Both give the row no gradient."""
+    B, Hq, Hkv, S, D = 2, 4, 2, 48, 16
+    q, k, v = _qkv(1, B, Hq, Hkv, S, D)
+    seg = np.full((B, S), -1, np.int32)
+    seg[0, :30] = 0
+    seg[1, :20], seg[1, 20:44] = 0, 1
+    qseg, kseg = seg.copy(), seg.copy()
+    qseg[1, 25] = 7  # attends to nothing
+    want, jgrads = _jax_out_grads(jx, q, k, v, qseg, kseg, True)
+    got, tgrads = _torch_out_grads(q, k, v, qseg, kseg, True)
+    keep = np.ones((B, S), bool)
+    keep[1, 25] = False
+    np.testing.assert_allclose(got[keep[:, None, :].repeat(Hq, 1)],
+                               want[keep[:, None, :].repeat(Hq, 1)], atol=OUT_TOL, rtol=OUT_TOL)
+    assert np.all(got[1, :, 25] == 0)
+    _, lse = tbwd.attention_fwd_lse_reference(*(torch.from_numpy(a) for a in (q, k, v)),
+                                              torch.from_numpy(qseg), torch.from_numpy(kseg))
+    assert torch.all(lse[1, :, 25] == tbwd.NEG_INF) and torch.all(lse[keep[:, None].repeat(Hq, 1)] > -1e3)
+    for a, b, name in zip(tgrads, jgrads, "qkv"):
+        np.testing.assert_allclose(a, b, atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=f"d{name}")
+    assert np.all(tgrads[0][1, :, 25] == 0)
+
+
+@pytest.mark.parametrize("causal,G", [(True, 2), (False, 1)])
+def test_plain_backward_matches_autograd(causal, G):
+    """attention_bwd_reference (P recomputed from lse) against torch autograd
+    through the prefill kernel's plain version, with left-padded segments."""
+    B, Hkv, S, D = 2, 2, 40, 32
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(2, B, Hkv * G, Hkv, S, D))
+    seg = torch.zeros((B, S), dtype=torch.int32)
+    seg[0, :9] = -1
+    out = tattn.attention_reference(q, k, v, causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    do = torch.from_numpy(_weights(out.shape))
+    (out * do).sum().backward()
+    o, lse = tbwd.attention_fwd_lse_reference(q.detach(), k.detach(), v.detach(), seg, seg, causal)
+    torch.testing.assert_close(o, out.detach(), atol=1e-5, rtol=1e-5)
+    grads = tbwd.attention_bwd_reference(q.detach(), k.detach(), v.detach(), seg, seg, o, lse, do,
+                                         causal)
+    for got, t, name in zip(grads, (q, k, v), "qkv"):
+        torch.testing.assert_close(got, t.grad, atol=1e-5, rtol=1e-5, msg=f"d{name}")
+
+
+def test_tolerance_passes_rounding_and_fails_dropped_tiles():
+    """Each training kernel's ATOL admits the bf16 rounding of its plain
+    output but not the loss of one 64-key tile (forward, dq) or one 64-query
+    tile (dk/dv), on bf16 inputs at the path's D=128, G=4."""
+    B, Hq, Hkv, S, D = 1, 8, 2, 256, 128
+    q, k, v = (torch.from_numpy(a).bfloat16().float() for a in _qkv(3, B, Hq, Hkv, S, D))
+    do = torch.from_numpy(np.random.default_rng(4).standard_normal((B, Hq, S, D),
+                                                                    dtype=np.float32))
+    full = torch.zeros((B, S), dtype=torch.int32)
+    cut = full.clone()
+    cut[:, 64:128] = 5  # as keys: dropped for every query; as queries: see no key
+
+    def run(qseg, kseg):
+        o, lse = tbwd.attention_fwd_lse_reference(q, k, v, qseg, kseg, True)
+        return (o, *tbwd.attention_bwd_reference(q, k, v, qseg, kseg, o, lse, do, True))
+
+    want = run(full, full)
+    no_keys, no_queries = run(full, cut), run(cut, full)
+    for i, name, dropped in ((0, "attn_train_fwd", no_keys), (1, "attn_train_dq", no_keys),
+                             (2, "attn_train_dkv", no_queries), (3, "attn_train_dkv", no_queries)):
+        atol = tolerance.ATOL[name]
+        assert tolerance.excess_error(want[i].bfloat16(), want[i]) <= atol
+        # rows 128.. are the ones whose keys were cut (forward, dq) or the
+        # keys < 128 that lost a query tile (dk, dv)
+        assert tolerance.excess_error(dropped[i].bfloat16(), want[i]) > 10 * atol, name
+
+
+# ------------------------------------------------------------ CUDA kernels
+
+
+def _bf16(rng, shape, device):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, torch.bfloat16)
+
+
+def _right_pad_segments(B, S, pads):
+    seg = np.zeros((B, S), np.int32)
+    for b, n in enumerate(pads):
+        if n:
+            seg[b, S - n:] = -1
+    return seg
+
+
+def _kernels_vs_plain(q, k, v, do, seg, causal):
+    o, lse = tbwd._launch_fwd(q, k, v, seg, seg, causal, q.shape[-1] ** -0.5)
+    dq, dk, dv = tbwd._bwd(q, k, v, seg, seg, o, lse, do, causal, q.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    po, plse = tbwd.attention_fwd_lse_reference(q, k, v, seg, seg, causal)
+    # the plain backward from the kernel's own forward: same inputs to both
+    pdq, pdk, pdv = tbwd.attention_bwd_reference(q, k, v, seg, seg, o, lse, do, causal)
+    return (o, lse, dq, dk, dv), (po, plse, pdq, pdk, pdv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,pads,S", [
+    (True, (0, 77), 300), (True, (0, 0), 128), (False, (13, 0), 200), (True, (0, 0), 1),
+])
+def test_cuda_trainable_kernels_match_plain(cuda, causal, pads, S):
+    rng = np.random.default_rng(S)
+    B, Hkv, G, D = 2, 2, 4, 128
+    q, do = _bf16(rng, (B, Hkv * G, S, D), cuda), _bf16(rng, (B, Hkv * G, S, D), cuda)
+    k, v = _bf16(rng, (B, Hkv, S, D), cuda), _bf16(rng, (B, Hkv, S, D), cuda)
+    seg = torch.from_numpy(_right_pad_segments(B, S, pads)).to(cuda) if any(pads) else None
+    got, want = _kernels_vs_plain(q, k, v, do, seg, causal)
+    assert tolerance.excess_error(got[0], want[0]) <= tolerance.ATOL["attn_train_fwd"]
+    assert tolerance.max_abs_error(got[1], want[1]) <= 1e-4
+    assert tolerance.excess_error(got[2], want[2]) <= tolerance.ATOL["attn_train_dq"]
+    for i in (3, 4):
+        assert tolerance.excess_error(got[i], want[i]) <= tolerance.ATOL["attn_train_dkv"]
+
+
+@pytest.mark.cuda
+def test_cuda_rows_without_keys_are_zero(cuda):
+    rng = np.random.default_rng(5)
+    B, Hkv, G, S, D = 1, 2, 4, 150, 128
+    q, do = _bf16(rng, (B, Hkv * G, S, D), cuda), _bf16(rng, (B, Hkv * G, S, D), cuda)
+    k, v = _bf16(rng, (B, Hkv, S, D), cuda), _bf16(rng, (B, Hkv, S, D), cuda)
+    qs = torch.zeros((B, S), dtype=torch.int32, device=cuda)
+    qs[0, 10] = qs[0, 140] = 9
+    ks = torch.zeros((B, S), dtype=torch.int32, device=cuda)
+    o, lse = tbwd._launch_fwd(q, k, v, qs, ks, True, D ** -0.5)
+    dq, dk, dv = tbwd._bwd(q, k, v, qs, ks, o, lse, do, True, D ** -0.5)
+    assert o[:, :, [10, 140]].abs().max().item() == 0
+    assert torch.all(lse[:, :, [10, 140]] == tbwd.NEG_INF)
+    assert dq[:, :, [10, 140]].abs().max().item() == 0
+    pdq, pdk, pdv = tbwd.attention_bwd_reference(q, k, v, qs, ks, o, lse, do, True)
+    assert tolerance.excess_error(dk, pdk) <= tolerance.ATOL["attn_train_dkv"]
+    assert tolerance.excess_error(dv, pdv) <= tolerance.ATOL["attn_train_dkv"]
+
+
+@pytest.mark.cuda
+def test_cuda_backward_is_the_same_every_run(cuda):
+    rng = np.random.default_rng(6)
+    B, Hkv, G, S, D = 2, 2, 4, 333, 128
+    q, do = _bf16(rng, (B, Hkv * G, S, D), cuda), _bf16(rng, (B, Hkv * G, S, D), cuda)
+    k, v = _bf16(rng, (B, Hkv, S, D), cuda), _bf16(rng, (B, Hkv, S, D), cuda)
+    o, lse = tbwd._launch_fwd(q, k, v, None, None, True, D ** -0.5)
+    first = tbwd._bwd(q, k, v, None, None, o, lse, do, True, D ** -0.5)
+    second = tbwd._bwd(q, k, v, None, None, o, lse, do, True, D ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cuda_trainable_refuses_bad_input(cuda):
+    q = torch.zeros((1, 4, 8, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        tbwd.flash_attention_trainable(q, q[:, :1], q[:, :1])  # D=64 is not instantiated
+    q = torch.zeros((1, 8, 8, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        tbwd.flash_attention_trainable(q, q[:, :4], q[:, :4])  # G=2 is not instantiated
+    with pytest.raises(ValueError):
+        tbwd.flash_attention_trainable(q.float(), q[:, :2].float(), q[:, :2].float())
+    seg = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tbwd.flash_attention_trainable(q, q[:, :2].contiguous(), q[:, :2].contiguous(), seg, seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, False])
+def test_cuda_launch_counts_of_the_llm_forward_and_backward(cuda, remat):
+    """An LLM of the path's head shape (D=128, G=4): each layer launches the
+    forward kernel once (twice under remat: the backward recomputes it) and
+    dq and dk/dv once each in the backward."""
+    import dataclasses
+
+    from callireader_tpu_torch.core.config import callireader_tiny
+    from callireader_tpu_torch.models import internlm2
+    from callireader_tpu_torch.runtime.weights import _Init, init_llm
+
+    cfg = dataclasses.replace(callireader_tiny().llm, hidden_size=512, num_attention_heads=4,
+                              num_key_value_heads=1, num_hidden_layers=3)
+    params = init_llm(_Init(torch.Generator(device=cuda).manual_seed(0), cuda, torch.bfloat16), cfg)
+    wq = params["layers"]["wq"].requires_grad_(True)
+    ids = torch.randint(0, cfg.vocab_size, (2, 96), device=cuda)
+    seg = torch.zeros((2, 96), dtype=torch.int32, device=cuda)
+    seg[1, 70:] = -1
+    for kern in (tbwd.KERNEL_FWD, tbwd.KERNEL_DQ, tbwd.KERNEL_DKV):
+        kern.launches = 0
+    logits = internlm2.forward(params, cfg, input_ids=ids, segment_ids=seg, remat=remat)
+    logits.float().square().mean().backward()
+    torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
+    assert (tbwd.KERNEL_FWD.launches, tbwd.KERNEL_DQ.launches, tbwd.KERNEL_DKV.launches) == \
+        ((2 if remat else 1) * L, L, L)
+    assert torch.isfinite(wq.grad.float()).all() and wq.grad.abs().sum() > 0

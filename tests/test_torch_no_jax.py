@@ -26,7 +26,8 @@ print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "jax_package": sorted(m for m in sys.modules if m == "callireader_tpu" or m.startswith("callireader_tpu.")),
     "banned": sorted(m for m in ("PIL", "tokenizers", "transformers", "google.protobuf",
-                                 "sentencepiece", "cv2", "sklearn") if m in sys.modules),
+                                 "sentencepiece", "cv2", "sklearn", "optax", "safetensors",
+                                 "orbax") if m in sys.modules),
 }))
 """
 
@@ -42,7 +43,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     res = _probe()
     assert len(res["modules"]) >= 20
     for name in ("cli.serve", "runtime.serving", "runtime.paged_cache", "runtime.http_server",
-                 "kernels.paged_decode"):
+                 "kernels.paged_decode", "kernels.attention_bwd", "train.lora", "train.e_it",
+                 "train.data", "train.checkpoint", "utils.profiling", "configs", "configs.e_it",
+                 "cli.train"):
         assert f"callireader_tpu_torch.{name}" in res["modules"]
     assert res["jax"] == []
     assert res["jax_package"] == []
