@@ -1,0 +1,71 @@
+"""Command line entry with the JAX package's mode table, for the modes the
+port has (PyTorch port of callireader_tpu/__main__.py).
+
+  python -m callireader_tpu_torch MODE [ARGS...]
+"""
+
+from __future__ import annotations
+
+import sys
+
+MODES = ("list-cfg", "train", "check-custom-dataset", "chat", "serve", "inference",
+         "get-embeddings")
+# the JAX package's other modes, which wait for their modules
+NOT_PORTED = ("copy-cfg", "test", "evaluate", "convert", "preprocess", "mmbench", "judge",
+              "log-dataset")
+
+HELP = f"""callireader-tpu (PyTorch/CUDA port) command line
+
+    python -m callireader_tpu_torch MODE MODE_ARGS
+
+Where MODE is one of {MODES}
+
+  python -m callireader_tpu_torch list-cfg
+  python -m callireader_tpu_torch train --config e_it --data ann.jsonl --image-root DIR --random-init
+  python -m callireader_tpu_torch inference --tgt page.npy --random-init --quant int8
+  python -m callireader_tpu_torch chat --image page.npy --random-init
+  python -m callireader_tpu_torch serve --input req.jsonl --output out.jsonl --paged --random-init
+  python -m callireader_tpu_torch get-embeddings --data DIR --out OUT --random-init
+
+Not ported yet: {NOT_PORTED}
+"""
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        print(HELP)
+        return 0
+    mode, rest = argv[0], argv[1:]
+    if mode == "list-cfg":
+        from callireader_tpu_torch.configs import list_configs
+
+        for name in list_configs():
+            print(name)
+        return 0
+    if mode in ("train", "check-custom-dataset"):
+        from callireader_tpu_torch.cli import train as m
+
+        if mode == "check-custom-dataset":
+            rest = ["--check-data", *rest]
+    elif mode == "chat":
+        from callireader_tpu_torch.cli import chat as m
+    elif mode == "serve":
+        from callireader_tpu_torch.cli import serve as m
+    elif mode == "inference":
+        from callireader_tpu_torch.cli import inference as m
+    elif mode == "get-embeddings":
+        from callireader_tpu_torch.cli import get_embeddings as m
+    elif mode in NOT_PORTED:
+        print(f"mode {mode!r} is not ported to the PyTorch package yet (ROADMAP A12)",
+              file=sys.stderr)
+        return 2
+    else:
+        print(f"unknown mode {mode!r}\n{HELP}", file=sys.stderr)
+        return 1
+    m.main(rest)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

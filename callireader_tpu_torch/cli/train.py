@@ -15,8 +15,8 @@ continues from a checkpoint at its step and data position.
 Page images are ``.npy`` arrays of uint8 pixels (train/data.py). No InternVL
 checkpoint ships with the repository and the port loads none yet:
 ``--random-init`` must be passed. Not offered: ``--mesh`` (the port has no
-parallel layer yet) and ``--eval-chat-interval`` other than 0 (single-image
-chat is not ported). The JAX CLI's final export to the reference's
+parallel layer yet) and ``--eval-chat-interval`` other than 0 (not ported
+yet). The JAX CLI's final export to the reference's
 safetensors layout is replaced by the final ``save_train_state``.
 """
 
@@ -88,7 +88,7 @@ def main(argv=None):
         parser.set_defaults(**{key_map[k]: v for k, v in recipe.items() if k in key_map})
     args = parser.parse_args(argv)
     if args.eval_chat_interval:
-        parser.error("--eval-chat-interval: single-image chat is not ported yet; pass 0")
+        parser.error("--eval-chat-interval is not ported yet (ROADMAP A13); pass 0")
     if args.checkpoint:
         parser.error("--checkpoint: the port cannot load an InternVL checkpoint yet; "
                      "pass --random-init")

@@ -1,0 +1,216 @@
+"""RMSNorm forward and backward (PyTorch port of
+callireader_tpu/kernels/rmsnorm.py ``rms_norm_pallas``, a ``jax.custom_vjp``
+over two Pallas kernels).
+
+For x (..., E) and w (E,), with r = 1 / sqrt(mean(x^2) + eps) per row in fp32:
+
+    forward   y = x * r * w
+    backward  g = w * dy,  dx = r * g - x * r^3 * sum_j(g_j x_j) / E,
+              dw = sum_rows dy * x * r
+
+On the H100 these are the hand-written CUDA kernels of csrc/rmsnorm.cu: the
+forward a block per row (sum of squares, then y), the backward a block per
+group of rows with dw as per-block fp32 partials that ``torch.sum`` adds (no
+atomics: the same bits on every run, as the JAX rule sums in XLA). What
+bounds them: bytes (x read, y written; x, dy read, dx written).
+
+Two modes, two instantiations of each kernel:
+
+- ``"fused"``: y rounded to x's dtype once, exactly ``rms_norm_pallas``;
+- ``"model"``: y = T(T(x * r) * T(w)), exactly the model's plain
+  ``internlm2.rms_norm`` (T = x's dtype), whose backward rounds g = w * dy to
+  T before the fp32 reduction and whose dw sums dy * T(x * r), as autodiff of
+  that function does. In fp32 the two modes agree.
+
+``rms_norm_fused_reference`` and ``rms_norm_bwd_reference`` are the plain
+versions (fp32 arithmetic); the wrappers take them for CPU tensors only. On
+CUDA the wrappers take bf16 or fp32 rows whose width is a multiple of
+``WIDTH_MULTIPLE`` up to ``MAX_WIDTH`` and raise on anything else. ``RMSNormFn`` is the differentiable form: its
+backward computes dw only when the weight needs a gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr
+
+SOURCE = "rmsnorm"
+_FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int]
+_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+KERNELS_FWD = {mode: CudaKernel(SOURCE, f"rmsnorm_fwd_{mode}_launch", _FWD_ARGS)
+               for mode in ("model", "fused")}
+KERNELS_BWD = {mode: CudaKernel(SOURCE, f"rmsnorm_bwd_{mode}_launch", _BWD_ARGS)
+               for mode in ("model", "fused")}
+# row widths the kernels take: 16-byte vectors across the row, and the
+# backward's dw accumulator (4 bytes a column) in a block's 48 KB of shared
+# memory. The presets' LLMs are 4096 (8b, 2b) and 64 (tiny) wide.
+WIDTH_MULTIPLE, MAX_WIDTH = 8, 8192
+DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+BWD_ROWS_PER_BLOCK = 16  # rows a backward block walks when it accumulates dw
+
+
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """Arithmetic type of the plain versions: fp32, or fp64 for fp64 inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in KERNELS_FWD:
+        raise ValueError(f"mode must be 'model' or 'fused', got {mode!r}")
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def rms_norm_fused_reference(
+    x: torch.Tensor, w: torch.Tensor, eps: float, mode: str = "fused"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward -> (y in x's dtype, r fp32 (rows,); fp64 for fp64 x).
+    ``"model"`` is the body of the model's rms_norm operation for operation."""
+    _check_mode(mode)
+    xf = x.to(_acc(x))
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    if mode == "model":
+        y = (xf * r).to(x.dtype) * w.to(x.dtype)
+    else:
+        y = (xf * r * w.to(xf.dtype)).to(x.dtype)
+    return y, r.reshape(-1)
+
+
+def rms_norm_bwd_reference(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    r: torch.Tensor,
+    dy: torch.Tensor,
+    mode: str = "fused",
+    need_dw: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain backward from the formula -> (dx in dy's dtype, dw fp32 (E,) or
+    None; fp64 for fp64 x). ``r`` is the forward's (rows,)."""
+    _check_mode(mode)
+    E = x.shape[-1]
+    acc = _acc(x)
+    xf = x.reshape(-1, E).to(acc)
+    df = dy.reshape(-1, E).to(acc)
+    rr = r.reshape(-1, 1).to(acc)
+    if mode == "model":
+        g = (w.to(x.dtype) * dy.reshape(-1, E).to(x.dtype)).to(acc)
+    else:
+        g = w.to(acc) * df
+    inner = (g * xf).sum(dim=-1, keepdim=True)
+    dx = rr * g - xf * (rr * rr * rr) * inner / E
+    dw = None
+    if need_dw:
+        u = (xf * rr).to(x.dtype).to(acc) if mode == "model" else xf * rr
+        dw = (df * u).sum(dim=0)
+    return dx.to(dy.dtype).reshape(dy.shape), dw
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def _check(x2: torch.Tensor, w: torch.Tensor) -> int:
+    if x2.dtype not in DTYPES:
+        raise ValueError(f"the RMSNorm kernels take bf16 or fp32 rows, got {x2.dtype}")
+    check_cuda(x2, "x", x2.dtype)
+    check_cuda(w, "w", x2.dtype)
+    E = x2.shape[1]
+    if E % WIDTH_MULTIPLE or not 0 < E <= MAX_WIDTH or w.shape != (E,):
+        raise ValueError(f"unsupported RMSNorm width {E} (w {tuple(w.shape)}); the kernels "
+                         f"take multiples of {WIDTH_MULTIPLE} up to {MAX_WIDTH}")
+    return E
+
+
+def _launch_fwd(x2: torch.Tensor, w: torch.Tensor, eps: float, mode: str, want_r: bool):
+    """x2 (rows, E) -> (y (rows, E), r fp32 (rows,) or None)."""
+    E = _check(x2, w)
+    rows = x2.shape[0]
+    y = torch.empty_like(x2)
+    r = torch.empty((rows,), dtype=torch.float32, device=x2.device) if want_r else None
+    KERNELS_FWD[mode](ptr(x2), ptr(w), ptr(y), None if r is None else ptr(r), rows, E,
+                      float(eps), DTYPES[x2.dtype])
+    return y, r
+
+
+def _launch_bwd(x2: torch.Tensor, w: torch.Tensor, r: torch.Tensor, dy2: torch.Tensor, mode: str,
+                want_dw: bool):
+    """-> (dx (rows, E), dw partials fp32 (blocks, E) or None)."""
+    E = _check(x2, w)
+    check_cuda(dy2, "dy", x2.dtype)
+    check_cuda(r, "r", torch.float32)
+    rows = x2.shape[0]
+    if dy2.shape != x2.shape or r.shape != (rows,):
+        raise ValueError("dy must have x's shape and r one value a row")
+    rpb = BWD_ROWS_PER_BLOCK if want_dw else 1
+    dx = torch.empty_like(x2)
+    part = (torch.empty((-(-rows // rpb), E), dtype=torch.float32, device=x2.device)
+            if want_dw else None)
+    KERNELS_BWD[mode](ptr(x2), ptr(w), ptr(r), ptr(dy2), ptr(dx),
+                      None if part is None else ptr(part), rows, E, rpb, DTYPES[x2.dtype])
+    return dx, part
+
+
+def _weight_for(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """The kernels read w in x's dtype: the model mode casts it (the plain
+    version's first step); the fused mode casts it to fp32 directly, which the
+    kernel can only match when it already is x's dtype."""
+    if mode == "model":
+        return w.to(x.dtype).contiguous()
+    if w.dtype != x.dtype:
+        raise ValueError(f"fused RMSNorm on CUDA takes w in x's dtype {x.dtype}, got {w.dtype}")
+    return w.contiguous()
+
+
+def _fwd(x: torch.Tensor, w: torch.Tensor, eps: float, mode: str, want_r: bool):
+    """-> (y of x's shape, r fp32 (rows,) or None)."""
+    if x.device.type == "cpu":
+        return rms_norm_fused_reference(x, w, eps, mode)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    y, r = _launch_fwd(x2, _weight_for(x, w, mode), eps, mode, want_r)
+    return y.reshape(x.shape), r
+
+
+def _bwd(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, dy: torch.Tensor, mode: str,
+         want_dw: bool):
+    """-> (dx of x's shape in dy's dtype, dw fp32 (E,) or None)."""
+    if x.device.type == "cpu":
+        return rms_norm_bwd_reference(x, w, r, dy, mode, want_dw)
+    E = x.shape[-1]
+    dx, part = _launch_bwd(x.reshape(-1, E).contiguous(), _weight_for(x, w, mode), r,
+                           dy.reshape(-1, E).contiguous(), mode, want_dw)
+    return dx.reshape(x.shape), None if part is None else part.sum(dim=0)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, mode: str = "model") -> torch.Tensor:
+    """Forward only (no autograd): x (..., E), w (E,) -> y in x's dtype."""
+    _check_mode(mode)
+    return _fwd(x, w, eps, mode, False)[0]
+
+
+class RMSNormFn(torch.autograd.Function):
+    """y = rms_norm(x, w); the backward reads the saved r."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, mode):
+        y, r = _fwd(x, w, eps, mode, True)
+        ctx.save_for_backward(x, w, r)
+        ctx.mode = mode
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, r = ctx.saved_tensors
+        dx, dw = _bwd(x, w, r, dy, ctx.mode, ctx.needs_input_grad[1])
+        return dx, None if dw is None else dw.to(w.dtype), None, None
+
+
+def rms_norm_trainable(x: torch.Tensor, w: torch.Tensor, eps: float,
+                       mode: str = "model") -> torch.Tensor:
+    """Differentiable RMSNorm: x (..., E), w (E,) -> y in x's dtype."""
+    _check_mode(mode)
+    return RMSNormFn.apply(x, w, eps, mode)

@@ -1,7 +1,7 @@
 """InternLM2-style decoder (PyTorch port of callireader_tpu/models/internlm2.py).
 
 GQA attention, rotate-half RoPE with the dynamic-NTK rule, SwiGLU MLP, fp32
-RMSNorm statistics, untied LM head. Same parameter tree as the JAX package
+RMSNorm statistics (kernels/rmsnorm.py, forward and backward), untied LM head. Same parameter tree as the JAX package
 (layers stacked on axis 0, kernels (in, out), vocab tables (V, E)), in bf16
 or with int8 weight-only leaves (runtime/quantize.py): ``{name}_q`` +
 ``{name}_scale``, split (wq/wk/wv, w1/w3) or fused (wqkv, w13), int8 vocab
@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from callireader_tpu_torch.core.config import LLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
+from callireader_tpu_torch.kernels import rmsnorm as k_rmsnorm
 from callireader_tpu_torch.kernels.attention import flash_attention
 from callireader_tpu_torch.kernels.attention_bwd import flash_attention_trainable
 from callireader_tpu_torch.kernels.decode_attention import flash_decode
@@ -53,10 +54,17 @@ Params = Dict[str, Any]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, policy: DTypePolicy) -> torch.Tensor:
-    xf = x.to(policy.norm_dtype)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y.to(x.dtype) * weight.to(x.dtype)).to(policy.compute_dtype)
+    """The JAX package's rms_norm, y = T(T(x * r) * T(w)) with fp32 statistics
+    (T = x's dtype): the ``"model"`` mode of kernels.rmsnorm, a CUDA kernel
+    on the card. Under autograd it is ``RMSNormFn``, whose backward is the
+    kernel's too."""
+    if policy.norm_dtype != torch.float32:
+        raise ValueError(f"RMSNorm statistics are fp32, the policy asks {policy.norm_dtype}")
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        y = k_rmsnorm.rms_norm_trainable(x, weight, eps, "model")
+    else:
+        y = k_rmsnorm.rms_norm(x, weight, eps, "model")
+    return y.to(policy.compute_dtype)
 
 
 def _inv_freq(cfg: LLMConfig, base, device) -> torch.Tensor:

@@ -1,6 +1,9 @@
-"""CalliReader engine, batched full-page ``chat_ocr`` (PyTorch port of
-callireader_tpu/runtime/engine.py: the ``batch_chat_ocr`` path, and the
-per-request pieces the servers call, ``calli_align`` and ``_build_row_embeds``).
+"""CalliReader engine (PyTorch port of callireader_tpu/runtime/engine.py):
+batched full-page ``batch_chat_ocr``, the per-request pieces the servers call
+(``calli_align``, ``_build_row_embeds``), and the single-image chat APIs
+(``chat_ocr`` with region-wise crops and beam search, ``chat``,
+``dynamic_chat``, ``batch_chat``), which tile pages on the host as the JAX
+engine's do.
 
     pages -> on-device dynamic tiling -> InternViT tile tower + projector
           -> YOLO detector + host NMS -> dedup / k-means / column merge
@@ -10,17 +13,19 @@ per-request pieces the servers call, ``calli_align`` and ``_build_row_embeds``).
           -> double splice into the token embeddings
           -> one prefill + greedy decode (repetition penalty) for all rows
 
-The options of the JAX engine that select other paths (host tiling, RGB
-char crops, the shared-tower canvas lever, meshes) are not ported: this
-engine always tiles on the device, ships luma crops and resizes them on the
-device, except crops that would be downscaled, which take the host path
-(PIL-compatible antialiased bicubic in numpy), as in the JAX engine.
+The options of the JAX engine that select other paths (host tiling for the
+batch API, RGB char crops, the shared-tower canvas lever, ``char_window``,
+meshes) are not ported: the batch API always tiles on the device, every path
+ships luma crops and resizes them on the device, except crops that would be
+downscaled, which take the host path (PIL-compatible antialiased bicubic in
+numpy), as in the JAX engine.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -57,6 +62,11 @@ class Timings:
 
     def add(self, name: str, dt: float):
         self.spans[name] = self.spans.get(name, 0.0) + dt
+
+
+def _drop_zero_rows(pseudo: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """The pseudo rows whose VQ index is not 0 (rows follow indices.reshape(-1))."""
+    return pseudo[indices.reshape(-1) != 0]
 
 
 def _luma(c: np.ndarray) -> np.ndarray:
@@ -122,27 +132,33 @@ class CalliReaderEngine:
                                       self.cfg.char_vision, pixel_values)
         return self._encode_tower(p["vision"], p["projector"], self.cfg.vision, pixel_values)
 
-    def _resample_vq(self, feats: torch.Tensor):
+    def _resample_vq(self, feats: torch.Tensor, hard_vq: bool = False):
         """(N, tok, dim) -> (pseudo embeds (N*3, E), indices (N, 3))."""
         out = resampler.forward(self.params["resampler"], self.cfg.resampler, feats,
                                 policy=self.policy)
         a = self.params["align"]
-        return vq_mod.calli_align_embed(out, a["normed_emb"], a["mu"], a["sigma"])
+        return vq_mod.calli_align_embed(out, a["normed_emb"], a["mu"], a["sigma"],
+                                        hard_vq=hard_vq)
 
-    def _char_pipeline_raw(self, raw, src_hw, tgt_hw):
+    def _char_pipeline_raw(self, raw, src_hw, tgt_hw, hard_vq: bool = False):
         """Raw luma crops -> device bicubic canvas -> tower -> resampler -> VQ."""
         canvas = bicubic_canvas(raw, src_hw, tgt_hw, self.char_canvas)
         canvas = canvas[..., None].expand(*canvas.shape, 3)
-        return self._resample_vq(self._char_encode(canvas))
+        return self._resample_vq(self._char_encode(canvas), hard_vq)
 
-    def _char_pipeline(self, content: torch.Tensor):
-        """(N, c, c) luma content canvases -> white pad to the char canvas ->
-        tower -> resampler -> VQ."""
+    def _char_pipeline(self, content: torch.Tensor, hard_vq: bool = False):
+        """(N, c, c) luma or (N, c, c, 3) RGB content canvases -> white pad to
+        the char canvas -> tower -> resampler -> VQ."""
         size, c = self.char_canvas, content.shape[1]
         pad = (size - c) // 2
-        x = torch.nn.functional.pad(content, (pad, size - c - pad, pad, size - c - pad), value=255)
-        x = x[..., None].expand(*x.shape, 3)
-        return self._resample_vq(self._char_encode(x))
+        spatial = (pad, size - c - pad, pad, size - c - pad)
+        if content.ndim == 3:
+            x = torch.nn.functional.pad(content, spatial, value=255)
+            x = x[..., None].expand(*x.shape, 3)
+        else:  # RGB: pad H and W of (N, H, W, 3)
+            x = torch.nn.functional.pad(content.permute(0, 3, 1, 2), spatial,
+                                        value=255).permute(0, 2, 3, 1)
+        return self._resample_vq(self._char_encode(x), hard_vq)
 
     # ------------------------------------------------------------ tiling
 
@@ -251,7 +267,7 @@ class CalliReaderEngine:
             out.append((np.asarray(idxs, np.int64), stack))
         return out
 
-    def _char_parts(self, raw_crops: List[np.ndarray]):
+    def _char_parts(self, raw_crops: List[np.ndarray], hard_vq: bool = False):
         """One char pipeline per bucket group -> (parts_ps, parts_ix, counts,
         original-index arrays)."""
         parts_ps, parts_ix, ns, idx_order = [], [], [], []
@@ -271,14 +287,14 @@ class CalliReaderEngine:
                     src = np.concatenate([src, np.ones((pad, 2), np.int32)])
                     tgt = np.concatenate([tgt, np.ones((pad, 2), np.int32)])
                 ps, ix = self._char_pipeline_raw(self._to_dev(raw_p), self._to_dev(src),
-                                                 self._to_dev(tgt))
+                                                 self._to_dev(tgt), hard_vq)
                 parts_ps.append(ps)
                 parts_ix.append(ix)
                 ns.append(n)
                 idx_order.append(idxs)
             for idxs, stack in host_groups:
                 padded, n = preprocess.pad_to_bucket(stack, CHAR_BUCKETS)
-                ps, ix = self._char_pipeline(self._to_dev(padded))
+                ps, ix = self._char_pipeline(self._to_dev(padded), hard_vq)
                 parts_ps.append(ps)
                 parts_ix.append(ix)
                 ns.append(n)
@@ -381,9 +397,13 @@ class CalliReaderEngine:
         self,
         images: Sequence[np.ndarray],
         *,
+        drop_zero: bool = False,
+        hard_vq: bool = False,
         ordered_lists: Optional[List[Optional[List[List[float]]]]] = None,
     ):
-        """Per page (pseudo (3*chars, E), indices (chars, 3)) or (None, None)."""
+        """Per page (pseudo (3*chars, E), indices (chars, 3)) or (None, None);
+        ``drop_zero`` drops the pseudo rows whose VQ index is 0, ``hard_vq``
+        replaces low-confidence rows by their table rows."""
         if ordered_lists is None:
             with self._span("yolo_orderformer"):
                 ordered_lists = self.batch_sort_boxes(images)
@@ -407,7 +427,7 @@ class CalliReaderEngine:
         # windows of at most CHAR_WINDOW crops bound the char tower's live
         # activations; the small pseudo outputs reassemble in one reorder
         for lo in range(0, len(all_crops), CHAR_WINDOW):
-            pp, pi, nn, ii = self._char_parts(all_crops[lo:lo + CHAR_WINDOW])
+            pp, pi, nn, ii = self._char_parts(all_crops[lo:lo + CHAR_WINDOW], hard_vq)
             parts_ps += pp
             parts_ix += pi
             ns += nn
@@ -424,12 +444,15 @@ class CalliReaderEngine:
             pseudo = pseudo_all[off * n_learns:(off + count) * n_learns]
             idx = idx_all[off:off + count]
             off += count
-            out.append((pseudo, idx))
+            out.append((_drop_zero_rows(pseudo, idx) if drop_zero else pseudo, idx))
         return out
 
-    def calli_align(self, image: np.ndarray):
+    def calli_align(self, image: np.ndarray, *, drop_zero: bool = False, hard_vq: bool = False,
+                    verbose: bool = False):
         """One page -> (pseudo (3 * chars, E), indices (chars, 3)) on the
-        device, or (None, None) when the detector finds no character."""
+        device, or (None, None) when the detector finds no character.
+        ``drop_zero`` drops the pseudo rows whose VQ index is 0, ``hard_vq``
+        replaces low-confidence rows by their table rows."""
         with self._span("yolo_orderformer"):
             ordered = self.sort_boxes(image)
         t0 = time.perf_counter()
@@ -442,9 +465,14 @@ class CalliReaderEngine:
         self.timings.add("char_crops", time.perf_counter() - t0)
         if not raw_crops:
             return None, None
-        parts = self._char_parts(raw_crops)
+        parts = self._char_parts(raw_crops, hard_vq)
         with self._span("vit_resampler_vq"):
-            return self._reorder(*parts)
+            pseudo, indices = self._reorder(*parts)
+        if drop_zero:
+            pseudo = _drop_zero_rows(pseudo, indices)
+        if verbose:
+            print(f"calli_align: {len(ordered)} chars -> {pseudo.shape[0]} pseudo tokens")
+        return pseudo, indices
 
     # ------------------------------------------------------------ chat
 
@@ -487,9 +515,13 @@ class CalliReaderEngine:
         questions: Sequence[str],
         *,
         histories: Optional[Sequence[Optional[List[Tuple[str, str]]]]] = None,
+        use_p: bool = True,
+        drop_zero: bool = False,
+        hard_vq: bool = False,
         ordered_lists: Optional[List[Optional[List[List[float]]]]] = None,
     ) -> Dict[str, Any]:
-        """Vision + CalliAlign + splice for a batch -> left-padded embeds."""
+        """Vision + CalliAlign (``use_p``) + splice for a batch -> left-padded
+        embeds."""
         if len(images) != len(questions):
             raise ValueError("one question per image")
         if histories is None:
@@ -498,7 +530,9 @@ class CalliReaderEngine:
         imgs_np = [preprocess.as_rgb_array(im) for im in images]
         with self._span("page_tiling"):
             tile_cat, tile_counts = self.batch_tile_pages(imgs_np)
-        aligned = self.batch_calli_align(imgs_np, ordered_lists=ordered_lists)
+        aligned = (self.batch_calli_align(imgs_np, drop_zero=drop_zero, hard_vq=hard_vq,
+                                          ordered_lists=ordered_lists)
+                   if use_p else [(None, None)] * len(images))
         with self._span("tile_encode"):
             all_feats = self.encode_image_tiles(tile_cat)
 
@@ -507,7 +541,7 @@ class CalliReaderEngine:
         for i, (question, history) in enumerate(zip(questions, histories)):
             pseudo = aligned[i][0]
             q = "<image>\n" + question if "<image>" not in question else question
-            if history is None and pseudo is not None and ALIGNED not in q:
+            if history is None and use_p and pseudo is not None and ALIGNED not in q:
                 q = q + ALIGNED * pseudo.shape[0]
             out_questions.append(q)
             conv = build_chat_prompt(q, history)
@@ -556,6 +590,9 @@ class CalliReaderEngine:
         questions: Sequence[str],
         *,
         histories=None,
+        use_p: bool = True,
+        drop_zero: bool = False,
+        hard_vq: bool = False,
         repetition_penalty: float = 1.5,
         max_new_tokens: int = 1024,
         eos_token_ids: Optional[Tuple[int, ...]] = None,
@@ -564,7 +601,8 @@ class CalliReaderEngine:
     ) -> Dict[str, Any]:
         """batch_build_rows (or ``prepared_rows``) + prefill + greedy decode."""
         rows = prepared_rows if prepared_rows is not None else self.batch_build_rows(
-            images, questions, histories=histories, ordered_lists=ordered_lists,
+            images, questions, histories=histories, use_p=use_p, drop_zero=drop_zero,
+            hard_vq=hard_vq, ordered_lists=ordered_lists,
         )
         gen_cfg = gen.GenerateConfig(
             max_new_tokens=max_new_tokens,
@@ -607,6 +645,9 @@ class CalliReaderEngine:
         *,
         histories=None,
         return_histories: bool = False,
+        use_p: bool = True,
+        drop_zero: bool = False,
+        hard_vq: bool = False,
         repetition_penalty: float = 1.5,
         max_new_tokens: int = 1024,
         eos_token_ids: Optional[Tuple[int, ...]] = None,
@@ -617,11 +658,193 @@ class CalliReaderEngine:
         replaces the detector + OrderFormer stage with given reading-order
         boxes per page."""
         prepared = self.batch_prepare(
-            images, questions, histories=histories, repetition_penalty=repetition_penalty,
+            images, questions, histories=histories, use_p=use_p, drop_zero=drop_zero,
+            hard_vq=hard_vq, repetition_penalty=repetition_penalty,
             max_new_tokens=max_new_tokens, eos_token_ids=eos_token_ids,
             ordered_lists=ordered_lists,
         )
         return self.batch_decode(prepared, return_histories=return_histories)
+
+    # ------------------------------------------------------- single-image chat
+
+    @staticmethod
+    def find_coordinates(text: str) -> List[int]:
+        return [int(n) for n in re.findall(r"\d+", text)]
+
+    def _gen_cfg(self, conv_sep: str, **kw) -> gen.GenerateConfig:
+        return gen.GenerateConfig(eos_token_ids=(self.tok.convert_tokens_to_ids(conv_sep),),
+                                  pad_token_id=self.tok.pad_token_id, **kw)
+
+    def _generate(self, input_ids: np.ndarray, img_embeds, pseudo_embeds,
+                  gen_cfg: gen.GenerateConfig) -> List[int]:
+        """One prompt -> its generated token ids (beam search when
+        ``gen_cfg.num_beams > 1``)."""
+        bucket = gen.bucket_length(len(input_ids))
+        embeds, mask = self._build_row_embeds(input_ids, img_embeds, pseudo_embeds, bucket)
+        gen_fn = gen.beam_generate_from_embeds if gen_cfg.num_beams > 1 else gen.generate_from_embeds
+        with self._span("generate"):
+            tokens, lengths = gen_fn(self.params["llm"], self.cfg.llm, embeds, self._to_dev(mask),
+                                     gen_cfg=gen_cfg, max_cache_len=bucket + gen_cfg.max_new_tokens,
+                                     policy=self.policy)
+        return tokens[0, :int(lengths[0])].tolist()
+
+    def _page_tiles_host(self, img_np: np.ndarray) -> np.ndarray:
+        cfg = self.cfg
+        with self._span("page_tiling"):
+            return preprocess.load_image(img_np, cfg.force_image_size, cfg.max_dynamic_patch,
+                                         cfg.use_thumbnail)
+
+    def _respond(self, out_tokens: List[int], conv_sep: str) -> str:
+        return self.tok.decode(out_tokens, skip_special_tokens=True).split(conv_sep)[0].strip()
+
+    def chat_ocr(
+        self,
+        image: Optional[Any],
+        question: str,
+        *,
+        history: Optional[List[Tuple[str, str]]] = None,
+        return_history: bool = False,
+        use_p: bool = True,
+        drop_zero: bool = False,
+        hard_vq: bool = False,
+        repetition_penalty: float = 1.5,
+        max_new_tokens: int = 1024,
+        num_beams: int = 1,
+        region_wise: bool = False,
+        verbose: bool = False,
+    ):
+        """Full CalliReader chat on one page (a path, ``.npy`` or image file,
+        or an array): host tiling, CalliAlign (``use_p``), one prompt, greedy
+        decode or beam search (``num_beams > 1``). ``region_wise`` crops the
+        page to the first four numbers of the question (x1 x2 y1 y2) and
+        answers "检测失败" when no character is found there."""
+        pixel_values = img_np = None
+        if image is not None:
+            img_np = preprocess.open_image(image)
+            if region_wise:
+                x1, x2, y1, y2 = self.find_coordinates(question)[:4]
+                img_np = img_np[y1:y2, x1:x2]
+                question = "输出图片中所有文字:"
+            pixel_values = self._page_tiles_host(img_np)
+
+        pseudo = None
+        if use_p and img_np is not None:
+            pseudo, _ = self.calli_align(img_np, drop_zero=drop_zero, hard_vq=hard_vq,
+                                         verbose=verbose)
+            if pseudo is None and region_wise:
+                return ("检测失败", history) if return_history else "检测失败"
+
+        if pixel_values is not None and "<image>" not in question:
+            question = "<image>\n" + question
+        if history is None and use_p and pseudo is not None and ALIGNED not in question:
+            question = question + ALIGNED * pseudo.shape[0]
+        conv = build_chat_prompt(question, history)
+        n_tiles = [] if pixel_values is None else [pixel_values.shape[0]]
+        input_ids = self._tokenize_prompt(self._expand_image_tokens(conv.get_prompt(), n_tiles))
+        img_embeds = None
+        if pixel_values is not None:
+            with self._span("tile_encode"):
+                img_embeds = self.encode_image_tiles(self._to_dev(pixel_values))
+        gen_cfg = self._gen_cfg(conv.sep, max_new_tokens=max_new_tokens,
+                                repetition_penalty=repetition_penalty, num_beams=num_beams)
+        response = self._respond(self._generate(input_ids, img_embeds, pseudo, gen_cfg), conv.sep)
+        history = list(history or [])
+        history.append((question, response))
+        return (response, history) if return_history else response
+
+    def chat(
+        self,
+        image: Optional[Any],
+        question: str,
+        *,
+        history: Optional[List[Tuple[str, str]]] = None,
+        return_history: bool = False,
+        repetition_penalty: float = 1.0,
+        max_new_tokens: int = 1024,
+        num_beams: int = 1,
+    ):
+        """Plain VLM chat, no CalliAlign."""
+        return self.chat_ocr(
+            image, question, history=history, return_history=return_history, use_p=False,
+            repetition_penalty=repetition_penalty, max_new_tokens=max_new_tokens,
+            num_beams=num_beams,
+        )
+
+    def dynamic_chat(
+        self,
+        image: Optional[Any],
+        question: str,
+        *,
+        history: Optional[List[Tuple[str, str]]] = None,
+        return_history: bool = False,
+        use_p: bool = True,
+        repetition_penalty: float = 1.0,
+        max_new_tokens: int = 1024,
+    ):
+        """Ablation path: the page's tile features run through the resampler,
+        VQ and denorm and stand in for the usual image tokens (num_learns
+        per tile in place of num_image_token)."""
+        if not use_p or image is None:
+            return self.chat(image, question, history=history, return_history=return_history,
+                             repetition_penalty=repetition_penalty, max_new_tokens=max_new_tokens)
+        pixel_values = self._page_tiles_host(preprocess.open_image(image))
+        n_tiles = pixel_values.shape[0]
+        padded, n = preprocess.pad_to_bucket(pixel_values)
+        with self._span("tile_encode"):
+            pseudo, _ = self._resample_vq(self._vision_encode(self._to_dev(padded)))
+        n_learns = self.cfg.resampler.num_learns
+        pseudo = pseudo[:n * n_learns]
+
+        conv = build_chat_prompt(question, history)
+        query = conv.get_prompt()
+        image_tokens = IMG_CONTEXT * n_learns * n_tiles
+        if "<image>" in query:
+            query = query.replace("<image>", image_tokens, 1)
+        else:
+            query = query.replace(conv.roles[1], image_tokens + conv.roles[1], 1)
+        gen_cfg = self._gen_cfg(conv.sep, max_new_tokens=max_new_tokens,
+                                repetition_penalty=repetition_penalty)
+        # the pseudo embeddings stand at the <IMG_CONTEXT> positions
+        out = self._generate(self._tokenize_prompt(query), pseudo[None], None, gen_cfg)
+        response = self._respond(out, conv.sep)
+        history = list(history or [])
+        history.append((question, response))
+        return (response, history) if return_history else response
+
+    def batch_chat(
+        self,
+        images: Sequence[Any],
+        questions: Sequence[str],
+        *,
+        repetition_penalty: float = 1.0,
+        max_new_tokens: int = 1024,
+    ) -> List[str]:
+        """Left-padded batched plain chat: every row in one prefill and one
+        decode loop."""
+        if len(images) != len(questions):
+            raise ValueError("one question per image")
+        conv_sep = get_conv_template(self.cfg.template).sep
+        rows = []
+        for image, question in zip(images, questions):
+            pixel_values = self._page_tiles_host(preprocess.open_image(image))
+            q = "<image>\n" + question if "<image>" not in question else question
+            query = self._expand_image_tokens(build_chat_prompt(q, None).get_prompt(),
+                                              [pixel_values.shape[0]])
+            with self._span("tile_encode"):
+                feats = self.encode_image_tiles(self._to_dev(pixel_values))
+            rows.append((self._tokenize_prompt(query), feats))
+        bucket = gen.bucket_length(max(len(ids) for ids, _ in rows))
+        built = [self._build_row_embeds(ids, feats, None, bucket) for ids, feats in rows]
+        embeds = torch.cat([e for e, _ in built], dim=0)
+        mask = np.concatenate([m for _, m in built], axis=0)
+        gen_cfg = self._gen_cfg(conv_sep, max_new_tokens=max_new_tokens,
+                                repetition_penalty=repetition_penalty)
+        with self._span("generate"):
+            tokens, lengths = gen.generate_from_embeds(
+                self.params["llm"], self.cfg.llm, embeds, self._to_dev(mask), gen_cfg=gen_cfg,
+                max_cache_len=bucket + max_new_tokens, policy=self.policy)
+        tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+        return [self._respond(tokens[i, :lengths[i]].tolist(), conv_sep) for i in range(len(rows))]
 
 
 def build_engine(

@@ -47,8 +47,12 @@ def save_train_state(path: str, state: TrainState, metadata: Optional[Dict] = No
 
 def restore_train_state(path: str, template: TrainState) -> TrainState:
     """The saved state, written into ``template``'s tensors (every leaf the
-    template has must be in the file, with its shape)."""
-    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    template has must be in the file, with its shape; a template without
+    optimizer moments restores the trainable leaves alone)."""
+    # mmap: only the template's tensors are read (a serving restore skips the
+    # optimizer moments, most of an 8b state file)
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", mmap=True,
+                       weights_only=True)
     want = _tensors(template)
     missing = sorted(set(want) - set(saved["tensors"]))
     if missing:

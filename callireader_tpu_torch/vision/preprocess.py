@@ -1,7 +1,8 @@
 """Host-side preprocessing helpers (numpy), ported from
 callireader_tpu/vision/preprocess.py without PIL.
 
-Pages arrive as uint8 RGB arrays. Tile-grid selection, the tile/char
+Pages arrive as uint8 RGB arrays (``open_image`` reads them from ``.npy``
+files, or decodes other image files with PIL where it is installed). Tile-grid selection, the tile/char
 buckets, host dynamic tiling (``load_image``, what the server runs per page),
 the [200, 350] char-content rule and the host path for crops that would be
 downscaled live here; every resize is the PIL-compatible antialiased BICUBIC
@@ -10,6 +11,8 @@ of vision/resample.py (PIL's default ``resize`` filter).
 
 from __future__ import annotations
 
+import io
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +33,28 @@ def as_rgb_array(image) -> np.ndarray:
     if arr.ndim != 3 or arr.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) RGB, got {arr.shape}")
     return arr
+
+
+def open_image(image) -> np.ndarray:
+    """A page as uint8 (H, W, 3): an array as it is (gray broadcast), a
+    ``.npy`` file of one read directly, and any other file, bytes or PIL
+    image decoded by PIL, imported here only (the card's machine has none)."""
+    if isinstance(image, (str, os.PathLike)) and os.fspath(image).endswith(".npy"):
+        return as_rgb_array(np.load(os.fspath(image)))
+    if isinstance(image, (str, os.PathLike, bytes)) or hasattr(image, "convert"):
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise RuntimeError(
+                f"decoding {image if not isinstance(image, bytes) else 'image bytes'} needs PIL, "
+                f"which is not installed; save the page as a uint8 (H, W, 3) .npy array") from e
+        if isinstance(image, bytes):
+            image = io.BytesIO(image)
+        if not hasattr(image, "convert"):
+            with Image.open(image) as im:
+                return np.asarray(im.convert("RGB"))
+        return np.asarray(image.convert("RGB"))
+    return as_rgb_array(image)
 
 
 def find_closest_aspect_ratio(

@@ -30,7 +30,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      have launched, the (K, N) int8 kernel 4 x 32 times per decode step and
      the LM-head kernel once per step plus once in prefill; token ids below
      the real vocabulary. Spans, prefill time, time per decode step against
-     the step's weight bytes, and peak memory are printed;
+     the step's weight bytes, and peak memory are printed; then host against
+     device ms of one decode step (16 steps on the host clock, 4 under
+     torch.profiler) with the RMSNorm kernel and with the plain norm, in
+     turns;
   6. reference: one 128-token row, prefill plus one decode step through the
      kernels against the same 8b model with every kernel swapped for its
      plain version;
@@ -99,13 +102,40 @@ Phases (any failure exits non-zero; nothing is caught and continued):
  16. kernels of the training path: the forward, dq and dk/dv kernels against
      their plain versions at the shape and segment ids phase 14 launched
      them with and at the recipe's ceiling B=1, S=8192, beside
-     scaled_dot_product_attention and its autograd backward.
+     scaled_dot_product_attention and its autograd backward;
+ 17. inference CLI, flagship with an adapter: ``cli.inference.main(["--tgt",
+     page.npy, "--preset", "callireader-8b", "--random-init", "--quant",
+     "int8", "--adapter", <phase 14's final checkpoint>])`` in-process at
+     the CLI's defaults (1024 new tokens), then in folder mode on two .npy
+     pages (on the engine the first call built). Counts zeroed before, read
+     after each: the tile tower, the char tower, prefill, flash_decode, the
+     int8 kernels and the RMSNorm forward launched, token ids below the real
+     vocabulary, 2 records in results/recognition.json; one merged bf16 leaf
+     equals base + scale * a @ b of the checkpoint before it is quantized.
+     Spans, prefill seconds, ms per decode step and peak memory are printed;
+ 18. beams and chat on that engine: chat_ocr with num_beams=4 (flash_decode
+     at B=4, 32 launches a step, the best beam within 128 tokens), chat
+     without CalliAlign and cli.chat's stream_generate for 64 tokens;
+ 19. the RMSNorm kernels against their plain versions at every path's shapes
+     (E = 4096; 8b batch, serve, CLI, beams: decode and prefill rows; train:
+     2 x 2048 rows, forward and backward with dw on and off), both roundings:
+     the one-rounding form (rms_norm_pallas's) within kernels/tolerance.py's
+     rule, the model's two-rounding form within one bf16 ulp elementwise and
+     few elements apart; the backward's bits equal in two runs; beside
+     torch.nn.functional.rms_norm (a yardstick the port never calls).
+Every phase that drives a path asserts the RMSNorm counts: the model forward
+2L+1 times per prefill and per decode step (2b, 8b, serve, pressure, HTTP,
+contiguous, CLI, beams, chat, stream); in a training micro-step under remat 4L+1 forward
+and 2L+1 backward (no dw: the norm weights are frozen). Phases 3, 6, 12 and
+15 swap the RMSNorm kernels for their plain versions as well.
 Prints the ``kernels`` JSON line, then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
 port's sources next to it.
 """
 
+import contextlib
 import gc
+import io
 import json
 import os
 import shutil
@@ -139,6 +169,7 @@ TRAIN_CEILING = 8192  # the recipe's max_length
 REF_GRAD_CAP = 7e-2
 TRAIN_FROZEN = (("llm", "layers", "wq"), ("llm", "layers", "w2"), ("llm", "layers", "attn_norm"),
                 ("llm", "output"), ("vision", "layers", "fc1_kernel"))
+NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_fused", "rms_norm_bwd_fused")
 # H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor cores (data sheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -274,6 +305,12 @@ class ShapeLog:
                                      None if a[3] is None else a[3].clone()),
         "attn_train_dq": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[8]),
         "attn_train_dkv": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[8]),
+        # (x2, w, eps, mode, want_r) / (x2, w, r, dy2, mode, want_dw): one entry
+        # per mode's kernel, both wrapping the same launch function
+        "rms_norm_fwd": lambda a: (*a[0].shape, a[0].dtype, a[4]) if a[3] == "model" else None,
+        "rms_norm_fwd_fused": lambda a: (*a[0].shape, a[0].dtype, a[4]) if a[3] == "fused" else None,
+        "rms_norm_bwd": lambda a: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "model" else None,
+        "rms_norm_bwd_fused": lambda a: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "fused" else None,
     }
 
     def __init__(self, kernels):
@@ -298,7 +335,8 @@ class ShapeLog:
         return self
 
     def __exit__(self, *exc):
-        for name, k in self.kernels.items():
+        # in reverse: two kernels may wrap one launch function
+        for name, k in reversed(list(self.kernels.items())):
             setattr(k.module, k.launch, self._orig[name])
 
 
@@ -389,7 +427,8 @@ def write_eit_data(engine, work):
 
 def train_phases(h, data):
     """Phases 14-16: e-IT training through the CLI, the reference step, and
-    the training attention kernels at the run's shapes and the ceiling."""
+    the training attention kernels at the run's shapes and the ceiling ->
+    the final checkpoint's directory."""
     import functools
 
     import torch
@@ -397,6 +436,7 @@ def train_phases(h, data):
 
     from callireader_tpu_torch.cli import train as train_cli
     from callireader_tpu_torch.kernels import attention_bwd as k_bwd
+    from callireader_tpu_torch.kernels import rmsnorm as k_rms
     from callireader_tpu_torch.models import internlm2
     from callireader_tpu_torch.runtime import engine as engine_mod
     from callireader_tpu_torch.train import checkpoint as ckpt_mod
@@ -468,13 +508,19 @@ def train_phases(h, data):
     log(f"[train] cli.train: {n_micro} micro-steps in {wall:.3f} s (engine build and data "
         f"included); bucket and real tokens per row {[st[2:] for st in steps]}; launches "
         f"{launches}; peak memory {peak:.2f} GiB")
+    # the norms under remat: each layer's two forward and again in the
+    # recompute, the final norm once; one backward each (frozen weights: no dw)
     want = {"attn_train_fwd": 2 * L * n_micro, "attn_train_dq": L * n_micro,
-            "attn_train_dkv": L * n_micro, "vit_attention": Lv * n_micro}
+            "attn_train_dkv": L * n_micro, "vit_attention": Lv * n_micro,
+            "rms_norm_fwd": (4 * L + 1) * n_micro, "rms_norm_bwd": (2 * L + 1) * n_micro}
     if n_micro != 4 or any(launches[n] != want.get(n, 0) for n in launches):
         fail(f"[train] {n_micro} micro-steps (want 4: 2 updates x accum 2); launches {launches}, "
              f"want {want} and 0 elsewhere")
     if not all(np.isfinite(st[1]) for st in steps):
         fail(f"[train] a non-finite loss: {[st[1] for st in steps]}")
+    if any(want_dw for *_, want_dw in shapes.calls["rms_norm_bwd"]):
+        fail("[train] an RMSNorm backward computed dw for a frozen norm weight")
+    h.keep_norms("train", shapes, launches)
     lora_b = {n: v for n, v in state.trainable["llm"]["layers"].items() if n.endswith("_lora_b")}
     unmoved = [n for n, b in lora_b.items() if not bool((b.detach().abs().amax(dim=(1, 2)) > 0).all())]
     if len(lora_b) != 7 or unmoved:
@@ -599,21 +645,24 @@ def train_phases(h, data):
             groups[key] = (d + (g - gp).square().sum().item(), n + gp.square().sum().item())
         return {k: (d / n) ** 0.5 if n else 0.0 for k, (d, n) in sorted(groups.items())}
 
-    witnesses = {"library": Swap(internlm2, flash_attention_trainable=sdpa_attention),
-                 "plain +-1 ulp": Swap(k_bwd, _fwd=ulp_fwd, _bwd=ulp_bwd)}
+    witnesses = {"library": [Swap(internlm2, flash_attention_trainable=sdpa_attention)],
+                 "plain +-1 ulp": [Swap(k_bwd, _fwd=ulp_fwd, _bwd=ulp_bwd),
+                                   Swap(k_rms, **h.plain_rms)]}
     for b in range(len(ref_ds) // 2):
         batch = data_mod.to_device(data_mod.collate([ref_ds[2 * b], ref_ds[2 * b + 1]]), dev)
         if batch["input_ids"].shape[1] > 512:
             fail(f"[reference] rows of {batch['input_ids'].shape[1]} tokens, want <= 512")
         loss_k, grads = loss_and_grads(batch)
         h.zero_counts()
-        with Swap(k_bwd, _fwd=plain_fwd, _bwd=plain_bwd):
+        with Swap(k_bwd, _fwd=plain_fwd, _bwd=plain_bwd), Swap(k_rms, **h.plain_rms):
             loss_p, grads_p = loss_and_grads(batch)
-        if any(h.read_counts()[n] for n in train_kernels):
+        if any(h.read_counts()[n] for n in train_kernels + NORM_KERNELS):
             fail(f"[reference] the plain-version step launched a training kernel: {h.read_counts()}")
         rel = {"kernels": (abs(loss_k - loss_p) / abs(loss_p), rel_l2(grads, grads_p))}
-        for name, swap in witnesses.items():
-            with swap:
+        for name, swaps in witnesses.items():
+            with contextlib.ExitStack() as stack:
+                for swap in swaps:
+                    stack.enter_context(swap)
                 loss_w, grads = loss_and_grads(batch)
             rel[name] = (abs(loss_w - loss_p) / abs(loss_p), rel_l2(grads, grads_p))
         del grads, grads_p
@@ -654,6 +703,7 @@ def train_phases(h, data):
     for label, q_shape, k_shape, seg in cases:
         train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F)
         torch.cuda.empty_cache()
+    return os.path.join(out_dir, "final")
 
 
 def train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F):
@@ -738,6 +788,310 @@ def train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F):
 
 
 
+def cli_phases(h, final_dir, work):
+    """Phases 17-18: cli.inference on the int8 flagship with phase 14's e-IT
+    adapter (one page, then a folder of two), then beam search, plain chat
+    and stream_generate on the engine it built."""
+    import torch
+
+    from callireader_tpu_torch.cli import chat as chat_cli
+    from callireader_tpu_torch.cli import common as cli_common
+    from callireader_tpu_torch.cli import inference as inf_cli
+    from callireader_tpu_torch.models import internlm2
+    from callireader_tpu_torch.runtime import engine as engine_mod
+    from callireader_tpu_torch.runtime import generate as gen_mod
+    from callireader_tpu_torch.runtime import quantize as quant_mod
+
+    page_path = os.path.join(work, "page.npy")
+    np.save(page_path, make_page(0)[0])
+    folder = os.path.join(work, "pages")
+    os.makedirs(folder)
+    for seed in (1, 2):
+        np.save(os.path.join(folder, f"page{seed}.npy"), make_page(seed)[0])
+    cli_path = ("vit_attention", "flash_attention", "flash_decode", "int8_matmul",
+                "int8_matmul_nt", "rms_norm_fwd")
+
+    # ---------------------------------------------------------- 17. cli.inference, 8b int8 + adapter
+    kept, gens = {}, []
+    layer = 7  # a host check of one merged leaf: wq of this layer
+    build_base, build_cli = engine_mod.build_engine, cli_common.build_engine
+    quantize, generate = quant_mod.quantize_llm_int8, gen_mod.generate_from_embeds
+
+    def base_and_keep(*a, **kw):
+        eng = build_base(*a, **kw)
+        kept["base"] = eng.params["llm"]["layers"]["wq"][layer].cpu()
+        return eng
+
+    def cli_and_keep(**kw):
+        t0 = time.time()
+        kept["engine"] = build_cli(**kw)
+        torch.cuda.synchronize()
+        kept["build_s"] = time.time() - t0
+        return kept["engine"]
+
+    def quantize_and_keep(llm):
+        kept["merged"] = llm["layers"]["wq"][layer].cpu()
+        return quantize(llm)
+
+    def generate_and_keep(*a, **kw):
+        out = generate(*a, **kw)
+        gens.append((out[0].cpu(), out[1].cpu()))
+        return out
+
+    def run_cli(label, argv):
+        """cli.inference.main with every count zeroed just before and read
+        just after; its printout captured."""
+        engine = kept.get("engine")
+        if engine is not None:
+            engine.timings.spans.clear()
+        gens.clear()
+        h.zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        t0 = time.time()
+        with ShapeLog(h.kernels) as shapes, \
+                CallCount(internlm2, ("prefill", "decode_step"), timed=("prefill",),
+                          torch=torch) as steps, \
+                Swap(gen_mod, generate_from_embeds=generate_and_keep), \
+                contextlib.redirect_stdout(out):
+            inf_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = h.read_counts()
+        engine = kept["engine"]
+        cfg = engine.cfg.llm
+        L, vocab = cfg.num_hidden_layers, cfg.real_vocab_size or cfg.vocab_size
+        n_pre, n_dec = steps.n["prefill"], steps.n["decode_step"]
+        missing = [n for n in cli_path if launches[n] == 0]
+        char_calls = [a for a in shapes.calls["vit_attention"]
+                      if a[0][-1] // 3 // a[1] != engine.cfg.vision.head_dim]
+        if missing or not char_calls:
+            fail(f"[{label}] kernels never launched: {missing}; char tower calls "
+                 f"{len(char_calls)}; launches {launches}")
+        if launches["flash_decode"] != L * n_dec or launches["int8_matmul"] != 4 * L * n_dec \
+                or launches["int8_matmul_nt"] != n_dec + n_pre:
+            fail(f"[{label}] launches {launches} for {n_pre} prefills and {n_dec} decode steps")
+        h.check_norms(label, launches, L, n_pre + n_dec)
+        toks = [t[0, :int(n[0])] for t, n in gens]
+        if len(toks) != n_pre or not all(((t >= 0) & (t < vocab)).all() for t in toks):
+            fail(f"[{label}] token ids outside the vocabulary ({vocab}) or a missing generate")
+        spans = engine.timings.spans
+        step_ms = (spans["generate"] - steps.seconds["prefill"]) / n_dec * 1e3
+        lines = out.getvalue().splitlines()
+        log(f"[{label}] {wall:.3f} s wall (engine build {kept['build_s']:.3f} s in the first call); "
+            f"{n_pre} prompt(s) of {[int(t.numel()) for t in toks]} new tokens; prefill "
+            f"{steps.seconds['prefill'] / n_pre:.4f} s each; {n_dec} decode steps at {step_ms:.3f} ms "
+            f"a step (host clock, generate spans minus prefills); cache slots "
+            f"{[tuple(c[1])[3] for c in shapes.calls['flash_decode'][-1:]]}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; spans (s) "
+            + json.dumps({k: round(v, 4) for k, v in spans.items()}) + f"; launches {launches}; "
+            f"printed {len(lines)} lines, first {[ln[:60] for ln in lines[:3]]}")
+        return shapes, launches
+
+    argv = ["--preset", "callireader-8b", "--random-init", "--quant", "int8",
+            "--adapter", final_dir]
+    with Swap(engine_mod, build_engine=base_and_keep), \
+            Swap(cli_common, build_engine=cli_and_keep), \
+            Swap(quant_mod, quantize_llm_int8=quantize_and_keep):
+        shapes, launches = run_cli("cli page", ["--tgt", page_path, *argv])
+    engine = kept["engine"]
+    h.keep_norms("cli", shapes, launches)
+
+    # the merged leaf: base + scale * a @ b from the checkpoint, before int8
+    saved = torch.load(os.path.join(final_dir, "state.pt"), map_location="cpu", mmap=True,
+                       weights_only=True)["tensors"]
+    a = saved["trainable/llm/layers/wq_lora_a"][layer].float()
+    b = saved["trainable/llm/layers/wq_lora_b"][layer].float()
+    want = (kept["base"].float() + (a @ b) * (256.0 / 128)).bfloat16().float()
+    got = kept["merged"].float()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(got.abs(), want.abs()).clamp_min(2**-126))) - 7)
+    diff = (got - want).abs()
+    moved = int((kept["merged"] != kept["base"]).sum())
+    log(f"[cli] adapter merge, layer {layer} wq: {moved} of {got.numel()} elements moved from the "
+        f"base; against base + 2 * a @ b of the checkpoint, max abs err {diff.max().item():.3e}, "
+        f"{int((diff > 0).sum())} elements one bf16 ulp apart (fp32 products in another order)")
+    if not moved or not (diff <= ulp).all():
+        fail("[cli] the merged leaf is not base + scale * a @ b of the checkpoint")
+    del saved, a, b, want, got, diff, ulp
+
+    # folder mode on the engine built above
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with Swap(cli_common, build_engine=lambda **kw: engine):
+            run_cli("cli folder", ["--tgt", folder, *argv])
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(work, "results", "recognition.json"), encoding="utf-8") as f:
+        records = json.load(f)
+    if len(records) != 2 or any(r["response"] == "ERROR!" for r in records):
+        fail(f"[cli folder] {len(records)} records, responses {[r['response'][:20] for r in records]}")
+
+    # ---------------------------------------------------------- 18. beams, chat, stream_generate
+    cfg = engine.cfg.llm
+    L = cfg.num_hidden_layers
+    page = make_page(3)[0]
+    beams = []
+    beam_generate = gen_mod.beam_generate_from_embeds
+
+    def beam_and_keep(*a, **kw):
+        out = beam_generate(*a, **kw)
+        beams.append((out[0].cpu(), out[1].cpu()))
+        return out
+
+    def counted(label, fn):
+        h.zero_counts()
+        t0 = time.time()
+        with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill", "decode_step")) as st, \
+                Swap(gen_mod, beam_generate_from_embeds=beam_and_keep):
+            result = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = h.read_counts()
+        n_pre, n_dec = st.n["prefill"], st.n["decode_step"]
+        if launches["flash_decode"] != L * n_dec or not n_dec:
+            fail(f"[{label}] flash_decode launches {launches['flash_decode']} != {L} x {n_dec}")
+        h.check_norms(label, launches, L, n_pre + n_dec)
+        log(f"[{label}] {wall:.3f} s, {n_pre} prefill(s), {n_dec} decode steps "
+            f"({wall / max(n_dec, 1) * 1e3:.3f} ms a step, prefill and page stages included), "
+            f"flash_decode at B={shapes.calls['flash_decode'][-1][0][0]}; launches {launches}")
+        return result, shapes, launches
+
+    resp, shapes, launches = counted("beams", lambda: engine.chat_ocr(
+        page, QUESTION, num_beams=4, max_new_tokens=128))
+    tokens, lengths = beams[-1]
+    if shapes.calls["flash_decode"][-1][0][0] != 4 or not 1 <= int(lengths[0]) <= 128:
+        fail(f"[beams] decode batch {shapes.calls['flash_decode'][-1][0]}, best beam length "
+             f"{int(lengths[0])}")
+    log(f"[beams] best beam of 4: {int(lengths[0])} tokens, {resp[:30]!r}")
+    h.keep_norms("beams", shapes, launches)
+    resp, _, _ = counted("chat", lambda: engine.chat(page, QUESTION, max_new_tokens=128))
+    log(f"[chat] {resp[:30]!r}")
+    out = io.StringIO()
+    (resp, hist), _, _ = counted("stream", lambda: chat_cli.stream_generate(
+        engine, QUESTION, None, image=page, max_new_tokens=64, out=out))
+    if len(hist) != 1 or hist[0][1] != resp or not out.getvalue().endswith("\n"):
+        fail("[stream] stream_generate did not stream a whole turn")
+    log(f"[stream] stream_generate: {len(out.getvalue())} characters streamed")
+
+
+def norm_rows(h):
+    """Phase 19: the RMSNorm kernels against their plain versions at every
+    path's shapes (E = 4096), both roundings, forward and backward (dw on
+    and off), beside torch.nn.functional.rms_norm (which rounds once); the
+    backward's bits equal across two runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from callireader_tpu_torch.kernels import rmsnorm as k_rms
+
+    dev, eps = h.dev, 1e-5
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).bfloat16()
+
+    def ulp(t):
+        """The spacing of bf16 values at |t|."""
+        return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp_min(2.0**-126))) - 7)
+
+    def ulp_check(out_k, out_p, slack=None, what="one bf16 ulp + 1e-6"):
+        """Both outputs rounded to bf16 from fp32 values a few fp32 ulps apart:
+        elementwise within one bf16 ulp (plus 1e-6 for values that cancel, or
+        ``slack``), and only a small share of elements apart at all."""
+        got, want = out_k.float(), out_p.float()
+        diff = (got - want).abs()
+        tol = ulp(torch.maximum(got.abs(), want.abs())) + (1e-6 if slack is None else slack)
+        ok = bool((diff <= tol).all())
+        flips = int((diff > 0).sum())
+        share = flips / diff.numel()
+        return ok and share <= 1e-3, (f"{flips} of {diff.numel()} elements apart ({share:.2e}; "
+                                      f"tol {what} each, share <= 1e-3)")
+
+    def model_fwd_check(x, w):
+        """The model's rounding: an fp32 last-bit difference in r can move
+        u = bf16(x * r) by one ulp, which the weight carries into y before y's
+        own rounding: |dy| <= ulp(u) |w| + ulp(y)."""
+        def check(out_k, out_p):
+            r = k_rms.rms_norm_fused_reference(x, w, eps, "model")[1]
+            u = (x.float() * r[:, None]).bfloat16()
+            return ulp_check(out_k, out_p, slack=ulp(u) * w.float().abs(),
+                             what="ulp(bf16(x r)) |w| + one bf16 ulp of y")
+        return check
+
+    for path, (shapes, launches) in h.norm_shapes.items():
+        fwd, bwd = {}, {}
+        for call in shapes.calls["rms_norm_fwd"]:
+            fwd[call] = fwd.get(call, 0) + 1
+        for call in shapes.calls["rms_norm_bwd"]:
+            bwd[call] = bwd.get(call, 0) + 1
+        if sum(fwd.values()) != launches["rms_norm_fwd"] or sum(bwd.values()) != launches["rms_norm_bwd"]:
+            fail(f"[{path}] the shape log disagrees with the RMSNorm counts")
+        for (rows, E, dtype, want_r), n in sorted(fwd.items(), key=lambda kv: kv[0][0]):
+            x, w = randn((rows, E), 2.0), randn((E,), 0.1, 1.0)
+            nbytes = 2 * 2 * x.numel() + 2 * E + (4 * rows if want_r else 0)
+            # the model rounding against its plain version on the same bf16
+            # values (rounded twice as well); the fused form against the fp32
+            # plain version, unrounded, as every other kernel
+            for name, mode, n_launch, check, plain in (
+                    ("rms_norm_fwd", "model", n, model_fwd_check(x, w),
+                     lambda: k_rms.rms_norm_fused_reference(x, w, eps, "model")[0]),
+                    ("rms_norm_fwd_fused", "fused", 0, None,
+                     lambda: k_rms.rms_norm_fused_reference(x.float(), w.float(), eps, "fused")[0])):
+                r = h.row_for(
+                    name, f"[{path}] rows={rows} E={E} {mode} rounding, r out {want_r}",
+                    lambda mode=mode: k_rms._launch_fwd(x, w, eps, mode, want_r)[0], plain,
+                    lambda: F.rms_norm(x, (E,), w, eps), nbytes=nbytes, flops=4 * x.numel(),
+                    check=check)
+                h.results.setdefault(name, []).append(
+                    (f"{path} rows={rows}" + ("" if n_launch else ", off the path"), n_launch, r))
+            del x, w
+        for (rows, E, dtype, want_dw), n in sorted(bwd.items(), key=lambda kv: kv[0][0]):
+            x, w, dy = randn((rows, E), 2.0), randn((E,), 0.1, 1.0), randn((rows, E))
+            _, r_model = k_rms._launch_fwd(x, w, eps, "model", True)
+            _, r_fused = k_rms._launch_fwd(x, w, eps, "fused", True)
+            xg, wg = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+            lib_out = F.rms_norm(xg, (E,), wg, eps)
+            for name, mode, dw, n_launch, check in (
+                    ("rms_norm_bwd", "model", False, n if not want_dw else 0, ulp_check),
+                    ("rms_norm_bwd", "model", True, n if want_dw else 0, ulp_check),
+                    ("rms_norm_bwd_fused", "fused", True, 0, None)):
+                rr = r_model if mode == "model" else r_fused
+                runs = [k_rms._launch_bwd(x, w, rr, dy, mode, dw) for _ in range(2)]
+                if not torch.equal(runs[0][0], runs[1][0]) or (
+                        dw and not torch.equal(runs[0][1], runs[1][1])):
+                    fail(f"[{path}] RMSNorm backward ({mode}, dw {dw}) differs between two runs")
+                if dw:
+                    dw_p = k_rms.rms_norm_bwd_reference(x, w, rr, dy, mode)[1]
+                    u = (x.float() * rr[:, None]).bfloat16() if mode == "model" else x.float() * rr[:, None]
+                    terms = (dy.float().abs() * u.float().abs()).sum(0)
+                    dw_err = ((runs[0][1].sum(0) - dw_p).abs() / terms).max().item()
+                    log(f"rms_norm_bwd [{path}] rows={rows} {mode}: dw (fp32 partials summed) max "
+                        f"err {dw_err:.3e} of the sum of its terms' sizes (tol 1e-5); the same "
+                        f"bits in two runs")
+                    if dw_err > 1e-5:
+                        fail(f"[{path}] RMSNorm dw ({mode}) disagrees with its plain version")
+                    del dw_p, u, terms
+                nbytes = 2 * 3 * x.numel() + 2 * E + 4 * rows \
+                    + (4 * E * -(-rows // k_rms.BWD_ROWS_PER_BLOCK) if dw else 0)
+                lib_inputs = (xg, wg) if dw else (xg,)
+                # (fused: the fp32 plain version on the same values, unrounded)
+                ins = (x, w, dy) if mode == "model" else (x.float(), w.float(), dy.float())
+                r = h.row_for(
+                    name, f"[{path}] rows={rows} E={E} {mode} rounding, dw {dw}",
+                    lambda mode=mode, rr=rr, dw=dw: k_rms._launch_bwd(x, w, rr, dy, mode, dw)[0],
+                    lambda mode=mode, rr=rr, ins=ins: k_rms.rms_norm_bwd_reference(
+                        ins[0], ins[1], rr, ins[2], mode, False)[0],
+                    lambda ins=lib_inputs: torch.autograd.grad(lib_out, ins, dy, retain_graph=True),
+                    nbytes=nbytes, flops=8 * x.numel(), check=check)
+                h.results.setdefault(name, []).append(
+                    (f"{path} rows={rows} dw={'on' if dw else 'off'}"
+                     + ("" if n_launch else ", off the path"), n_launch, r))
+                del runs
+            del x, w, dy, xg, wg, lib_out, r_model, r_fused
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -751,6 +1105,7 @@ def main() -> int:
         from callireader_tpu_torch.kernels import decode_attention as k_dec
         from callireader_tpu_torch.kernels import int8_matmul as k_i8
         from callireader_tpu_torch.kernels import paged_decode as k_paged
+        from callireader_tpu_torch.kernels import rmsnorm as k_rms
         from callireader_tpu_torch.kernels import tolerance
         from callireader_tpu_torch.kernels import vit_attention as k_vit
         from callireader_tpu_torch.models import internlm2, internvit
@@ -796,11 +1151,38 @@ def main() -> int:
                                 "attention_bwd.py:315 _bwd_rule, dq (:333)", "attn_train_dq"),
         "attn_train_dkv": kernel(k_bwd, k_bwd.KERNEL_DKV, "_launch_dkv", "flash_attention_bwd",
                                  "attention_bwd.py:315 _bwd_rule, dk/dv (:360)", "attn_train_dkv"),
+        # the model's two-rounding RMSNorm (every LLM norm of every path), and
+        # rms_norm_pallas's own one-rounding form (held to its plain version
+        # off the path, as the JAX package holds it)
+        "rms_norm_fwd": kernel(k_rms, k_rms.KERNELS_FWD["model"], "_launch_fwd", "rmsnorm",
+                               "rmsnorm.py:55 rms_norm_pallas, forward (:68), model rounding",
+                               None),
+        "rms_norm_bwd": kernel(k_rms, k_rms.KERNELS_BWD["model"], "_launch_bwd", "rmsnorm",
+                               "rmsnorm.py:99 _bwd_rule (:100), model rounding", None),
+        "rms_norm_fwd_fused": kernel(k_rms, k_rms.KERNELS_FWD["fused"], "_launch_fwd", "rmsnorm",
+                                     "rmsnorm.py:55 rms_norm_pallas, forward (:68)", "rms_norm"),
+        "rms_norm_bwd_fused": kernel(k_rms, k_rms.KERNELS_BWD["fused"], "_launch_bwd", "rmsnorm",
+                                     "rmsnorm.py:99 _bwd_rule (:100)", "rms_norm"),
     }
-    attention = ("vit_attention", "flash_attention", "flash_decode")
-    batch_path = attention + ("int8_matmul", "int8_matmul_nt")  # batch_chat_ocr, 8b int8
+    path_2b = ("vit_attention", "flash_attention", "flash_decode", "rms_norm_fwd")
+    batch_path = path_2b + ("int8_matmul", "int8_matmul_nt")  # batch_chat_ocr, 8b int8
     serve_path = ("vit_attention", "flash_attention", "paged_flash_decode", "int8_matmul",
-                  "int8_matmul_nt")  # serve --paged, 8b int8
+                  "int8_matmul_nt", "rms_norm_fwd")  # serve --paged, 8b int8
+    plain_rms = dict(_fwd=lambda x, w, eps, mode, want_r: k_rms.rms_norm_fused_reference(
+        x, w, eps, mode), _bwd=k_rms.rms_norm_bwd_reference)
+
+    def check_norms(label, launches, L, n_calls):
+        """The model RMSNorm forward 2L+1 times per prefill and per decode
+        step (``n_calls`` of them together), the backward and the fused
+        kernels never."""
+        want = (2 * L + 1) * n_calls
+        if launches["rms_norm_fwd"] != want or launches["rms_norm_bwd"] \
+                or launches["rms_norm_fwd_fused"] or launches["rms_norm_bwd_fused"]:
+            fail(f"[{label}] RMSNorm launches {launches['rms_norm_fwd']} / {launches['rms_norm_bwd']}"
+                 f" / fused {launches['rms_norm_fwd_fused']} / {launches['rms_norm_bwd_fused']}, "
+                 f"want {want} = (2 x {L} + 1) x {n_calls} / 0 / 0 / 0")
+        log(f"[{label}] RMSNorm forward launches {want} = (2 x {L} + 1) x {n_calls} prefills and "
+            f"decode steps")
 
     def zero_counts():
         for k in kernels.values():
@@ -833,14 +1215,22 @@ def main() -> int:
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def row_for(name, shape_desc, run_k, run_plain, run_lib, nbytes, flops, time_k=None):
-        """Check ``run_k`` against ``run_plain``, then time ``time_k`` (default
-        ``run_k``), the plain version and the library call."""
+    def row_for(name, shape_desc, run_k, run_plain, run_lib, nbytes, flops, time_k=None,
+                check=None):
+        """Check ``run_k`` against ``run_plain`` (by ``check(out_k, out_p) ->
+        (ok, verdict)``, default: within the output's bf16 rounding plus the
+        kernel's ATOL), then time ``time_k`` (default ``run_k``), the plain
+        version and the library call."""
         out_k = run_k()
         torch.cuda.synchronize()
         out_p = run_plain()
         err = tolerance.max_abs_error(out_k, out_p)
-        excess = tolerance.excess_error(out_k, out_p)
+        if check is None:
+            excess = tolerance.excess_error(out_k, out_p)
+            tol = tolerance.ATOL[kernels[name].tol]
+            ok, verdict = excess <= tol, f"beyond bf16 output rounding {excess:.3e} (tol {tol})"
+        else:
+            ok, verdict = check(out_k, out_p)
         del out_k, out_p
         ms = time_ms(time_k or run_k, torch)
         plain_ms = time_ms(run_plain, torch, max_iters=5)
@@ -848,15 +1238,13 @@ def main() -> int:
         dev_ms, dev_calls = device_ms(time_k or run_k, torch)
         dev_lib, lib_calls = device_ms(run_lib, torch) if run_lib is not None else (None, 0)
         b_ms, b_by = bound(nbytes, flops)
-        tol = tolerance.ATOL[kernels[name].tol]
-        log(f"{name} {shape_desc}: max_abs_err {err:.3e}, beyond bf16 output rounding "
-            f"{excess:.3e} (tol {tol}), {ms:.4f} ms, "
+        log(f"{name} {shape_desc}: max_abs_err {err:.3e}, {verdict}, {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {b_ms:.4f} ms ({b_by}); device time from the profiler: kernel "
             f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms, library "
             f"{dev_lib if dev_lib is None else round(dev_lib, 4)} ms ({dev_calls} and {lib_calls} "
             f"of 16 calls in the trace)")
-        if excess > tol:
+        if not ok:
             fail(f"{name} disagrees with its plain version at {shape_desc}")
         return err, ms, plain_ms, lib_ms, b_ms, b_by, dev_ms
 
@@ -880,7 +1268,15 @@ def main() -> int:
 
     h = types.SimpleNamespace(torch=torch, dev=dev, kernels=kernels, zero_counts=zero_counts,
                               read_counts=read_counts, rnd=rnd, bound=bound, row_for=row_for,
-                              results=results)
+                              results=results, plain_rms=plain_rms, check_norms=check_norms,
+                              norm_shapes={})
+
+    def keep_norms(path, shapes, launches):
+        """The RMSNorm launches of ``path`` by shape, for phase 19."""
+        h.norm_shapes[path] = (types.SimpleNamespace(
+            calls={n: list(shapes.calls[n]) for n in NORM_KERNELS}), launches)
+
+    h.keep_norms = keep_norms
     pages_boxes = [make_page(seed) for seed in range(N_PAGES)]
     pages = [p for p, _ in pages_boxes]
 
@@ -927,6 +1323,8 @@ def main() -> int:
             fail(f"[{label}] token ids out of the vocabulary ({vocab})")
         log(f"[{label}] prompt bucket {embeds.shape[1]}, generated lengths {lengths.tolist()}, "
             f"first response {texts[0][:40]!r}")
+        check_norms(label, launches, engine.cfg.llm.num_hidden_layers,
+                    steps.n["prefill"] + steps.n["decode_step"])
         return types.SimpleNamespace(prepared=prepared, shapes=shapes, launches=launches, wall=wall,
                                      peak=peak, steps=steps, spans=dict(engine.timings.spans))
 
@@ -938,7 +1336,7 @@ def main() -> int:
         f"{engine.cfg.char_vision.hidden_size if engine.cfg.char_vision else 'shared'} wide, "
         f"detector {'trained' if engine.cfg.detector.img_size == 640 else 'random'}")
     run2b = run_main_path(engine, MAX_NEW_TOKENS, "2b")
-    missing = [n for n in attention if run2b.launches[n] == 0]
+    missing = [n for n in path_2b if run2b.launches[n] == 0]
     if missing:
         fail(f"kernels never launched on the 2b main path: {missing}")
     shapes, launches_2b = run2b.shapes, run2b.launches
@@ -954,7 +1352,8 @@ def main() -> int:
 
     def llm_rel_err(engine, embeds, plain):
         """Prefill of one 128-token row plus one decode step through the
-        kernels against the same model with the plain versions in ``plain``."""
+        kernels against the same model with the plain versions in ``plain``
+        and the plain RMSNorm."""
         row = embeds[:1, -128:].contiguous()
         mask = torch.ones((1, 128), dtype=torch.int32, device=dev)
         mask[0, :17] = 0
@@ -962,7 +1361,7 @@ def main() -> int:
         lg_k, cache_k = internlm2.prefill(llm, cfg, inputs_embeds=row, attention_mask=mask, max_len=136)
         tok = lg_k.argmax(-1)[:, None].int()
         st_k, _ = internlm2.decode_step(llm, cfg, input_ids=tok, cache=cache_k)
-        with Swap(internlm2, **plain):
+        with Swap(internlm2, **plain), Swap(k_rms, **plain_rms):
             lg_p, cache_p = internlm2.prefill(llm, cfg, inputs_embeds=row, attention_mask=mask, max_len=136)
             st_p, _ = internlm2.decode_step(llm, cfg, input_ids=tok, cache=cache_p)
         vocab = cfg.real_vocab_size or cfg.vocab_size
@@ -972,7 +1371,8 @@ def main() -> int:
     plain_attention = dict(flash_attention=k_attn.attention_reference,
                            flash_decode=k_dec.flash_decode_reference)
     llm_rel = llm_rel_err(engine, embeds, plain_attention)
-    log(f"reference check: tile tower rel err {vit_rel:.3e}, LLM prefill+decode logits rel err {llm_rel:.3e}")
+    log(f"reference check: tile tower rel err {vit_rel:.3e}, LLM prefill+decode logits rel err "
+        f"{llm_rel:.3e} (attention and RMSNorm plain)")
     if not (vit_rel <= 5e-2 and llm_rel <= 5e-2):
         fail("model through the kernels disagrees with the plain-attention model")
 
@@ -1137,6 +1537,7 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     run8 = run_main_path(engine, MAX_NEW_TOKENS_8B, "8b")
     launches_8b = run8.launches
+    keep_norms("8b", run8.shapes, launches_8b)
     missing = [n for n in batch_path if launches_8b[n] == 0]
     if missing:
         fail(f"kernels never launched on the 8b int8 main path: {missing}")
@@ -1161,45 +1562,56 @@ def main() -> int:
     part_rel = {name: llm_rel_err(engine, run8.prepared["embeds"], plain)
                 for name, plain in (("attention", plain_attention), ("int8", plain_int8))}
     log(f"[8b] reference check: LLM prefill+decode logits rel err {llm_rel:.3e} "
-        f"(every kernel against its plain version; only the attention kernels swapped "
-        f"{part_rel['attention']:.3e}, only the int8 kernels {part_rel['int8']:.3e})")
+        f"(every kernel against its plain version; only the attention kernels and the norms "
+        f"swapped {part_rel['attention']:.3e}, only the int8 kernels and the norms "
+        f"{part_rel['int8']:.3e})")
     if not llm_rel <= 5e-2:
         fail("the 8b int8 model through the kernels disagrees with the plain-version model")
 
     # where a decode step's time goes: device kernel time against the step's
-    # host-clock time, from a profiler trace of 4 steps at the main path's shape
+    # host-clock time (16 steps), and a profiler trace of 4 steps, at the main
+    # path's shape; with the RMSNorm kernel and with the plain norm (the
+    # eager ops it replaced), in turns: the host's speed drifts within a run
     embeds8 = run8.prepared["embeds"]
     B8, S8 = embeds8.shape[:2]
-    n_prof = 4
+    n_prof, n_host = 4, 16
     logits, cache = internlm2.prefill(llm, cfg, inputs_embeds=embeds8,
                                       attention_mask=torch.ones((B8, S8), dtype=torch.int32, device=dev),
-                                      max_len=S8 + 4 * n_prof)
+                                      max_len=S8 + 2 * n_host)
     tok = logits.argmax(-1)[:, None].int()
     state = {"cache": cache}
 
     def one_step():
         _, state["cache"] = internlm2.decode_step(llm, cfg, input_ids=tok, cache=state["cache"])
 
-    with torch.inference_mode():  # as generate runs it
-        one_step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
+    def decode_step_profile(label):
+        with torch.inference_mode():  # as generate runs it
+            state["cache"].length = S8  # rewind: the same slots every profile
             one_step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / n_prof * 1e3
-        kern, idle = device_kernels(one_step, torch, n_prof)
-    if kern:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_host):
+                one_step()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / n_host * 1e3
+            state["cache"].length = S8
+            kern, idle = device_kernels(one_step, torch, n_prof)
+        if not kern:
+            log(f"[8b] decode step profile, {label}: {step_ms:.3f} ms a step on the host clock; "
+                f"the profiler trace holds no device events (not measured)")
+            return
         busy_ms = sum(us for us, _ in kern.values()) / n_prof / 1e3
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
-        log(f"[8b] decode step profile: {step_ms:.3f} ms a step on the host clock (no profiler), "
-            f"{busy_ms:.3f} ms of device kernels a step ({sum(k for _, k in kern.values()) / n_prof:.0f} "
-            f"kernels); device idle in the trace {100 * idle:.1f}% (profiler on), 1 - device / host "
-            f"ms {100 * (1 - busy_ms / step_ms):.1f}% (two runs); by kernel (us a step, "
-            f"launches a step): " + "; ".join(
+        log(f"[8b] decode step profile, {label}: {step_ms:.3f} ms a step on the host clock (no "
+            f"profiler), {busy_ms:.3f} ms of device kernels a step "
+            f"({sum(k for _, k in kern.values()) / n_prof:.0f} kernels); device idle in the trace "
+            f"{100 * idle:.1f}% (profiler on), 1 - device / host ms {100 * (1 - busy_ms / step_ms):.1f}%"
+            f" (two runs); by kernel (us a step, launches a step): " + "; ".join(
                 f"{name[:48]} {us / n_prof:.1f} ({k // n_prof})" for name, (us, k) in top))
-    else:
-        log("[8b] decode step profile: the profiler trace holds no device events (not measured)")
+
+    for norms in ("kernel", "plain", "plain", "kernel"):
+        with Swap(k_rms, **(plain_rms if norms == "plain" else {})):
+            decode_step_profile(f"RMSNorm {norms}")
     del logits, cache, state, embeds8
 
     # ---------------------------------------------------------- 7. attention kernels, 8b
@@ -1400,9 +1812,11 @@ def main() -> int:
                  f"!= 4 x {L} x {n_dec} / {n_dec} + {n_pre}")
         if launches["flash_attention"] != L * n_pre:
             fail(f"[{label}] prefill attention launches {launches['flash_attention']} != {L} x {n_pre}")
+        check_norms(label, launches, L, n_pre + n_dec)
         return types.SimpleNamespace(rows=rows, launches=launches, shapes=shapes, n_dec=n_dec)
 
     serve1 = serve_run("serve k=1", 1)
+    keep_norms("serve", serve1.shapes, serve1.launches)
     missing = [n for n in serve_path if serve1.launches[n] == 0]
     if missing:
         fail(f"kernels never launched on the paged serve path: {missing}")
@@ -1447,12 +1861,16 @@ def main() -> int:
     # ---------------------------------------------------------- 10. serve, pressure
     n_pool = PRESSURE_FREE_PAGES + 1
     batcher = paged_batcher(num_pages=n_pool, alloc_watermark=0)
+    zero_counts()
     t0 = time.time()
-    for r in requests_for(rows, PRESSURE_NEW_TOKENS):
-        batcher.submit(r)
-    done = batcher.run()
+    with CallCount(internlm2, ("prefill", "prefill_with_prefix")) as pre, \
+            CallCount(paged_cache.PagedBatcher, ("_decode",)) as dec:
+        for r in requests_for(rows, PRESSURE_NEW_TOKENS):
+            batcher.submit(r)
+        done = batcher.run()
     torch.cuda.synchronize()
     check_done("pressure", done, len(rows), batcher, n_pool)
+    check_norms("pressure", read_counts(), L, sum(pre.n.values()) + dec.n["_decode"])
     log(f"[pressure] {PRESSURE_FREE_PAGES} free pages for {len(rows)} requests of 28 + 2 pages: "
         f"{batcher.n_preempted} preemptions, {batcher._admit_seq} admissions, tokens per request "
         f"{[len(r.tokens) for r in sorted(done, key=lambda r: r.uid)]}, errors "
@@ -1467,6 +1885,8 @@ def main() -> int:
     zero_counts()
     http_shapes = ShapeLog(kernels)
     http_shapes.__enter__()  # the scheduler thread launches through the logging wrappers
+    http_pre = CallCount(internlm2, ("prefill", "prefill_with_prefix")).__enter__()
+    http_dec = CallCount(paged_cache.PagedBatcher, ("_decode",)).__enter__()
     server, loop = http_server.serve_http(engine, batcher, port=0, model_name="callireader-8b")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1492,6 +1912,8 @@ def main() -> int:
         loop.shutdown()
         server.server_close()
         thread.join(timeout=60)
+        http_dec.__exit__()
+        http_pre.__exit__()
         http_shapes.__exit__()
     http_launches = read_counts()
     if thread.is_alive() or loop._thread.is_alive():
@@ -1508,6 +1930,7 @@ def main() -> int:
     missing = [n for n in serve_path if http_launches[n] == 0]
     if missing or http_launches["flash_decode"]:
         fail(f"[http] kernels never launched behind the HTTP server: {missing}; launches {http_launches}")
+    check_norms("http", http_launches, L, sum(http_pre.n.values()) + http_dec.n["_decode"])
     log(f"[http] /health ok; text completion {chat['usage']}; 2 pages through SchedulerLoop.submit: "
         f"{[(i['prompt_tokens'], i['completion_tokens'], i['finish_reason']) for _, i in ocr]}; "
         f"{time.time() - t0:.3f} s; launches {http_launches}")
@@ -1517,7 +1940,8 @@ def main() -> int:
     # the contiguous scheduler, briefly: its decode goes through flash_decode
     cont = serving.ContinuousBatcher(llm, cfg, num_slots=2, max_len=512, policy=engine.policy)
     zero_counts()
-    with ShapeLog(kernels) as cont_shapes, CallCount(internlm2, ("decode_step_multislot",)) as dec:
+    with ShapeLog(kernels) as cont_shapes, \
+            CallCount(internlm2, ("decode_step_multislot", "prefill", "prefill_with_prefix")) as dec:
         for uid in range(2):
             row = rows[uid][-(100 + 28 * uid):]
             cont.submit(serving.Request(uid, row.float().cpu().numpy(), max_new_tokens=4,
@@ -1532,6 +1956,7 @@ def main() -> int:
              f"{n_dec} decode steps")
     log(f"[contiguous] ContinuousBatcher: 2 requests, {n_dec} multislot decode steps, launches "
         f"{cont_launches}")
+    check_norms("contiguous", cont_launches, L, sum(dec.n.values()))
     del cont
 
     # ---------------------------------------------------------- 12. reference, paged step
@@ -1572,10 +1997,11 @@ def main() -> int:
     lg0_k = prefill_k.result[0]
     # the plain-version model: its admission prefill on the same rows, then
     # its decode step from the kernels' admission (same pools, same tokens)
-    with torch.inference_mode(), Swap(internlm2, **plain_all):
+    with torch.inference_mode(), Swap(internlm2, **plain_all), Swap(k_rms, **plain_rms):
         lg0_p = internlm2.prefill(*prefill_k.args, **prefill_k.kwargs)[0]
     with Swap(internlm2, prefill=Recorded(None, replay=prefill_k.result), **plain_all), \
-            Swap(paged_cache, paged_flash_decode=k_paged.paged_flash_decode_reference):
+            Swap(paged_cache, paged_flash_decode=k_paged.paged_flash_decode_reference), \
+            Swap(k_rms, **plain_rms):
         zero_counts()
         lg1_p = paged_first_step(3)
         if any(read_counts().values()):
@@ -1612,9 +2038,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"int8 engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
-        train_phases(h, data)
+        final_dir = train_phases(h, data)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli_phases(h, final_dir, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------------- 19. RMSNorm at every path's shapes
+    norm_rows(h)
     emit()
     return 0
 
