@@ -28,7 +28,12 @@
 // Q and dO; dK and dV stay in registers, so no atomics: the result is the
 // same on every run. Scores live in the log2 domain (scale * log2(e) folded
 // into q or k).
-#include "flash_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "bf16_vec.cuh"
 
 namespace crt {
 

@@ -1,49 +1,64 @@
-// Shared tile loop of the port's attention kernels (ViT packed-QKV attention
-// and the LLM prefill flash attention). Plain CUDA C++ for sm_90a, no
-// tensor-core instructions yet: scores and the weighted sum of V run as fp32
-// FMAs on the CUDA cores, with K/V tiles staged in shared memory.
+// Shared forward attention loop of the port's ViT packed-QKV attention and
+// LLM prefill flash attention, on Hopper's tensor cores (wgmma and TMA,
+// sm_90a).
 //
-// Layout. One block owns ROWS = 64 query rows: QT = ROWS / G consecutive
-// query positions for each of the G query heads that share one KV head, so
-// every K/V tile a block stages serves the whole GQA group (no repeat_kv, and
-// each KV element is read from device memory once per block). Each query row
-// is owned by TPR = 4 neighbouring threads; thread `part` of a row holds the
-// 16-byte vectors v*TPR + part of the row (interleaved so that the four
-// threads read four neighbouring 16-byte words of a shared K/V row: no bank
-// conflicts). A dot product is the sum of the four partial sums (two
-// shuffles inside the quad).
+// Layout. A block holds one consumer warpgroup of 128 threads and one
+// producer warp. The warpgroup owns a 64-row query tile (the M of one
+// wgmma): QW = 64 / G consecutive query positions of each of the G query
+// heads that share one KV head, so every K/V tile the block stages serves the
+// whole GQA group (warp w holds head w's 16 positions when G = 4). The
+// producer warp copies the Q tile once and then K/V tiles of KT = 64 keys
+// into a ring of STAGES shared-memory stages with TMA: a "full" mbarrier says
+// a stage has landed, an "empty" one that the consumers are done with it, so
+// the next tiles' copies overlap this tile's products. Q, K and V sit in
+// shared memory in the swizzled layout that TMA writes and wgmma reads
+// (128-byte rows of 64 columns per column block; 64-byte rows when D = 32).
 //
-// Softmax. Online softmax in fp32 over sub-tiles of SUB keys, in the log2
-// domain (softmax scale * log2(e) folded into q). Masked keys get -inf and
-// weigh exactly 0, so a row that attends to nothing ends with l == 0 and is
-// written as zeros.
+// Products. S = Q K^T: wgmma m64n64k16 with both operands in shared memory
+// (K-major), fp32 accumulators. O += P V: P is the score accumulator turned
+// in place into wgmma's register A fragments, V the shared-memory B operand
+// (MN-major). A tensor-core product takes bf16 operands, and a softmax
+// weight rounded to bf16 misses the fp32 plain version by 30-180x the
+// tolerance (kernels/tolerance.py); so P is split, P_hi = bf16(P) and
+// P_lo = bf16(P - P_hi), and both products go into the one fp32 accumulator
+// (1.5x the tensor-core work of a single P V). The row sum l is taken from
+// the fp32 P.
 //
-// Strides are in elements; every row start must be 16-byte aligned (the
-// Python wrappers check D % 8 == 0 and the base pointers).
+// Softmax. Online softmax in fp32 in the log2 domain: the fp32 scores are
+// scaled by softmax scale * log2(e) (Q stays exact in bf16). Masked keys get
+// -inf and weigh exactly 0, so a row that attends to nothing ends with l == 0
+// and is written as zeros. Keys past Sk arrive as zeros (TMA's out-of-bounds
+// fill) and are masked. The CUDA-core work per score bounds the loop more
+// than the products, so only tiles that need it are masked (the producer
+// marks a tile whose keys share one segment id), and O is rescaled only when
+// a row's maximum moved. Causal: tiles past the block's last query row are
+// never loaded, and the grid starts with the longest query tiles.
+//
+// Operands are 4-D (D, S, H, B) bf16 views with any 16-byte aligned strides
+// (elements) of S, H and B; the Python wrappers check D % 8 == 0 and the base
+// pointers.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; its encoder is a libcuda entry point fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace cr {
 
-constexpr int TPR = 4;                // threads per query row
-constexpr int ROWS = 64;              // query rows per block
-constexpr int KT = 64;                // keys per shared-memory tile
-constexpr int SUB = 16;               // keys per online-softmax update
-constexpr int NTHREADS = ROWS * TPR;  // 256
+constexpr int WG_ROWS = 64;      // query rows of a block's warpgroup (the wgmma M)
+constexpr int WG_THREADS = 128;  // threads of a warpgroup
+constexpr int KT = 64;           // keys per shared-memory tile (the N of S = Q K^T)
+constexpr int SEGW = KT + 2;     // a stage's segment ids: KT keys, then the tile's common id
+constexpr int MIXED = INT_MIN;   // common id of a tile whose keys' ids differ
 
 struct AttnArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  CUtensorMap tq, tk, tv;  // TMA maps of q, k, v (see launch_flash)
   __nv_bfloat16* o;
-  long long q_sb, q_sh, q_ss;  // batch, head, sequence strides (elements)
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;
+  long long o_sb, o_sh, o_ss;  // batch, head, sequence strides of o (elements)
+  int Hkv;  // KV heads (the G query heads of KV head h are h * G + g)
   int Sq, Sk;
   int causal;
   int q_offset;      // query row i sits at key position i + q_offset
@@ -52,153 +67,452 @@ struct AttnArgs {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
+// A (D, S, H, B) operand: base pointer, sizes and element strides
+struct Operand {
+  const void* p;
+  long long S, H, B;
+  long long ss, sh, sb;
+};
+
+// ------------------------------------------------------------------ PTX
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* in) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
 }
 
-// grid: (ceil(Sq / QT), number of KV heads, B); block: NTHREADS
-template <int D, int G>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const AttnArgs a) {
-  constexpr int VPT = D / (8 * TPR);  // 16-byte vectors per thread per row
-  constexpr int DPT = VPT * 8;
-  constexpr int QT = ROWS / G;
-  static_assert(D % (8 * TPR) == 0, "D must be a multiple of 32");
-  static_assert(ROWS % G == 0, "group size must divide 64");
-  static_assert(KT % SUB == 0, "SUB must divide KT");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 
-  __shared__ __align__(16) __nv_bfloat16 ks[KT * D];
-  __shared__ __align__(16) __nv_bfloat16 vs[KT * D];
-  __shared__ int segs[KT];
+// arrive, and expect `bytes` more from TMA before the phase completes
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int row = tid / TPR, part = tid % TPR;
-  const int g = row / QT, qi = row % QT;
-  const int q0 = blockIdx.x * QT;
-  const int qpos = q0 + qi;
-  const int hkv = blockIdx.y, b = blockIdx.z;
-  const int hq = hkv * G + g;
-  const bool qvalid = qpos < a.Sq;
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 
-  float qr[DPT], acc[DPT];
-  if (qvalid) {
-    const __nv_bfloat16* qp = a.q + b * a.q_sb + hq * a.q_sh + (long long)qpos * a.q_ss;
+// one TMA box of a 4-D map into shared memory, reported to `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses to an accumulator across a wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-    for (int v = 0; v < VPT; ++v) load8(qp + (v * TPR + part) * 8, qr + v * 8);
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) qr[i] *= a.scale_log2;
-  } else {
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) qr[i] = 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 64, fp32) = (scale_d ? d : 0) + A B: A (64 x 16) and B (16 x 64)
+// bf16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, fp32) += A B: A (64 x 16) bf16 in registers, in the fragment
+// layout of a 64 x 16 slice of the fp32 accumulator (two bf16 a register:
+// rows r and r + 8, columns 2c, 2c + 1 and 2c + 8, 2c + 9 of each quad's
+// lane c), B (16 x N) bf16 in shared memory, MN-major (trans-b).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------- shared-memory tiles
+
+// A tile of 64 rows by D bf16 columns, stored as D / (RB / 2) column blocks
+// of 64 rows of RB bytes (RB = 128, or 64 when D = 32), each with the swizzle
+// of that width that TMA writes and wgmma reads: the 16-byte chunk c of row r
+// sits at chunk c ^ (address bits 7..9), so a row's chunks land in distinct
+// banks. Tile bases are 1024-byte aligned.
+template <int D>
+struct Tile {
+  static_assert(D == 32 || D == 64 || D == 128, "head dim must be 32, 64 or 128");
+  static constexpr int RB = D * 2 >= 128 ? 128 : D * 2;  // bytes of a row of a column block
+  static constexpr int NCB = D * 2 / RB;                 // column blocks
+  static constexpr int BYTES = 64 * D * 2;
+  static constexpr uint64_t MODE = RB == 128 ? 1 : 2;    // 128- or 64-byte swizzle
+
+  // wgmma shared-memory descriptor: start address, leading byte offset 16
+  // (unused by these swizzled layouts), stride byte offset = 8 rows
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+           (static_cast<uint64_t>(8 * RB / 16) << 32) | (MODE << 62);
   }
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  const int qseg = (a.q_seg != nullptr && qvalid) ? a.q_seg[(long long)b * a.Sq + qpos] : 0;
-  // causal: keys past the block's last query row are never attended
-  const int q_last = min(q0 + QT, a.Sq) - 1 + a.q_offset;
-  const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
 
-  const __nv_bfloat16* kbase = a.k + b * a.k_sb + hkv * a.k_sh;
-  const __nv_bfloat16* vbase = a.v + b * a.v_sb + hkv * a.v_sh;
-  constexpr int NV = KT * D / 8;
-  for (int k0 = 0; k0 < k_end; k0 += KT) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int i = tid; i < NV; i += NTHREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const int kp = k0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (kp < a.Sk) {
-        kv = *reinterpret_cast<const uint4*>(kbase + (long long)kp * a.k_ss + c);
-        vv = *reinterpret_cast<const uint4*>(vbase + (long long)kp * a.v_ss + c);
-      }
-      *reinterpret_cast<uint4*>(ks + r * D + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * D + c) = vv;
+  // K-major operand (Q as A, K as B): columns 16 t .. 16 t + 15
+  static __device__ __forceinline__ uint64_t k_step(uint32_t tile, int t) {
+    return desc(tile + (t * 32 / RB) * (64 * RB) + (t * 32) % RB);
+  }
+
+  // MN-major operand (V as B): rows 16 t .. 16 t + 15 of column block cb
+  static __device__ __forceinline__ uint64_t mn_step(uint32_t tile, int cb, int t) {
+    return desc(tile + cb * (64 * RB) + t * 16 * RB);
+  }
+};
+
+// the Q tile, a ring of STAGES (K tile, V tile, the keys' segment ids), and
+// the mbarriers full[STAGES], empty[STAGES], q_full, from a 1024-byte aligned base
+template <int D, int STAGES>
+constexpr int smem_bytes() {
+  return 1024 + (1 + 2 * STAGES) * Tile<D>::BYTES + STAGES * SEGW * 4 + (2 * STAGES + 1) * 8;
+}
+
+// ------------------------------------------------------------------ kernel
+
+// grid: one block per (query tile of 64 / G positions, KV head, batch row),
+// flattened; block: the consumer warpgroup (threads 0-127), then the
+// producer warp; MINB blocks an SM (it caps the registers a thread)
+template <int D, int G, int STAGES, int MINB>
+__global__ void __launch_bounds__(WG_THREADS + 32, MINB)
+    flash_fwd_kernel(const __grid_constant__ AttnArgs a) {
+  using T = Tile<D>;
+  constexpr int QW = WG_ROWS / G;       // query positions of a block
+  constexpr int NO = D >= 64 ? 64 : D;  // N of one P V product
+  constexpr int NCH = D / NO;
+  static_assert(WG_ROWS % G == 0 && (G == 1 || QW == 16), "a warp holds 16 rows of one head");
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023u) & ~1023u;          // the Q tile
+  const uint32_t kv_s = q_s + T::BYTES;                 // STAGES x (K tile, V tile)
+  const uint32_t seg_s = kv_s + 2 * STAGES * T::BYTES;  // STAGES x SEGW segment ids
+  const uint32_t bar_s = seg_s + STAGES * SEGW * 4;
+  int* segs = reinterpret_cast<int*>(smem_raw + (seg_s - raw));
+  const uint32_t q_full = bar_s + 16 * STAGES;
+  auto full = [&](int st) { return bar_s + 8 * st; };
+  auto empty = [&](int st) { return bar_s + 8 * (STAGES + st); };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // causal: the longest query tiles first, so the grid ends with short blocks
+  const int nqb = (a.Sq + QW - 1) / QW;
+  const int npair = gridDim.x / nqb;
+  const int qb = a.causal ? nqb - 1 - static_cast<int>(blockIdx.x) / npair
+                          : static_cast<int>(blockIdx.x) % nqb;
+  const int pair = a.causal ? static_cast<int>(blockIdx.x) % npair
+                            : static_cast<int>(blockIdx.x) / nqb;
+  const int hkv = pair % a.Hkv, b = pair / a.Hkv;
+  const int q0 = qb * QW;
+  // keys past the block's last query row are never loaded (causal)
+  const int k_end = a.causal ? min(a.Sk, min(q0 + QW, a.Sq) + a.q_offset) : a.Sk;
+  const int ntiles = (k_end + KT - 1) / KT;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 32);
+      mbar_init(empty(st), WG_THREADS);
     }
-    if (tid < KT)
-      segs[tid] = (a.k_seg != nullptr && k0 + tid < a.Sk) ? a.k_seg[(long long)b * a.Sk + k0 + tid] : 0;
-    __syncthreads();
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    const int nkeys = min(KT, k_end - k0);
-    for (int j0 = 0; j0 < nkeys; j0 += SUB) {
-      float s[SUB];
-      float mloc = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const int j = j0 + jj;
-        const __nv_bfloat16* kr = ks + j * D;
-        float dot = 0.f;
-#pragma unroll
-        for (int v = 0; v < VPT; ++v) {
-          float kf[8];
-          load8(kr + (v * TPR + part) * 8, kf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) dot = fmaf(qr[v * 8 + e], kf[e], dot);
+  if (warp == 4) {
+    // producer: Q once, then K/V tiles (and the keys' segment ids) into the ring
+    if (lane == 0) {
+      mbar_arrive_tx(q_full, T::BYTES);
+      for (int g = 0; g < G; ++g)
+        for (int cb = 0; cb < T::NCB; ++cb)
+          tma_load(q_s + cb * 64 * T::RB + g * QW * T::RB, &a.tq, q_full, cb * T::RB / 2, q0,
+                   hkv * G + g, b);
+    }
+    for (int it = 0; it < ntiles; ++it) {
+      const int st = it % STAGES;
+      if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
+      const int k0 = it * KT;
+      if (a.k_seg != nullptr) {
+        // the ids, and whether the tile's keys share one (keys past Sk count as
+        // sharing it: they are masked as such)
+        const int* ks = a.k_seg + (long long)b * a.Sk + k0;
+        const int first = ks[0];
+        const int s0 = k0 + lane < a.Sk ? ks[lane] : first;
+        const int s1 = k0 + 32 + lane < a.Sk ? ks[32 + lane] : first;
+        segs[st * SEGW + lane] = s0;
+        segs[st * SEGW + 32 + lane] = s1;
+        const bool same = __all_sync(0xffffffffu, s0 == first && s1 == first);
+        if (lane == 0) segs[st * SEGW + KT] = same ? first : MIXED;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(full(st), 2 * T::BYTES);
+        const uint32_t ks = kv_s + st * 2 * T::BYTES;
+        for (int cb = 0; cb < T::NCB; ++cb) {
+          tma_load(ks + cb * 64 * T::RB, &a.tk, full(st), cb * T::RB / 2, k0, hkv, b);
+          tma_load(ks + T::BYTES + cb * 64 * T::RB, &a.tv, full(st), cb * T::RB / 2, k0, hkv, b);
         }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        const int kp = k0 + j;
-        bool ok = qvalid && j < nkeys;
-        if (a.causal) ok = ok && (kp <= qpos + a.q_offset);
-        if (a.k_seg != nullptr) ok = ok && (segs[j] == qseg);
-        s[jj] = ok ? dot : -INFINITY;
-        mloc = fmaxf(mloc, s[jj]);
+      } else {
+        mbar_arrive(full(st));
       }
-      const float m_new = fmaxf(m, mloc);
-      if (m_new == -INFINITY) continue;  // nothing attendable yet
-      const float alpha = exp2f(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const float p = exp2f(s[jj] - m_new);
-        l += p;
-        const __nv_bfloat16* vr = vs + (j0 + jj) * D;
-#pragma unroll
-        for (int v = 0; v < VPT; ++v) {
-          float vf[8];
-          load8(vr + (v * TPR + part) * 8, vf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[v * 8 + e] = fmaf(p, vf[e], acc[v * 8 + e]);
-        }
-      }
-      m = m_new;
     }
+    return;
   }
 
-  if (qvalid) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    __nv_bfloat16* op = a.o + b * a.o_sb + hq * a.o_sh + (long long)qpos * a.o_ss;
+  // consumer: this thread's two rows of the tile are r0 = 16 warp + lane / 4 and r0 + 8
+  const float c = a.scale_log2;
+  int pos[2], qseg[2], head[2], lim[2];
 #pragma unroll
-    for (int v = 0; v < VPT; ++v) {
-      float t[8];
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = 16 * warp + lane / 4 + 8 * rr;
+    head[rr] = hkv * G + r / QW;
+    pos[rr] = q0 + r % QW;
+    qseg[rr] = (a.q_seg != nullptr && pos[rr] < a.Sq) ? a.q_seg[(long long)b * a.Sq + pos[rr]] : 0;
+    // keys from lim[rr] on are past Sk or after the row (causal)
+    lim[rr] = a.causal ? min(a.Sk, pos[rr] + a.q_offset + 1) : a.Sk;
+  }
+
+  float o[NCH][NO / 2];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) t[e] = acc[v * 8 + e] * inv;
-      store8(op + (v * TPR + part) * 8, t);
+  for (int ci = 0; ci < NCH; ++ci)
+#pragma unroll
+    for (int i = 0; i < NO / 2; ++i) o[ci][i] = 0.f;
+  float s[32];  // s[4j + 2rr + e]: row r0 + 8 rr, key 8j + 2 (lane % 4) + e of the tile
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  uint32_t ph[4][4], pl[4][4];  // P_hi, P_lo as A fragments of keys 16t .. 16t + 15
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % STAGES, k0 = it * KT;
+    const uint32_t ks = kv_s + st * 2 * T::BYTES, vs = ks + T::BYTES;
+    mbar_wait(full(st), (it / STAGES) & 1);
+
+    // S = Q K^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, T::k_step(q_s, kk), T::k_step(ks, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // mask: a tile of keys that share the segment id of both rows needs no
+    // id check, one wholly before both rows' limits no bound check
+    const int* sg = segs + st * SEGW;
+    if (a.k_seg != nullptr && !(sg[KT] != MIXED && sg[KT] == qseg[0] && sg[KT] == qseg[1])) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+        const bool ok = k0 + col < lim[(i / 2) % 2] && sg[col] == qseg[(i / 2) % 2];
+        s[i] = ok ? s[i] : -INFINITY;
+      }
+    } else if (k0 + KT > lim[0] || k0 + KT > lim[1]) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+        s[i] = k0 + col < lim[(i / 2) % 2] ? s[i] : -INFINITY;
+      }
     }
+
+    // online softmax: the row maxima over the quad, P = 2^(S c - m c) in s
+    float mx[2] = {-INFINITY, -INFINITY}, alpha[2], neg_mu[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(m[rr], mx[rr]);
+      const float mu = m_new == -INFINITY ? 0.f : m_new * c;  // nothing attendable yet: p = 0
+      alpha[rr] = fast_exp2(m[rr] * c - mu);
+      neg_mu[rr] = -mu;
+      m[rr] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = fast_exp2(fmaf(s[i], c, neg_mu[(i / 2) % 2]));
+      ls[(i / 2) % 2] += s[i];
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + ls[rr];
+    // O *= alpha, skipped when no row of the warp has a new maximum
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int ci = 0; ci < NCH; ++ci)
+#pragma unroll
+        for (int i = 0; i < NO / 2; ++i) o[ci][i] *= alpha[(i / 2) % 2];
+    }
+
+    // P_hi = bf16(P), P_lo = bf16(P - P_hi), as A fragments
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p0 = s[8 * kt + 2 * e], p1 = s[8 * kt + 2 * e + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hi);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+        ph[kt][e] = *reinterpret_cast<const uint32_t*>(&hi);
+        pl[kt][e] = *reinterpret_cast<const uint32_t*>(&lo);
+      }
+    }
+
+    // O += P_hi V + P_lo V
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+#pragma unroll
+      for (int ci = 0; ci < NCH; ++ci) {
+        const uint64_t dv = T::mn_step(vs, ci, kt);
+        if constexpr (NO == 64) {
+          wgmma_rs_n64(o[ci], ph[kt], dv);
+          wgmma_rs_n64(o[ci], pl[kt], dv);
+        } else {
+          wgmma_rs_n32(o[ci], ph[kt], dv);
+          wgmma_rs_n32(o[ci], pl[kt], dv);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int ci = 0; ci < NCH; ++ci) fence_regs(o[ci]);
+    mbar_arrive(empty(st));
+  }
+
+  // o[ci][4j + 2rr + e] is row r0 + 8 rr, column ci NO + 8j + 2 (lane % 4) + e
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float lr = l[rr];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    if (pos[rr] >= a.Sq) continue;
+    const float inv = lr > 0.f ? 1.f / lr : 0.f;
+    __nv_bfloat16* op = a.o + b * a.o_sb + head[rr] * a.o_sh + (long long)pos[rr] * a.o_ss;
+#pragma unroll
+    for (int ci = 0; ci < NCH; ++ci)
+#pragma unroll
+      for (int j = 0; j < NO / 8; ++j) {
+        const int col = ci * NO + 8 * j + 2 * (lane % 4);
+        *reinterpret_cast<__nv_bfloat162*>(op + col) =
+            __floats2bfloat162_rn(o[ci][4 * j + 2 * rr] * inv, o[ci][4 * j + 2 * rr + 1] * inv);
+      }
   }
 }
 
-template <int D, int G>
-inline void launch_flash(const AttnArgs& a, int num_kv_heads, int batch, cudaStream_t stream) {
-  constexpr int QT = ROWS / G;
-  dim3 grid((a.Sq + QT - 1) / QT, num_kv_heads, batch);
-  flash_fwd_kernel<D, G><<<grid, NTHREADS, 0, stream>>>(a);
+// libcuda's TMA map encoder, fetched once through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a map of `x` in boxes of one column block by `rows` rows, swizzled as Tile<D>
+template <int D>
+inline bool encode_map(CUtensorMap* map, const Operand& x, int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)x.S, (cuuint64_t)x.H, (cuuint64_t)x.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.ss * 2, (cuuint64_t)x.sh * 2, (cuuint64_t)x.sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)Tile<D>::RB / 2, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.p), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Tile<D>::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int G, int STAGES, int MINB>
+inline int launch_flash(AttnArgs a, const Operand& q, const Operand& k, const Operand& v,
+                        cudaStream_t stream) {
+  constexpr int QW = WG_ROWS / G;
+  constexpr int smem = smem_bytes<D, STAGES>();
+  if (!encode_map<D>(&a.tq, q, WG_ROWS / G) || !encode_map<D>(&a.tk, k, KT) ||
+      !encode_map<D>(&a.tv, v, KT))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, G, STAGES, MINB>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)((a.Sq + QW - 1) / QW) * a.Hkv * q.B;
+  if (blocks == 0) return 0;
+  flash_fwd_kernel<D, G, STAGES, MINB><<<(unsigned)blocks, WG_THREADS + 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace cr

@@ -10,8 +10,10 @@ causal diagonal are never loaded; rows that attend to nothing are zeros.
 
 What bounds it: operations. At the prefill shape (B pages, Hq = 32,
 Hkv = 8, S = 3584, D = 128) the causal work is ~2*B*Hq*S^2*D flops against a
-few hundred MB. The first version runs the products as fp32 FMAs on the
-CUDA cores; tensor cores come later.
+few hundred MB. Both products run on the tensor cores (wgmma, the loop of
+csrc/flash_common.cuh that the ViT kernel shares), the softmax weights split
+into two bf16 parts so that the output holds the fp32 plain version's
+tolerance.
 
 Layout: q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D); Hq % Hkv == 0.
 ``attention_reference`` is the plain PyTorch version; the wrapper uses it for

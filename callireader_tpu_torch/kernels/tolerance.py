@@ -14,15 +14,27 @@ The check is elementwise, ``|kernel - plain| <= ATOL[name] + BF16_ROUNDING *
 outputs v itself, |v| up to ~4) does not set the bar for the typical output,
 which is ~0.03-0.05 for random inputs over thousands of keys. ``ATOL`` holds
 what is left, the summation-order error. ``chip_smoke.py`` measured it on an
-H100 80GB HBM3 (700 W) at the main path's shapes: at most 1.8e-7 (ViT),
-2.5e-7 (prefill), 1.3e-8 (decode), 3.0e-9 (paged decode), 4.7e-8 (int8,
-K x N weights) and 1.2e-7 (int8 LM head); for the training attention at
-B=2 S=2048 and B=1 S=8192 (D=128, G=4, random inputs), 1.6e-7 (forward),
-9.3e-7 (dq) and 4.6e-6 (dk/dv: each sums G x S terms). ATOL sits 40-200x
-above that and far below what a lost 64-key tile, page, 64-query tile or
-128-deep K block costs (tests/test_torch_kernels.py,
-tests/test_torch_paged.py, tests/test_torch_int8.py,
-tests/test_torch_attention_bwd.py).
+H100 80GB HBM3 (700 W) at the main path's shapes: at most 6.5e-7 (ViT tile
+tower), 1.03e-6 (char tower), 3.0e-6 (prefill), 1.3e-8 (decode), 3.0e-9
+(paged decode), 4.7e-8 (int8, K x N weights) and 1.2e-7 (int8 LM head); for
+the training attention at B=2 S=2048 and B=1 S=8192 (D=128, G=4, random
+inputs), 1.6e-7 (forward), 9.3e-7 (dq) and 4.6e-6 (dk/dv: each sums G x S
+terms). ATOL sits 3x (prefill) to hundreds of times above that, and far
+below what a lost 64-key tile, page, 64-query tile or 128-deep K block
+costs (tests/test_torch_kernels.py, tests/test_torch_paged.py,
+tests/test_torch_int8.py, tests/test_torch_attention_bwd.py).
+
+The ViT and prefill kernels multiply P V on the tensor cores, whose
+operands are bf16. A softmax weight rounded to bf16 once misses this check
+by 30-180x; split into bf16(P) + bf16(P - bf16(P)) it passes
+(tests/test_torch_kernels.py::test_tensor_core_loop_needs_split_p holds a
+CPU emulation of the loop to both). On an H100 80GB HBM3 (700 W), at the
+main path's shapes and on the same random inputs, the kernels' excess
+(5.1e-7 ViT, 9.7e-7 char tower, 2.4e-6 prefill) is the emulation's own
+(5.4e-7, 8.5e-7, 2.4e-6), and the kernels built with exp2f in place of
+ex2.approx give the same bits (callireader_tpu_torch/tools/attention_arith.py):
+the excess is the split P's arithmetic at that size, not the exponential or
+the tensor cores' accumulation.
 
 The RMSNorm kernels' one-rounding form (rms_norm_pallas's) takes 1e-5 too:
 its fp32 row sums differ from the plain version's in order only. Its

@@ -10,15 +10,17 @@ Port of three JAX kernels that compute one function:
     char tower at D = 32).
 
 On the H100 all three are one hand-written CUDA kernel (csrc/vit_attention.cu,
-templated on D in {32, 64}), exposed under the three JAX names. It reads q, k
-and v of each head from the packed rows through strides and writes (B, S, E)
-directly: no transposes. It uses a plain online softmax in fp32; the TPU's
-max-free exp2 trick is a workaround for the TPU vector unit and is not
-carried over (the port matches its outputs, not its overflow bound).
+templated on D in {32, 64}), exposed under the three JAX names. TMA reads q,
+k and v of each head from the packed rows through strides, and the kernel
+writes (B, S, E) directly: no transposes. It uses a plain online softmax in
+fp32; the TPU's max-free exp2 trick is a workaround for the TPU vector unit
+and is not carried over (the port matches its outputs, not its overflow
+bound).
 
 What bounds it: operations (4*B*H*S^2*D flops against 8*B*S*E bytes; at the
-tile tower's S = 1025 that is ~250 flops per byte). The first version runs
-the products as fp32 FMAs on the CUDA cores; tensor cores come later.
+tile tower's S = 1025 that is ~250 flops per byte). Both products run on the
+tensor cores (wgmma, csrc/flash_common.cuh), the softmax weights split into
+two bf16 parts so that the output holds the fp32 plain version's tolerance.
 
 ``vit_attention_reference`` is the plain PyTorch version: the wrapper uses it
 for CPU tensors only; for a CUDA tensor it launches the kernel or raises.

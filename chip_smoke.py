@@ -128,6 +128,9 @@ Every phase that drives a path asserts the RMSNorm counts: the model forward
 contiguous, CLI, beams, chat, stream); in a training micro-step under remat 4L+1 forward
 and 2L+1 backward (no dw: the norm weights are frozen). Phases 3, 6, 12 and
 15 swap the RMSNorm kernels for their plain versions as well.
+Each ``kernels`` entry carries the device ms a call (torch.profiler) and its
+ratio to the bound; the forward attention rows are printed beside the device
+ms of the CUDA-core loop that the tensor-core loop replaced.
 Prints the ``kernels`` JSON line, then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
 port's sources next to it.
@@ -173,6 +176,18 @@ NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_fused", "rms_norm_
 # H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor cores (data sheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# device ms of the CUDA-core (fp32 FMA) forward attention loop that the
+# tensor-core loop of csrc/flash_common.cuh replaced, by kernels-line row, as
+# this script measured it on an H100 80GB HBM3 at 700 W (PERF.md, section 6)
+CUDA_CORE_DEVICE_MS = {
+    "vit_attention[2b 52x1025x16x64]": 14.3499, "vit_attention[8b 52x1025x16x64]": 14.3887,
+    "vit_attention[serve 91x1025x16x64]": 25.2139, "vit_attention[http 13x1025x16x64]": 3.6246,
+    "vit_attention[2b 192x257x8x32]": 1.1434, "vit_attention[8b 192x257x8x32]": 1.1447,
+    "vit_attention[serve 192x257x8x32]": 1.1432, "vit_attention[http 64x257x8x32]": 0.3890,
+    "flash_attention[2b B=4 S=3584]": 22.1178, "flash_attention[8b B=4 S=3584]": 22.2076,
+    "flash_attention[serve B=8 S=3584]": 43.7827, "flash_attention[http B=1 S=3584]": 6.0511,
+    "flash_attention[http B=1 S=128]": 0.0272, "flash_attention[contiguous B=2 S=128]": 0.0352,
+}
 
 
 def make_page(seed: int = 0):
@@ -580,6 +595,8 @@ def train_phases(h, data):
     else:
         busy = sum(us for us, _ in kern.values()) / captured / 1e3
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+        # the forward attention loop's kernels run here only as the ViT's
+        top += [kv for kv in kern.items() if "flash_fwd_kernel" in kv[0] and kv not in top]
         log(f"[train] micro-step profile: {host_ms:.1f} ms on the host clock (no profiler), "
             f"{busy:.1f} ms of device kernels ({captured:g} of 2 micro-steps in the trace, "
             f"{sum(c for _, c in kern.values()) / captured:.0f} kernels a step); device idle in the "
@@ -1254,13 +1271,21 @@ def main() -> int:
         line = []
         for name, entries in results.items():
             for label, n_launch, (err, ms, plain_ms, lib_ms, b_ms, b_by, dev_ms) in entries:
+                row = f"{name}[{label}]"
+                # device ms over the bound (CUDA-event ms where the trace lost the calls)
+                ratio = (ms if dev_ms is None else dev_ms) / b_ms
                 line.append({
-                    "name": f"{name}[{label}]",
+                    "name": row,
                     "route": "cuda", "source": kernels[name].source, "replaces": kernels[name].replaces,
                     "launches": n_launch, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                    "device_ms": dev_ms,
+                    "device_ms": dev_ms, "bound_ratio": ratio,
                 })
+                if name in ("vit_attention", "flash_attention"):
+                    was = CUDA_CORE_DEVICE_MS.get(row)
+                    log(f"{row}: device {dev_ms} ms, {ratio:.2f}x its bound; "
+                        + ("no CUDA-core loop time at this shape" if was is None or dev_ms is None
+                           else f"{was / dev_ms:.2f}x faster than the CUDA-core loop's {was} ms"))
         print(smi, flush=True)
         print(json.dumps({"kernels": line}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,

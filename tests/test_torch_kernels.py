@@ -24,6 +24,7 @@ from callireader_tpu_torch.kernels import int8_matmul as ti8
 from callireader_tpu_torch.kernels import paged_decode as tpaged
 from callireader_tpu_torch.kernels import tolerance
 from callireader_tpu_torch.kernels import vit_attention as tvit
+from callireader_tpu_torch.tools.attention_arith import tensor_core_loop
 
 
 @pytest.fixture(scope="module")
@@ -183,6 +184,49 @@ def test_tolerance_passes_rounding_and_fails_dropped_keys(name):
     assert tolerance.excess_error(run(cut).bfloat16(), want) > 10 * tolerance.ATOL[name]
 
 
+# ------------------------------- the tensor-core loop's arithmetic (CPU check)
+
+
+def _main_path_case(case):
+    """(kernel name, loop output with a split P, with a single bf16 P, fp32
+    plain version) at a main-path head dim and sequence length."""
+    rng = np.random.default_rng(31)
+
+    def bf16(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16().float()
+
+    if case in ("vit_d64", "char_d32"):
+        S, H, D = (1025, 2, 64) if case == "vit_d64" else (257, 4, 32)
+        qkv = bf16((1, S, 3 * H * D))
+        x = qkv.reshape(1, S, 3, H, D).transpose(1, 3)  # (1, H, 3, S, D)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        want = tvit.vit_attention_reference(qkv, H)
+        runs = [tensor_core_loop(q, k, v, D**-0.5, None, split).transpose(1, 2).reshape(1, S, H * D)
+                for split in (True, False)]
+        return "vit_attention", runs[0], runs[1], want
+    B, Hq, Hkv, S, D = 2, 4, 1, 1024, 128  # the prefill: G = 4, causal, left padding
+    q, k, v = bf16((B, Hq, S, D)), bf16((B, Hkv, S, D)), bf16((B, Hkv, S, D))
+    seg = torch.from_numpy(_left_pad_segments(B, S, (0, 77)))
+    want = tattn.attention_reference(q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    mask = (seg[:, :, None] == seg[:, None, :]) & torch.ones((S, S), dtype=torch.bool).tril()
+    kr, vr = k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1)
+    runs = [tensor_core_loop(q, kr, vr, D**-0.5, mask[:, None], split) for split in (True, False)]
+    return "flash_attention", runs[0], runs[1], want
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split_p", "single_bf16_p"])
+@pytest.mark.parametrize("case", ["vit_d64", "char_d32", "prefill_d128"])
+def test_tensor_core_loop_needs_split_p(case, split):
+    """A tensor-core P V takes bf16 operands: with P split into two bf16
+    parts the loop's output stands within the card's tolerance of the fp32
+    plain version; with P rounded to bf16 once it misses by more than 10x."""
+    name, out_split, out_single, want = _main_path_case(case)
+    if split:
+        assert tolerance.excess_error(out_split, want) <= tolerance.ATOL[name]
+    else:
+        assert tolerance.excess_error(out_single, want) > 10 * tolerance.ATOL[name]
+
+
 # ------------------------------------------------------------ CUDA kernels
 
 
@@ -191,7 +235,9 @@ def _bf16(rng, shape, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,H,D", [(1025, 16, 64), (257, 8, 32), (70, 4, 64)])
+@pytest.mark.parametrize("S,H,D", [(1025, 16, 64), (257, 8, 32), (70, 4, 64)] + [
+    (S, 4, D) for D in (32, 64) for S in (1, 15, 63, 65, 129)  # around the 64-row tiles
+])
 def test_cuda_vit_matches_plain(cuda, S, H, D):
     rng = np.random.default_rng(7)
     qkv = _bf16(rng, (3, S, 3 * H * D), cuda)
@@ -222,6 +268,68 @@ def test_cuda_flash_matches_plain(cuda, causal, pad, q_off, G, D):
     want = tattn.attention_reference(q.float(), k.float(), v.float(), causal=causal,
                                      q_offset=q_off, **kw)
     assert tolerance.excess_error(got, want) <= tolerance.ATOL["flash_attention"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,q_off,pad", [(37, 29, False), (37, 29, True), (1, 100, False),
+                                         (203, 53, True)])
+def test_cuda_flash_ragged_gqa_q_offset(cuda, Sq, q_off, pad):
+    """G = 4 with Sq not a multiple of the 16 positions a warp holds, keys
+    past the queries (Sk = Sq + q_offset), with and without left padding."""
+    rng = np.random.default_rng(Sq + q_off)
+    B, Hkv, G, D = 2, 2, 4, 128
+    Sk = Sq + q_off
+    q = _bf16(rng, (B, Hkv * G, Sq, D), cuda)
+    k = _bf16(rng, (B, Hkv, Sk, D), cuda)
+    v = _bf16(rng, (B, Hkv, Sk, D), cuda)
+    kw = {}
+    if pad:
+        ks = torch.from_numpy(_left_pad_segments(B, Sk, (0, Sk // 3))).to(cuda)
+        kw = dict(q_segment_ids=ks[:, q_off:].contiguous(), kv_segment_ids=ks)
+    got = tattn.flash_attention(q, k, v, causal=True, q_offset=q_off, **kw)
+    torch.cuda.synchronize()
+    want = tattn.attention_reference(q.float(), k.float(), v.float(), causal=True,
+                                     q_offset=q_off, **kw)
+    assert tolerance.excess_error(got, want) <= tolerance.ATOL["flash_attention"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,D", [(4, 128), (1, 64)])
+def test_cuda_flash_batch_of_padding_rows(cuda, G, D):
+    """Every row of the batch is padding (segment -1 throughout) but one."""
+    rng = np.random.default_rng(G + D)
+    B, Hkv, S = 3, 2, 150
+    q = _bf16(rng, (B, Hkv * G, S, D), cuda)
+    k = _bf16(rng, (B, Hkv, S, D), cuda)
+    v = _bf16(rng, (B, Hkv, S, D), cuda)
+    seg = torch.full((B, S), -1, dtype=torch.int32, device=cuda)
+    seg[1, 40:] = 0
+    got = tattn.flash_attention(q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    torch.cuda.synchronize()
+    want = tattn.attention_reference(q.float(), k.float(), v.float(), causal=True,
+                                     q_segment_ids=seg, kv_segment_ids=seg)
+    assert tolerance.excess_error(got, want) <= tolerance.ATOL["flash_attention"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["vit_d64", "vit_d32", "prefill"])
+def test_cuda_forward_attention_bits_repeat(cuda, kernel):
+    """Two runs of a kernel on the same inputs give the same bits."""
+    rng = np.random.default_rng(5)
+    if kernel == "prefill":
+        q = _bf16(rng, (2, 8, 300, 128), cuda)
+        k, v = (_bf16(rng, (2, 2, 300, 128), cuda) for _ in range(2))
+        seg = torch.from_numpy(_left_pad_segments(2, 300, (0, 77))).to(cuda)
+        run = lambda: tattn.flash_attention(q, k, v, causal=True, q_segment_ids=seg,
+                                            kv_segment_ids=seg)
+    else:
+        H, D = (16, 64) if kernel == "vit_d64" else (8, 32)
+        qkv = _bf16(rng, (3, 257, 3 * H * D), cuda)
+        run = lambda: tvit.attention_from_packed_qkv_nomax(qkv, H)
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
