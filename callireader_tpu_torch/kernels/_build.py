@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -95,6 +95,38 @@ def build_all(names: Iterable[str], *, force: bool = False) -> Dict[str, str]:
     return logs
 
 
+def build_variants(root: Path, edits: Dict[str, Optional[Tuple[str, str, str]]],
+                   sources: Sequence[str]) -> Dict[str, Dict[str, Tuple[str, str]]]:
+    """Compile ``sources`` once for each entry of ``edits`` (one nvcc each, all
+    in parallel) from a copy of ``csrc/`` under ``root`` in which the file
+    ``edit[0]`` has its one line ``edit[1]`` replaced by ``edit[2]`` (None:
+    the sources as they stand) -> {tag: {source: (.so path, nvcc output)}}.
+    For probes that hold a kernel against a variant of itself."""
+    shutil.rmtree(root, ignore_errors=True)
+    procs = []
+    for i, (tag, edit) in enumerate(edits.items()):
+        src = root / f"src{i}"
+        shutil.copytree(CSRC_DIR, src)
+        if edit is not None:
+            path, old, new = src / edit[0], edit[1], edit[2]
+            text = path.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"{edit[0]}: the line {old!r} was not found once")
+            path.write_text(text.replace(old, new))
+        for name in sources:
+            so = root / f"{i}_{name}.so"
+            procs.append((tag, name, str(so), subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-I", str(src), "-o", str(so), str(src / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    out: Dict[str, Dict[str, Tuple[str, str]]] = {}
+    for tag, name, so, p in procs:
+        log, _ = p.communicate(timeout=900)
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {name} ({tag}):\n{log}")
+        out.setdefault(tag, {})[name] = (so, log)
+    return out
+
+
 def load_library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
@@ -115,12 +147,17 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
 
+    def entry_in(self, lib: ctypes.CDLL):
+        """This entry point of ``lib`` (the built source, or a probe's variant
+        of it), typed."""
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes + [ctypes.c_void_p]  # + stream
+        fn.restype = ctypes.c_int
+        return fn
+
     def _bind(self):
         if self._fn is None:
-            fn = getattr(load_library(self.source), self.symbol)
-            fn.argtypes = self.argtypes + [ctypes.c_void_p]  # + stream
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = self.entry_in(load_library(self.source))
         return self._fn
 
     def __call__(self, *args) -> None:

@@ -7,20 +7,30 @@ row's log-sum-exp, the dq kernel and the dk/dv kernel). Here it is one
 forward and backward launch the hand-written CUDA kernels of
 csrc/flash_attention_bwd.cu:
 
-- forward: an online-softmax tile loop (a block serves the G query heads of
-  one KV head, key tiles above the diagonal are never loaded) that writes
+- forward: an online-softmax tile loop in fp32 FMAs on the CUDA cores (a
+  block serves the G query heads of one KV head, key tiles above the
+  diagonal are never loaded) that writes
   o (bf16) and lse = m + log(l) (fp32, (B, Hq, S)); a row with no attendable
   key gets o = 0 and lse = -1e30;
-- dq: per query row, the keys up to the diagonal with P = exp(S - lse)
-  recomputed, dQ = sum dS K accumulated in fp32 registers;
-- dk/dv: one block per 64 keys of a KV head walks the G query heads times the
-  query tiles at or below the diagonal, dK = sum dS^T Q and dV = sum P^T dO in
-  fp32 registers, no atomics (the same result on every run).
+- dq: a tensor-core loop (wgmma, TMA; sm_90a): a block's warpgroup owns 16
+  query positions of each of the G heads of a KV head, K/V tiles of 64 keys
+  stream in by TMA, S = Q K^T and dP = dO V^T on the tensor cores, P =
+  exp(S - lse) recomputed in fp32, dQ += dS K on the tensor cores;
+- dk/dv: a tensor-core loop in which a block owns 64 keys of a KV head and
+  streams the Q and dO tiles of the G heads at or below the diagonal:
+  S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q, dK and dV kept in
+  the block (no atomics: the same result on every run).
 
 dS = P * (dP - D) * scale with D = rowsum(dO * O), a plain torch reduction
 computed once per backward, as in the JAX rule. What bounds the kernels on
-the card: operations (2, 3 and 4 products of 2 * D flops per attended pair);
-the first version runs them as fp32 FMAs on the CUDA cores.
+the card: operations (2, 3 and 4 products of 2 * D flops per attended pair).
+The backward's products take bf16 operands: P and dS go in split into two
+bf16 parts each (hi = bf16(x), lo = bf16(x - hi)), as one bf16 rounding
+misses the fp32 check by 21-46x (kernels/tolerance.py), and the dk/dv loop
+moves dK and dV into fp32 sums in shared memory every 8 query tiles, since
+the tensor cores' accumulation drifts over long sums. Both loops skip tiles
+that hold no attended pair (above the diagonal, or tiles whose segment ids
+share no value).
 
 Masks: segment ids compare for equality only (the collator pads both q and kv
 with -1, so pad queries attend to pad keys, as in JAX; the loss ignores those

@@ -18,7 +18,8 @@ H100 80GB HBM3 (700 W) at the main path's shapes: at most 6.5e-7 (ViT tile
 tower), 1.03e-6 (char tower), 3.0e-6 (prefill), 1.3e-8 (decode), 3.0e-9
 (paged decode), 4.7e-8 (int8, K x N weights) and 1.2e-7 (int8 LM head); for
 the training attention at B=2 S=2048 and B=1 S=8192 (D=128, G=4, random
-inputs), 1.6e-7 (forward), 9.3e-7 (dq) and 4.6e-6 (dk/dv: each sums G x S
+inputs), 1.6e-7 (forward), and with the CUDA-core backward that the
+tensor-core one replaced, 9.3e-7 (dq) and 4.6e-6 (dk/dv: each sums G x S
 terms). ATOL sits 3x (prefill) to hundreds of times above that, and far
 below what a lost 64-key tile, page, 64-query tile or 128-deep K block
 costs (tests/test_torch_kernels.py, tests/test_torch_paged.py,
@@ -35,6 +36,21 @@ main path's shapes and on the same random inputs, the kernels' excess
 ex2.approx give the same bits (callireader_tpu_torch/tools/attention_arith.py):
 the excess is the split P's arithmetic at that size, not the exponential or
 the tensor cores' accumulation.
+
+The training backward (dq, dk/dv) runs its products on the tensor cores
+too, and there dS = P (dP - dsum) feeds dQ = dS K and dK = dS^T Q as well as
+P feeding dV = P^T dO. Rounding P and dS to bf16 once misses this check in
+every output, so dS is split as P is, bf16(dS) + bf16(dS - bf16(dS)), each part its own
+product into the fp32 accumulator
+(tests/test_torch_attention_bwd.py::test_tensor_core_backward_needs_split_p_and_ds
+holds a CPU emulation to both: 1.1-1.3e-6 split, 28-46x over ATOL single).
+Over the longest sums (dV and dK of the first keys gather G x S query
+terms) the wgmma accumulator drifts: at B=1 S=8192 dV kept in the
+accumulator stood 2.7e-4 beyond its rounding, over ATOL; moved into fp32
+sums in shared memory every 8 query tiles it stands at 4.9e-6
+(callireader_tpu_torch/tools/backward_arith.py). With both, chip_smoke.py
+reads 2.8e-6 / 2.2e-6 (dq) and 6.7e-6 / 6.2e-6 (dk/dv) at B=2 S=2048 and
+B=1 S=8192 on an H100 80GB HBM3 (700 W), against 1e-4 and 2e-4.
 
 The RMSNorm kernels' one-rounding form (rms_norm_pallas's) takes 1e-5 too:
 its fp32 row sums differ from the plain version's in order only. Its

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import shutil
 import subprocess
 from typing import Dict, Optional
 
@@ -73,37 +72,10 @@ def tensor_core_loop(q, k, v, scale, mask, split):
 
 def _build_variants() -> Dict[str, Dict[str, str]]:
     """{"ex2.approx" | "exp2f": {source: .so path}}, all four nvcc at once."""
-    root = _build.BUILD_DIR / "arith"
-    shutil.rmtree(root, ignore_errors=True)
-    exact = root / "exp2f_src"
-    shutil.copytree(_build.CSRC_DIR, exact)
-    common = exact / "flash_common.cuh"
-    text = common.read_text()
-    if text.count(FAST_EXP2) != 1:
-        raise RuntimeError("flash_common.cuh: the ex2.approx line to swap was not found once")
-    common.write_text(text.replace(FAST_EXP2, EXACT_EXP2))
-    out: Dict[str, Dict[str, str]] = {}
-    procs = []
-    for tag, src in (("ex2.approx", _build.CSRC_DIR), ("exp2f", exact)):
-        for name in SOURCES:
-            so = root / f"{tag}_{name}.so"
-            out.setdefault(tag, {})[name] = str(so)
-            procs.append(subprocess.Popen(
-                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(src), "-o", str(so),
-                 str(src / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for p in procs:
-        log, _ = p.communicate(timeout=900)
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed:\n{log}")
-    return out
-
-
-def _bind(kernel: _build.CudaKernel, so: str):
-    fn = getattr(ctypes.CDLL(so), kernel.symbol)
-    fn.argtypes = kernel.argtypes + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    builds = _build.build_variants(
+        _build.BUILD_DIR / "arith",
+        {"ex2.approx": None, "exp2f": ("wgmma_common.cuh", FAST_EXP2, EXACT_EXP2)}, SOURCES)
+    return {tag: {name: so for name, (so, _) in libs.items()} for tag, libs in builds.items()}
 
 
 def _cases(dev, rng):
@@ -159,7 +131,7 @@ def main(seed: int = 0) -> Dict[str, Dict[str, Optional[float]]]:
     libs = _build_variants()
     result = {}
     for label, kernel, run, want, emul in _cases(dev, np.random.default_rng(seed)):
-        fns = {tag: _bind(kernel, libs[tag][kernel.source]) for tag in libs}
+        fns = {tag: kernel.entry_in(ctypes.CDLL(libs[tag][kernel.source])) for tag in libs}
         outs, times = {}, {tag: [] for tag in fns}
         try:
             for tag, fn in fns.items():

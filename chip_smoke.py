@@ -102,7 +102,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
  16. kernels of the training path: the forward, dq and dk/dv kernels against
      their plain versions at the shape and segment ids phase 14 launched
      them with and at the recipe's ceiling B=1, S=8192, beside
-     scaled_dot_product_attention and its autograd backward;
+     scaled_dot_product_attention and its autograd backward; each row's
+     device ms is printed beside its bound;
  17. inference CLI, flagship with an adapter: ``cli.inference.main(["--tgt",
      page.npy, "--preset", "callireader-8b", "--random-init", "--quant",
      "int8", "--adapter", <phase 14's final checkpoint>])`` in-process at
@@ -176,18 +177,6 @@ NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_fused", "rms_norm_
 # H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor cores (data sheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-# device ms of the CUDA-core (fp32 FMA) forward attention loop that the
-# tensor-core loop of csrc/flash_common.cuh replaced, by kernels-line row, as
-# this script measured it on an H100 80GB HBM3 at 700 W (PERF.md, section 6)
-CUDA_CORE_DEVICE_MS = {
-    "vit_attention[2b 52x1025x16x64]": 14.3499, "vit_attention[8b 52x1025x16x64]": 14.3887,
-    "vit_attention[serve 91x1025x16x64]": 25.2139, "vit_attention[http 13x1025x16x64]": 3.6246,
-    "vit_attention[2b 192x257x8x32]": 1.1434, "vit_attention[8b 192x257x8x32]": 1.1447,
-    "vit_attention[serve 192x257x8x32]": 1.1432, "vit_attention[http 64x257x8x32]": 0.3890,
-    "flash_attention[2b B=4 S=3584]": 22.1178, "flash_attention[8b B=4 S=3584]": 22.2076,
-    "flash_attention[serve B=8 S=3584]": 43.7827, "flash_attention[http B=1 S=3584]": 6.0511,
-    "flash_attention[http B=1 S=128]": 0.0272, "flash_attention[contiguous B=2 S=128]": 0.0352,
-}
 
 
 def make_page(seed: int = 0):
@@ -1281,11 +1270,9 @@ def main() -> int:
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                     "device_ms": dev_ms, "bound_ratio": ratio,
                 })
-                if name in ("vit_attention", "flash_attention"):
-                    was = CUDA_CORE_DEVICE_MS.get(row)
-                    log(f"{row}: device {dev_ms} ms, {ratio:.2f}x its bound; "
-                        + ("no CUDA-core loop time at this shape" if was is None or dev_ms is None
-                           else f"{was / dev_ms:.2f}x faster than the CUDA-core loop's {was} ms"))
+                if name.startswith("attn_train"):
+                    log(f"{row}: device {dev_ms} ms against its bound {b_ms:.4f} ms ({b_by}), "
+                        f"{ratio:.2f}x")
         print(smi, flush=True)
         print(json.dumps({"kernels": line}), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,

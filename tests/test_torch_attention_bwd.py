@@ -7,21 +7,28 @@ tests/test_flash_bwd.py: 2e-5 for outputs, 5e-4 for grads (fp32, summation
 order only). The plain backward against torch autograd through the port's
 ``attention_reference``: 1e-5 (same math, fp32). The kernels' ATOLs
 (kernels/tolerance.py) against what dropping one 64-key or 64-query tile
-costs.
+costs. A plain-torch emulation of the tensor-core backward's arithmetic
+against the fp32 plain version: within ATOL with P and dS split into two
+bf16 parts, more than 10x over it with each rounded once.
 
 Card (marked ``cuda``): each kernel against its plain version on the same
-bf16 inputs, elementwise within the output's bf16 rounding plus the kernel's
+bf16 inputs (lengths around the 64-row tiles, right padding, packed
+segments), elementwise within the output's bf16 rounding plus the kernel's
 ATOL; lse (fp32 output) within 1e-4; rows that attend to nothing; equal bits
-run to run; launch counts of the LLM forward and backward with and without
-remat.
+run to run; HGMMA in the backward kernels' SASS; launch counts of the LLM
+forward and backward with and without remat.
 """
 
+import os
+import shutil
+import subprocess
 import types
 
 import numpy as np
 import pytest
 import torch
 
+from callireader_tpu_torch.kernels import _build
 from callireader_tpu_torch.kernels import attention as tattn
 from callireader_tpu_torch.kernels import attention_bwd as tbwd
 from callireader_tpu_torch.kernels import tolerance
@@ -168,6 +175,87 @@ def test_tolerance_passes_rounding_and_fails_dropped_tiles():
         assert tolerance.excess_error(dropped[i].bfloat16(), want[i]) > 10 * atol, name
 
 
+# ------------------------------- the tensor-core backward's arithmetic (CPU check)
+
+LOG2E = 1.4426950408889634
+
+
+def _split(x, split):
+    """x as the kernel feeds it to the tensor cores: bf16(x), plus
+    bf16(x - bf16(x)) when ``split``; each part is its own product."""
+    hi = x.bfloat16().float()
+    return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+
+def tensor_core_backward(q, k, v, do, o, lse, allowed, scale, split):
+    """Plain-torch emulation of the dq and dk/dv loops of
+    csrc/flash_attention_bwd.cu for one KV head: 64 x 64 tiles, fp32 scores,
+    P = 2^(S scale log2(e) - lse log2(e)) (0 where masked),
+    dS = P (dP - rowsum(dO O)), P and dS fed to the products in bf16 (split
+    into two parts or rounded once), every sum in fp32, outputs rounded to
+    bf16. q/do/o (G, S, D), k/v (S, D) fp32 holding bf16 values; lse (G, S);
+    allowed (S, S) bool. -> (dq, dk, dv) bf16."""
+    G, S, D = q.shape
+    dsum = (do * o).sum(-1)
+    lse2 = torch.where(lse > tbwd.NEG_INF / 2, lse * LOG2E, torch.full_like(lse, float("inf")))
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, S, 64):
+        for k0 in range(0, S, 64):
+            qs, ks = slice(q0, q0 + 64), slice(k0, k0 + 64)
+            s = q[:, qs] @ k[ks].T
+            p = torch.exp2(s * (scale * LOG2E) - lse2[:, qs, None])
+            p = torch.where(allowed[qs, ks], p, torch.zeros_like(p))
+            ds = p * (do[:, qs] @ v[ks].T - dsum[:, qs, None])
+            for part in _split(ds, split):
+                dq[:, qs] += part @ k[ks]
+                dk[ks] += torch.einsum("gqk,gqd->kd", part, q[:, qs])
+            for part in _split(p, split):
+                dv[ks] += torch.einsum("gqk,gqd->kd", part, do[:, qs])
+    return (dq * scale).bfloat16(), (dk * scale).bfloat16(), dv.bfloat16()
+
+
+@pytest.fixture(scope="module")
+def backward_loop_case():
+    """G = 4, D = 128, S = 256, causal, two segments: the fp32 plain
+    backward and the loop's outputs with P and dS split or rounded once."""
+    rng = np.random.default_rng(41)
+    G, S, D = 4, 256, 128
+
+    def bf16(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16().float()
+
+    q, do = bf16((1, G, S, D)), bf16((1, G, S, D))
+    k, v = bf16((1, 1, S, D)), bf16((1, 1, S, D))
+    seg = torch.zeros((1, S), dtype=torch.int32)
+    seg[0, 150:] = 1
+    scale = D ** -0.5
+    o, lse = tbwd.attention_fwd_lse_reference(q, k, v, seg, seg, True, scale)
+    o = o.bfloat16().float()  # the forward kernel's output, as the backward reads it
+    want = tbwd.attention_bwd_reference(q, k, v, seg, seg, o, lse, do, True, scale)
+    allowed = (seg[0, :, None] == seg[0, None, :]) & torch.ones((S, S), dtype=torch.bool).tril()
+    loops = {split: tensor_core_backward(q[0], k[0, 0], v[0, 0], do[0], o[0], lse[0], allowed,
+                                         scale, split) for split in (True, False)}
+    return want, loops
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split_p_ds", "single_bf16"])
+@pytest.mark.parametrize("i,name", [(0, "attn_train_dq"), (1, "attn_train_dkv"),
+                                    (2, "attn_train_dkv")], ids=["dq", "dk", "dv"])
+def test_tensor_core_backward_needs_split_p_and_ds(backward_loop_case, split, i, name):
+    """The backward's products take bf16 operands: with P and dS each split
+    into two bf16 parts, dq, dk and dv stand within the card's tolerance of
+    the fp32 plain version; with each rounded to bf16 once, every output
+    misses by more than 10x."""
+    want, loops = backward_loop_case
+    got = loops[split][i]
+    ref = want[i][0, 0] if i else want[i][0]  # (S, D) for dk, dv; (G, S, D) for dq
+    excess = tolerance.excess_error(got, ref)
+    if split:
+        assert excess <= tolerance.ATOL[name]
+    else:
+        assert excess > 10 * tolerance.ATOL[name]
+
+
 # ------------------------------------------------------------ CUDA kernels
 
 
@@ -193,16 +281,35 @@ def _kernels_vs_plain(q, k, v, do, seg, causal):
     return (o, lse, dq, dk, dv), (po, plse, pdq, pdk, pdv)
 
 
+def _packed_segments(B, S):
+    """Rows of three packed segments (ids 0, 1, 2) and a -1 padded tail, cut
+    at other fractions of S in each row, so that some 64 x 64 tiles pair
+    disjoint ids (skipped whole) and others mix ids (masked)."""
+    seg = np.full((B, S), -1, np.int32)
+    for b, cuts in zip(range(B), ((0.3, 0.55, 0.9), (0.125, 0.5, 0.97))):
+        edges = [0] + [int(f * S) for f in cuts]
+        for i in range(3):
+            seg[b, edges[i]:edges[i + 1]] = i
+    return seg
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,pads,S", [
     (True, (0, 77), 300), (True, (0, 0), 128), (False, (13, 0), 200), (True, (0, 0), 1),
+    # around the 64-row tiles, with the run's right padding
+    (True, (0, 0), 63), (True, (0, 1), 65), (True, (0, 50), 129), (True, (7, 0), 200),
+    # several segments a row and a -1 padded tail
+    (True, "packed", 129), (True, "packed", 200), (True, "packed", 700), (False, "packed", 333),
 ])
 def test_cuda_trainable_kernels_match_plain(cuda, causal, pads, S):
     rng = np.random.default_rng(S)
     B, Hkv, G, D = 2, 2, 4, 128
     q, do = _bf16(rng, (B, Hkv * G, S, D), cuda), _bf16(rng, (B, Hkv * G, S, D), cuda)
     k, v = _bf16(rng, (B, Hkv, S, D), cuda), _bf16(rng, (B, Hkv, S, D), cuda)
-    seg = torch.from_numpy(_right_pad_segments(B, S, pads)).to(cuda) if any(pads) else None
+    if pads == "packed":
+        seg = torch.from_numpy(_packed_segments(B, S)).to(cuda)
+    else:
+        seg = torch.from_numpy(_right_pad_segments(B, S, pads)).to(cuda) if any(pads) else None
     got, want = _kernels_vs_plain(q, k, v, do, seg, causal)
     assert tolerance.excess_error(got[0], want[0]) <= tolerance.ATOL["attn_train_fwd"]
     assert tolerance.max_abs_error(got[1], want[1]) <= 1e-4
@@ -240,6 +347,26 @@ def test_cuda_backward_is_the_same_every_run(cuda):
     first = tbwd._bwd(q, k, v, None, None, o, lse, do, True, D ** -0.5)
     second = tbwd._bwd(q, k, v, None, None, o, lse, do, True, D ** -0.5)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernels_run_on_tensor_cores(cuda):
+    """The built library's SASS for dq_kernel and dkdv_kernel holds HGMMA
+    (wgmma) instructions."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        pytest.skip("cuobjdump is not installed")
+    _build.load_library(tbwd.SOURCE)
+    sass = subprocess.run([tool, "-sass", str(_build.BUILD_DIR / f"{tbwd.SOURCE}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    functions = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        functions[name.strip()] = body
+    for kernel in ("dq_kernel", "dkdv_kernel"):
+        bodies = [body for name, body in functions.items() if kernel in name]
+        assert bodies, f"{kernel} is not in the library"
+        assert all("HGMMA" in body for body in bodies), f"{kernel} has no HGMMA"
 
 
 @pytest.mark.cuda
