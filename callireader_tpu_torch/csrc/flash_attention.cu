@@ -7,8 +7,10 @@
 // int32 mask pairs whose ids differ (left padding is -1 on both sides in the
 // prefill, so pad rows still attend to pad keys, as in the reference);
 // `q_offset` places query row i at key position i + q_offset for the causal
-// mask, and key tiles wholly above the diagonal are never loaded. Rows that
-// attend to nothing are written as zeros.
+// mask, and key tiles wholly above the diagonal are never loaded, nor tiles
+// whose ids share none with the query tile's (a left-padded row's pad keys,
+// for its real queries: exact, the same bits). Rows that attend to nothing
+// are written as zeros.
 //
 // Bound on the H100: at the prefill shape (S=3584, D=128) the causal work is
 // ~2*B*Hq*S^2*D flops against a few hundred MB, so it is bound by operations:
@@ -44,7 +46,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128 && G == 4) return cr::launch_flash<128, 4, 2, 2>(a, qo, ko, vo, s);
-  if (D == 64 && G == 1) return cr::launch_flash<64, 1, 3, 3>(a, qo, ko, vo, s);
+  if (D == 128 && G == 4) return cr::launch_flash<128, 4, 2, 2, true>(a, qo, ko, vo, s);
+  if (D == 64 && G == 1) return cr::launch_flash<64, 1, 3, 3, true>(a, qo, ko, vo, s);
   return (int)cudaErrorInvalidValue;
 }

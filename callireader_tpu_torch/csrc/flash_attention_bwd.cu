@@ -18,11 +18,17 @@
 // per attended (query, key) pair for the forward, dq and dk/dv) against a
 // few tens of MB.
 //
-// Forward (fwd_lse_kernel): fp32 FMAs on the CUDA cores. A block owns
-// ROWS = 64 query rows, QT = ROWS / G positions of each of the G query heads
-// that share one KV head, so each staged K/V tile serves the whole group;
-// four threads own a row (16-byte vectors v * TPR + part), a dot product is
-// the quad's sum (two shuffles). Scores live in the log2 domain.
+// Forward: the tensor-core loop of flash_common.cuh (wgmma, TMA, a split P),
+// built with its lse epilogue (LSE = true) and launched with q_offset = 0,
+// the same loop as the ViT and prefill kernels. With segment ids its
+// producer skips every key tile whose id range is disjoint from the query
+// tile's, exactly as the backward's producers below do (at the e-IT shape,
+// rows of ~1,470 tokens and a -1 tail in S = 2048, 2.51M of the 4.2M causal
+// pairs are attended). Its O sums run over at most S keys in the wgmma
+// accumulator; at S = 8192 its excess, 3.2e-6 on an H100 80GB HBM3 (700 W),
+// stays within the check without moving O into fp32 sums
+// (tools/attention_arith.py). Two blocks an SM, as the prefill: 168
+// registers, no spill.
 //
 // Backward (dq_kernel, dkdv_kernel): tensor-core loops on Hopper
 // (wgmma_common.cuh: wgmma, TMA, mbarriers; sm_90a). A block holds one
@@ -63,181 +69,19 @@
 // dq takes 193, so it too runs one block an SM (at two, its 168 spill).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16_vec.cuh"
-#include "wgmma_common.cuh"
+#include "flash_common.cuh"
 
 namespace crt {
 
 using namespace cr;
 
-constexpr int TPR = 4;               // threads per query row (forward)
-constexpr int ROWS = 64;             // query rows per block (forward)
-constexpr int KT = 64;               // keys per staged tile
-constexpr int SUB = 16;              // keys per online-softmax update (forward)
-constexpr int NTHREADS = ROWS * TPR;  // 256 (forward)
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-constexpr float NO_KEY_LSE = -1e30f;  // lse of a row with no attendable key
-
-// the forward's arguments
-struct Args {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const int* q_seg;    // (B, Sq) or null
-  const int* k_seg;    // (B, Sk) or null
-  __nv_bfloat16* out;  // o
-  float* lse_out;      // lse
-  int Hq, Hkv, Sq, Sk, causal;
-  float scale;
-};
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
-}
-
-// Forward: stage KT keys of K and V (and their segment ids) from key k0 into shared
-// memory, zeros past Sk.
-template <int D>
-__device__ __forceinline__ void stage_kv(const Args& a, const __nv_bfloat16* kbase,
-                                         const __nv_bfloat16* vbase, const int* kseg_row, int k0,
-                                         __nv_bfloat16* ks, __nv_bfloat16* vs, int* segs) {
-  constexpr int NV = KT * D / 8;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < NV; i += NTHREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const int kp = k0 + r;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-    if (kp < a.Sk) {
-      kv = *reinterpret_cast<const uint4*>(kbase + (long long)kp * D + c);
-      vv = *reinterpret_cast<const uint4*>(vbase + (long long)kp * D + c);
-    }
-    *reinterpret_cast<uint4*>(ks + r * D + c) = kv;
-    *reinterpret_cast<uint4*>(vs + r * D + c) = vv;
-  }
-  if (tid < KT) segs[tid] = (kseg_row != nullptr && k0 + tid < a.Sk) ? kseg_row[k0 + tid] : 0;
-}
-
-// ---------------------------------------------------------------- forward
-// grid: (ceil(Sq / QT), Hkv, B); block: NTHREADS
-template <int D, int G>
-__global__ void __launch_bounds__(NTHREADS) fwd_lse_kernel(const Args a) {
-  constexpr int VPT = D / (8 * TPR);
-  constexpr int DPT = VPT * 8;
-  constexpr int QT = ROWS / G;
-  static_assert(D % (8 * TPR) == 0, "D must be a multiple of 32");
-  static_assert(ROWS % G == 0, "group size must divide 64");
-
-  __shared__ __align__(16) __nv_bfloat16 ks[KT * D];
-  __shared__ __align__(16) __nv_bfloat16 vs[KT * D];
-  __shared__ int segs[KT];
-
-  const int tid = threadIdx.x;
-  const int row = tid / TPR, part = tid % TPR;
-  const int g = row / QT, qi = row % QT;
-  const int q0 = blockIdx.x * QT;
-  const int qpos = q0 + qi;
-  const int hkv = blockIdx.y, b = blockIdx.z;
-  const int hq = hkv * G + g;
-  const bool qvalid = qpos < a.Sq;
-  const long long qrow = ((long long)b * a.Hq + hq) * a.Sq + qpos;
-  const float sl2 = a.scale * LOG2E;
-
-  float qr[DPT], acc[DPT];
-  if (qvalid) {
-    const __nv_bfloat16* qp = a.q + qrow * D;
-#pragma unroll
-    for (int v = 0; v < VPT; ++v) load8(qp + (v * TPR + part) * 8, qr + v * 8);
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) qr[i] *= sl2;
-  } else {
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) qr[i] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  const int qseg = (a.q_seg != nullptr && qvalid) ? a.q_seg[(long long)b * a.Sq + qpos] : 0;
-  const int q_last = min(q0 + QT, a.Sq) - 1;
-  const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
-
-  const long long kvoff = ((long long)b * a.Hkv + hkv) * a.Sk * D;
-  const int* kseg_row = a.k_seg != nullptr ? a.k_seg + (long long)b * a.Sk : nullptr;
-  for (int k0 = 0; k0 < k_end; k0 += KT) {
-    __syncthreads();  // the previous tile has been consumed
-    stage_kv<D>(a, a.k + kvoff, a.v + kvoff, kseg_row, k0, ks, vs, segs);
-    __syncthreads();
-
-    const int nkeys = min(KT, k_end - k0);
-    for (int j0 = 0; j0 < nkeys; j0 += SUB) {
-      float s[SUB];
-      float mloc = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const int j = j0 + jj;
-        const __nv_bfloat16* kr = ks + j * D;
-        float dot = 0.f;
-#pragma unroll
-        for (int v = 0; v < VPT; ++v) {
-          float kf[8];
-          load8(kr + (v * TPR + part) * 8, kf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) dot = fmaf(qr[v * 8 + e], kf[e], dot);
-        }
-        dot = quad_sum(dot);
-        bool ok = qvalid && j < nkeys;
-        if (a.causal) ok = ok && (k0 + j <= qpos);
-        if (kseg_row != nullptr) ok = ok && (segs[j] == qseg);
-        s[jj] = ok ? dot : -INFINITY;
-        mloc = fmaxf(mloc, s[jj]);
-      }
-      const float m_new = fmaxf(m, mloc);
-      if (m_new == -INFINITY) continue;  // nothing attendable yet
-      const float alpha = exp2f(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const float p = exp2f(s[jj] - m_new);
-        l += p;
-        const __nv_bfloat16* vr = vs + (j0 + jj) * D;
-#pragma unroll
-        for (int v = 0; v < VPT; ++v) {
-          float vf[8];
-          load8(vr + (v * TPR + part) * 8, vf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[v * 8 + e] = fmaf(p, vf[e], acc[v * 8 + e]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  if (qvalid) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    __nv_bfloat16* op = a.out + qrow * D;
-#pragma unroll
-    for (int v = 0; v < VPT; ++v) {
-      float t[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) t[e] = acc[v * 8 + e] * inv;
-      store8(op + (v * TPR + part) * 8, t);
-    }
-    // natural-log lse: m is in log2 units
-    if (part == 0) a.lse_out[qrow] = l > 0.f ? m * LN2 + logf(l) : NO_KEY_LSE;
-  }
-}
 
 // ---------------------------------------------------------------- backward
 
-constexpr int MIXED = INT_MIN;  // common id of a tile whose rows' ids differ
 constexpr int DQ_INFO = KT + 2;  // a dq stage: KT key ids, their common id, the first key
 // a dk/dv stage: lse2, dsum and ids of 64 query rows, the first row, the common id
 constexpr int DKV_INFO = 3 * 64 + 4;
@@ -261,17 +105,6 @@ struct BwdArgs {
 // that its P = 2^(s - inf) is 0
 __device__ __forceinline__ float lse_log2(float L) {
   return L > 0.5f * NO_KEY_LSE ? L * LOG2E : INFINITY;
-}
-
-// The ids of rows r .. r + 63 of one batch row's ids `seg` (n = rows left,
-// >= 1), two a lane of a warp; rows past the end take the first row's id
-// (they are masked or weigh 0 otherwise). -> the warp's (min, max).
-__device__ __forceinline__ int2 tile_ids(const int* seg, int n, int lane, int& s0, int& s1) {
-  const int first = seg[0];
-  s0 = lane < n ? seg[lane] : first;
-  s1 = 32 + lane < n ? seg[32 + lane] : first;
-  return make_int2(__reduce_min_sync(0xffffffffu, min(s0, s1)),
-                   __reduce_max_sync(0xffffffffu, max(s0, s1)));
 }
 
 template <int D, int STAGES>
@@ -748,23 +581,6 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
   }
 }
 
-inline Args make_args(const void* q, const void* k, const void* v, const void* q_seg,
-                      const void* k_seg, int Hq, int Hkv, int Sq, int Sk, int causal, float scale) {
-  Args a{};
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.q_seg = static_cast<const int*>(q_seg);
-  a.k_seg = static_cast<const int*>(k_seg);
-  a.Hq = Hq;
-  a.Hkv = Hkv;
-  a.Sq = Sq;
-  a.Sk = Sk;
-  a.causal = causal;
-  a.scale = scale;
-  return a;
-}
-
 // Instantiated for the LLM shape of every full-width preset (D = 128, G = 4).
 inline bool supported(int Hq, int Hkv, int D) {
   return Hkv > 0 && Hq % Hkv == 0 && D == 128 && Hq / Hkv == 4;
@@ -772,6 +588,7 @@ inline bool supported(int Hq, int Hkv, int D) {
 
 
 constexpr int BWD_D = 128, BWD_G = 4;
+constexpr int FWD_STAGES = 2, FWD_MINB = 2;  // the prefill's: two blocks an SM, no spill
 constexpr int DQ_STAGES = 2, DQ_MINB = 1;   // at two blocks an SM (168 registers) it spills
 constexpr int DKV_STAGES = 2, DKV_MINB = 1;  // dK and dV take 128 registers a thread
 
@@ -811,14 +628,28 @@ extern "C" int attn_train_fwd_launch(const void* q, const void* k, const void* v
                                      void* lse, const void* q_seg, const void* k_seg, int B,
                                      int Hq, int Hkv, int Sq, int Sk, int D, int causal,
                                      float scale, void* stream) {
-  if (!crt::supported(Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
-  crt::Args a = crt::make_args(q, k, v, q_seg, k_seg, Hq, Hkv, Sq, Sk, causal, scale);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.lse_out = static_cast<float*>(lse);
-  constexpr int QT = crt::ROWS / 4;
-  dim3 grid((Sq + QT - 1) / QT, Hkv, B);
-  crt::fwd_lse_kernel<128, 4><<<grid, crt::NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  using namespace crt;
+  if (!supported(Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
+  const Operand qo{q, Sq, Hq, B, D, (long long)Sq * D, (long long)Hq * Sq * D};
+  const Operand ko{k, Sk, Hkv, B, D, (long long)Sk * D, (long long)Hkv * Sk * D};
+  Operand vo = ko;
+  vo.p = v;
+  AttnArgs a{};
+  a.o = static_cast<__nv_bfloat16*>(out);
+  a.o_sb = (long long)Hq * Sq * D;
+  a.o_sh = (long long)Sq * D;
+  a.o_ss = D;
+  a.Hkv = Hkv;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.causal = causal;
+  a.q_offset = 0;
+  a.q_seg = static_cast<const int*>(q_seg);
+  a.k_seg = static_cast<const int*>(k_seg);
+  a.scale_log2 = scale * LOG2E;
+  a.lse = static_cast<float*>(lse);
+  return launch_flash<BWD_D, BWD_G, FWD_STAGES, FWD_MINB, true, true>(a, qo, ko, vo,
+                                                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int attn_train_dq_launch(const void* q, const void* k, const void* v, const void* dO,

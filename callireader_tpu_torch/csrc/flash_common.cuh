@@ -1,6 +1,7 @@
-// Shared forward attention loop of the port's ViT packed-QKV attention and
-// LLM prefill flash attention, on Hopper's tensor cores (wgmma and TMA,
-// sm_90a).
+// Shared forward attention loop of the port on Hopper's tensor cores (wgmma
+// and TMA, sm_90a): the ViT packed-QKV attention and the LLM prefill
+// (flash_attention.cu, vit_attention.cu) and the e-IT training forward, which
+// also writes each row's log-sum-exp (flash_attention_bwd.cu, LSE = true).
 //
 // Layout. A block holds one consumer warpgroup of 128 threads and one
 // producer warp. The warpgroup owns a 64-row query tile (the M of one
@@ -10,7 +11,11 @@
 // producer warp copies the Q tile once and then K/V tiles of KT = 64 keys
 // into a ring of STAGES shared-memory stages with TMA: a "full" mbarrier says
 // a stage has landed, an "empty" one that the consumers are done with it, so
-// the next tiles' copies overlap this tile's products. Q, K and V sit in
+// the next tiles' copies overlap this tile's products. Each stage carries its
+// first key. With segment ids the producer pushes no key tile whose id range
+// is disjoint from the query tile's (every row's maximum, l and O would pass
+// through such a tile unchanged: alpha = 1, P = 0, so the skip is exact) and
+// ends the ring with a stage whose first key is -1. Q, K and V sit in
 // shared memory in the swizzled layout that TMA writes and wgmma reads
 // (128-byte rows of 64 columns per column block; 64-byte rows when D = 32).
 //
@@ -27,12 +32,14 @@
 // Softmax. Online softmax in fp32 in the log2 domain: the fp32 scores are
 // scaled by softmax scale * log2(e) (Q stays exact in bf16). Masked keys get
 // -inf and weigh exactly 0, so a row that attends to nothing ends with l == 0
-// and is written as zeros. Keys past Sk arrive as zeros (TMA's out-of-bounds
-// fill) and are masked. The CUDA-core work per score bounds the loop more
-// than the products, so only tiles that need it are masked (the producer
-// marks a tile whose keys share one segment id), and O is rescaled only when
-// a row's maximum moved. Causal: tiles past the block's last query row are
-// never loaded, and the grid starts with the longest query tiles.
+// and is written as zeros (and lse = -1e30). Keys past Sk arrive as zeros
+// (TMA's out-of-bounds fill) and are masked. The CUDA-core work per score
+// bounds the loop more than the products, so only tiles that need it are
+// masked (the producer marks a tile whose keys share one segment id), and O
+// is rescaled only when a row's maximum moved. Causal: tiles past the
+// block's last query row are never loaded, and the grid starts with the
+// longest query tiles. The lse epilogue writes m * scale + ln(l) from the
+// row maximum m and the quad-reduced l.
 //
 // Operands are 4-D (D, S, H, B) bf16 views with any 16-byte aligned strides
 // (elements) of S, H and B; the Python wrappers check D % 8 == 0 and the base
@@ -47,8 +54,10 @@
 namespace cr {
 
 constexpr int KT = 64;           // keys per shared-memory tile (the N of S = Q K^T)
-constexpr int SEGW = KT + 2;     // a stage's segment ids: KT keys, then the tile's common id
+constexpr int SEGW = KT + 2;     // a stage: KT keys' segment ids, the tile's common id, its first key
 constexpr int MIXED = INT_MIN;   // common id of a tile whose keys' ids differ
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float NO_KEY_LSE = -1e30f;  // lse of a row with no attendable key
 
 struct AttnArgs {
   CUtensorMap tq, tk, tv;  // TMA maps of q, k, v (see launch_flash)
@@ -61,6 +70,7 @@ struct AttnArgs {
   const int* q_seg;  // (B, Sq) or null
   const int* k_seg;  // (B, Sk) or null
   float scale_log2;  // softmax scale * log2(e)
+  float* lse;        // (B, Hkv G, Sq) fp32, written by the LSE build only
 };
 
 // the Q tile, a ring of STAGES (K tile, V tile, the keys' segment ids), and
@@ -74,8 +84,11 @@ constexpr int smem_bytes() {
 
 // grid: one block per (query tile of 64 / G positions, KV head, batch row),
 // flattened; block: the consumer warpgroup (threads 0-127), then the
-// producer warp; MINB blocks an SM (it caps the registers a thread)
-template <int D, int G, int STAGES, int MINB>
+// producer warp; MINB blocks an SM (it caps the registers a thread); IDS:
+// the launch may pass segment ids (without, the ids' masks, the tile skip
+// and the ring's end marker compile out, as the ViT towers take none); LSE:
+// also write each row's natural-log log-sum-exp to a.lse
+template <int D, int G, int STAGES, int MINB, bool IDS, bool LSE>
 __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
     flash_fwd_kernel(const __grid_constant__ AttnArgs a) {
   using T = Tile<D>;
@@ -109,6 +122,7 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
   // keys past the block's last query row are never loaded (causal)
   const int k_end = a.causal ? min(a.Sk, min(q0 + QW, a.Sq) + a.q_offset) : a.Sk;
   const int ntiles = (k_end + KT - 1) / KT;
+  const bool ids = IDS && a.k_seg != nullptr;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -122,7 +136,8 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
   __syncthreads();
 
   if (warp == 4) {
-    // producer: Q once, then K/V tiles (and the keys' segment ids) into the ring
+    // producer: Q once, then the K/V tiles that can hold an attended pair
+    // (and the keys' segment ids) into the ring, then the end marker
     if (lane == 0) {
       mbar_arrive_tx(q_full, T::BYTES);
       for (int g = 0; g < G; ++g)
@@ -130,23 +145,37 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
           tma_load(q_s + cb * 64 * T::RB + g * QW * T::RB, &a.tq, q_full, cb * T::RB / 2, q0,
                    hkv * G + g, b);
     }
-    for (int it = 0; it < ntiles; ++it) {
+    int qmin = 0, qmax = 0;  // the block's query ids (0 without q_seg, as the consumers take)
+    if (ids && a.q_seg != nullptr) {
+      int s0, s1;
+      const int2 r = tile_ids(a.q_seg + (long long)b * a.Sq + q0, min(QW, a.Sq - q0), lane, s0, s1);
+      qmin = r.x;
+      qmax = r.y;
+    }
+    int it = 0;
+    // t == ntiles: the end of the ring, marked only where tiles may be skipped
+    for (int t = 0; t < ntiles + ids; ++t) {
+      const int k0 = t * KT;
+      int s0 = 0, s1 = 0, common = MIXED;
+      if (t < ntiles && ids) {
+        // the ids, and whether the tile's keys share one (keys past Sk count
+        // as sharing it: they are masked as such)
+        const int2 r = tile_ids(a.k_seg + (long long)b * a.Sk + k0, a.Sk - k0, lane, s0, s1);
+        if (r.y < qmin || r.x > qmax) continue;  // no key shares an id with a query
+        common = r.x == r.y ? r.x : MIXED;
+      }
       const int st = it % STAGES;
       if (it >= STAGES) mbar_wait(empty(st), (it / STAGES - 1) & 1);
-      const int k0 = it * KT;
-      if (a.k_seg != nullptr) {
-        // the ids, and whether the tile's keys share one (keys past Sk count as
-        // sharing it: they are masked as such)
-        const int* ks = a.k_seg + (long long)b * a.Sk + k0;
-        const int first = ks[0];
-        const int s0 = k0 + lane < a.Sk ? ks[lane] : first;
-        const int s1 = k0 + 32 + lane < a.Sk ? ks[32 + lane] : first;
-        segs[st * SEGW + lane] = s0;
-        segs[st * SEGW + 32 + lane] = s1;
-        const bool same = __all_sync(0xffffffffu, s0 == first && s1 == first);
-        if (lane == 0) segs[st * SEGW + KT] = same ? first : MIXED;
+      int* sg = segs + st * SEGW;
+      if (ids) {
+        sg[lane] = s0;
+        sg[32 + lane] = s1;
+        if (lane == 0) {
+          sg[KT] = common;
+          sg[KT + 1] = t < ntiles ? k0 : -1;
+        }
       }
-      if (lane == 0) {
+      if (lane == 0 && t < ntiles) {
         mbar_arrive_tx(full(st), 2 * T::BYTES);
         const uint32_t ks = kv_s + st * 2 * T::BYTES;
         for (int cb = 0; cb < T::NCB; ++cb) {
@@ -156,6 +185,7 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
       } else {
         mbar_arrive(full(st));
       }
+      ++it;
     }
     return;
   }
@@ -185,10 +215,14 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it % STAGES, k0 = it * KT;
-    const uint32_t ks = kv_s + st * 2 * T::BYTES, vs = ks + T::BYTES;
+  for (int it = 0;; ++it) {
+    if (!ids && it == ntiles) break;  // no ids: every tile came, unmarked
+    const int st = it % STAGES;
     mbar_wait(full(st), (it / STAGES) & 1);
+    const int* sg = segs + st * SEGW;
+    const int k0 = ids ? sg[KT + 1] : it * KT;
+    if (k0 < 0) break;
+    const uint32_t ks = kv_s + st * 2 * T::BYTES, vs = ks + T::BYTES;
 
     // S = Q K^T
     wgmma_fence();
@@ -201,8 +235,7 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
 
     // mask: a tile of keys that share the segment id of both rows needs no
     // id check, one wholly before both rows' limits no bound check
-    const int* sg = segs + st * SEGW;
-    if (a.k_seg != nullptr && !(sg[KT] != MIXED && sg[KT] == qseg[0] && sg[KT] == qseg[1])) {
+    if (ids && !(sg[KT] != MIXED && sg[KT] == qseg[0] && sg[KT] == qseg[1])) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
@@ -279,6 +312,12 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
     lr += __shfl_xor_sync(0xffffffffu, lr, 1);
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
     if (pos[rr] >= a.Sq) continue;
+    if constexpr (LSE) {
+      // natural-log lse: m is a raw score, m c its log2-domain value
+      if (lane % 4 == 0)
+        a.lse[((long long)b * a.Hkv * G + head[rr]) * a.Sq + pos[rr]] =
+            lr > 0.f ? m[rr] * c * LN2 + logf(lr) : NO_KEY_LSE;
+    }
     const float inv = lr > 0.f ? 1.f / lr : 0.f;
     __nv_bfloat16* op = a.o + b * a.o_sb + head[rr] * a.o_sh + (long long)pos[rr] * a.o_ss;
 #pragma unroll
@@ -292,7 +331,7 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
   }
 }
 
-template <int D, int G, int STAGES, int MINB>
+template <int D, int G, int STAGES, int MINB, bool IDS, bool LSE = false>
 inline int launch_flash(AttnArgs a, const Operand& q, const Operand& k, const Operand& v,
                         cudaStream_t stream) {
   constexpr int QW = WG_ROWS / G;
@@ -300,12 +339,12 @@ inline int launch_flash(AttnArgs a, const Operand& q, const Operand& k, const Op
   if (!encode_map<D>(&a.tq, q, WG_ROWS / G) || !encode_map<D>(&a.tk, k, KT) ||
       !encode_map<D>(&a.tv, v, KT))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, G, STAGES, MINB>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, G, STAGES, MINB, IDS, LSE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (long long)((a.Sq + QW - 1) / QW) * a.Hkv * q.B;
   if (blocks == 0) return 0;
-  flash_fwd_kernel<D, G, STAGES, MINB><<<(unsigned)blocks, WG_THREADS + 32, smem, stream>>>(a);
+  flash_fwd_kernel<D, G, STAGES, MINB, IDS, LSE><<<(unsigned)blocks, WG_THREADS + 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

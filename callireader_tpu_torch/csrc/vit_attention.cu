@@ -41,8 +41,8 @@ extern "C" int vit_attention_launch(const void* qkv, void* out, int B, int S, in
   a.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return cr::launch_flash<32, 1, 2, 4>(a, q, k, v, s);
-    case 64: return cr::launch_flash<64, 1, 3, 3>(a, q, k, v, s);
+    case 32: return cr::launch_flash<32, 1, 2, 4, false>(a, q, k, v, s);
+    case 64: return cr::launch_flash<64, 1, 3, 3, false>(a, q, k, v, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,9 @@
-// Hopper machinery shared by the port's tensor-core attention loops (the
-// forward loop of flash_common.cuh and the training backward of
-// flash_attention_bwd.cu), sm_90a: mbarriers, TMA loads, wgmma with its
-// shared-memory descriptors over swizzled 64-row tiles, and the TMA map
-// encoder, fetched from libcuda at run time (no -lcuda).
+// Hopper machinery shared by the port's tensor-core kernels (the forward
+// attention loop of flash_common.cuh, the training backward of
+// flash_attention_bwd.cu, the int8 LM head of int8_matmul.cu), sm_90a:
+// mbarriers, TMA loads, wgmma with its shared-memory descriptors over
+// swizzled 64-row tiles, and the TMA map encoder, fetched from libcuda at run
+// time (no -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; its encoder is a libcuda entry point fetched at run time
@@ -63,6 +64,28 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// one TMA box of a 2-D map into shared memory, reported to `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The ids of rows r .. r + 63 of one batch row's ids `seg` (n = rows left,
+// >= 1), two a lane of a warp; rows past the end take the first row's id
+// (they are masked or weigh 0 otherwise). -> the warp's (min, max). A tile
+// of keys whose range is disjoint from a query tile's holds no attended pair.
+__device__ __forceinline__ int2 tile_ids(const int* seg, int n, int lane, int& s0, int& s1) {
+  const int first = seg[0];
+  s0 = lane < n ? seg[lane] : first;
+  s1 = 32 + lane < n ? seg[32 + lane] : first;
+  return make_int2(__reduce_min_sync(0xffffffffu, min(s0, s1)),
+                   __reduce_max_sync(0xffffffffu, max(s0, s1)));
 }
 
 __device__ __forceinline__ void wgmma_fence() {

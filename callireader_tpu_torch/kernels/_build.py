@@ -127,6 +127,20 @@ def build_variants(root: Path, edits: Dict[str, Optional[Tuple[str, str, str]]],
     return out
 
 
+def sass_functions(name: str) -> Dict[str, str]:
+    """{kernel function: its SASS} of the built source ``name`` (building it
+    if stale), read with the toolkit's ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or str(Path(nvcc_path()).with_name("cuobjdump"))
+    load_library(name)
+    sass = subprocess.run([tool, "-sass", str(BUILD_DIR / f"{name}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    functions = {}
+    for chunk in sass.split("Function : ")[1:]:
+        fn, _, body = chunk.partition("\n")
+        functions[fn.strip()] = body
+    return functions
+
+
 def load_library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:

@@ -7,11 +7,12 @@ row's log-sum-exp, the dq kernel and the dk/dv kernel). Here it is one
 forward and backward launch the hand-written CUDA kernels of
 csrc/flash_attention_bwd.cu:
 
-- forward: an online-softmax tile loop in fp32 FMAs on the CUDA cores (a
-  block serves the G query heads of one KV head, key tiles above the
-  diagonal are never loaded) that writes
-  o (bf16) and lse = m + log(l) (fp32, (B, Hq, S)); a row with no attendable
-  key gets o = 0 and lse = -1e30;
+- forward: the tensor-core loop of csrc/flash_common.cuh that the ViT and
+  prefill kernels run (wgmma, TMA; sm_90a; a block serves the G query heads
+  of one KV head, key tiles above the diagonal or whose segment ids share no
+  value with the query tile's are never loaded), built with its lse
+  epilogue: o (bf16) and lse = m + log(l) (fp32, (B, Hq, S)); a row with no
+  attendable key gets o = 0 and lse = -1e30;
 - dq: a tensor-core loop (wgmma, TMA; sm_90a): a block's warpgroup owns 16
   query positions of each of the G heads of a KV head, K/V tiles of 64 keys
   stream in by TMA, S = Q K^T and dP = dO V^T on the tensor cores, P =
@@ -24,13 +25,13 @@ csrc/flash_attention_bwd.cu:
 dS = P * (dP - D) * scale with D = rowsum(dO * O), a plain torch reduction
 computed once per backward, as in the JAX rule. What bounds the kernels on
 the card: operations (2, 3 and 4 products of 2 * D flops per attended pair).
-The backward's products take bf16 operands: P and dS go in split into two
-bf16 parts each (hi = bf16(x), lo = bf16(x - hi)), as one bf16 rounding
+The products take bf16 operands: P (and, in the backward, dS) goes in
+split into two bf16 parts (hi = bf16(x), lo = bf16(x - hi)), as one bf16 rounding
 misses the fp32 check by 21-46x (kernels/tolerance.py), and the dk/dv loop
 moves dK and dV into fp32 sums in shared memory every 8 query tiles, since
-the tensor cores' accumulation drifts over long sums. Both loops skip tiles
-that hold no attended pair (above the diagonal, or tiles whose segment ids
-share no value).
+the tensor cores' accumulation drifts over long sums. All three loops skip
+tiles that hold no attended pair (above the diagonal, or tiles whose segment
+ids share no value).
 
 Masks: segment ids compare for equality only (the collator pads both q and kv
 with -1, so pad queries attend to pad keys, as in JAX; the loss ignores those

@@ -14,7 +14,11 @@ one kernel.
 
 What bounds them: the int8 weight bytes, about 2*M flops a byte at M <= 32
 rows (the decode batch). Per decode step of callireader-8b at batch 4 that
-is 32 x 218 MB of projections plus the 380 MB LM head.
+is 32 x 218 MB of projections plus the 380 MB LM head. The LM head's kernel
+reads its weight once for any M <= 32 (TMA into a ring of shared-memory
+stages, products on the tensor cores) and sums each row in a fixed order
+that depends on K alone, so a row's logits do not depend on the batch it
+was launched in.
 
 The ``*_reference`` functions are the plain PyTorch versions; the wrappers
 take them for CPU tensors only. On CUDA the wrappers take bf16 rows, M <= 32,

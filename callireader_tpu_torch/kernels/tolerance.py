@@ -16,26 +16,31 @@ which is ~0.03-0.05 for random inputs over thousands of keys. ``ATOL`` holds
 what is left, the summation-order error. ``chip_smoke.py`` measured it on an
 H100 80GB HBM3 (700 W) at the main path's shapes: at most 6.5e-7 (ViT tile
 tower), 1.03e-6 (char tower), 3.0e-6 (prefill), 1.3e-8 (decode), 3.0e-9
-(paged decode), 4.7e-8 (int8, K x N weights) and 1.2e-7 (int8 LM head); for
-the training attention at B=2 S=2048 and B=1 S=8192 (D=128, G=4, random
-inputs), 1.6e-7 (forward), and with the CUDA-core backward that the
-tensor-core one replaced, 9.3e-7 (dq) and 4.6e-6 (dk/dv: each sums G x S
-terms). ATOL sits 3x (prefill) to hundreds of times above that, and far
+(paged decode) and 4.7e-8 (int8, K x N weights). The int8 LM head on the
+tensor cores (64-deep groups, fixed chunked order) reads 1.5e-8 to 3.7e-7
+at the paths' M = 1-8 rows (K = 4096, N = 92,672; the CUDA-core kernel it
+replaced, 1.2e-7). ATOL sits 3x (prefill) to hundreds of times above that, and far
 below what a lost 64-key tile, page, 64-query tile or 128-deep K block
 costs (tests/test_torch_kernels.py, tests/test_torch_paged.py,
 tests/test_torch_int8.py, tests/test_torch_attention_bwd.py).
 
-The ViT and prefill kernels multiply P V on the tensor cores, whose
-operands are bf16. A softmax weight rounded to bf16 once misses this check
-by 30-180x; split into bf16(P) + bf16(P - bf16(P)) it passes
+The ViT, prefill and training forward kernels multiply P V on the tensor
+cores, whose operands are bf16. A softmax weight rounded to bf16 once misses
+this check by 30-180x; split into bf16(P) + bf16(P - bf16(P)) it passes
 (tests/test_torch_kernels.py::test_tensor_core_loop_needs_split_p holds a
 CPU emulation of the loop to both). On an H100 80GB HBM3 (700 W), at the
 main path's shapes and on the same random inputs, the kernels' excess
-(5.1e-7 ViT, 9.7e-7 char tower, 2.4e-6 prefill) is the emulation's own
-(5.4e-7, 8.5e-7, 2.4e-6), and the kernels built with exp2f in place of
-ex2.approx give the same bits (callireader_tpu_torch/tools/attention_arith.py):
-the excess is the split P's arithmetic at that size, not the exponential or
-the tensor cores' accumulation.
+(5.1e-7 ViT, 9.7e-7 char tower, 2.4e-6 prefill, 2.5e-6 training forward
+at B=2 S=2048) is the emulation's own (5.4e-7, 8.5e-7, 2.4e-6, 2.5e-6), and
+the kernels built with exp2f in place of ex2.approx give the same bits
+(callireader_tpu_torch/tools/attention_arith.py): the excess is the split
+P's arithmetic at that size, not the exponential or the tensor cores'
+accumulation. At the training ceiling, B=1 S=8192, whose O sums run over
+8,192 keys in the wgmma accumulator, the forward reads 3.2e-6 against the
+emulation's 1.3e-6, within ATOL without moving O into fp32 sums; its lse
+(fp32, held to 1e-4) stands 2.0e-5 off, the emulation's 1.9e-6 (not
+probed further; the exponential is not the cause, the exp2f build reads
+the same).
 
 The training backward (dq, dk/dv) runs its products on the tensor cores
 too, and there dS = P (dP - dsum) feeds dQ = dS K and dK = dS^T Q as well as

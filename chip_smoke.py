@@ -130,8 +130,10 @@ contiguous, CLI, beams, chat, stream); in a training micro-step under remat 4L+1
 and 2L+1 backward (no dw: the norm weights are frozen). Phases 3, 6, 12 and
 15 swap the RMSNorm kernels for their plain versions as well.
 Each ``kernels`` entry carries the device ms a call (torch.profiler) and its
-ratio to the bound; the forward attention rows are printed beside the device
-ms of the CUDA-core loop that the tensor-core loop replaced.
+ratio to the bound. The build log names each kernel beside its registers and
+spills (``-Xptxas -v``); phase 8 and 13 hold each row of the LM head's
+launch to the same row launched alone, bit for bit, and the log compares the
+LM head's device ms across the paths' row counts.
 Prints the ``kernels`` JSON line, then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
 port's sources next to it.
@@ -1203,7 +1205,7 @@ def main() -> int:
     log(f"built {len(logs)} kernel libraries in {time.time() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1270,7 +1272,7 @@ def main() -> int:
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                     "device_ms": dev_ms, "bound_ratio": ratio,
                 })
-                if name.startswith("attn_train"):
+                if name.startswith("attn_train") or name == "int8_matmul_nt":
                     log(f"{row}: device {dev_ms} ms against its bound {b_ms:.4f} ms ({b_by}), "
                         f"{ratio:.2f}x")
         print(smi, flush=True)
@@ -1692,6 +1694,12 @@ def main() -> int:
             int8_row("int8_matmul_nt", f"{path} lm_head", lambda x: k_i8.int8_matmul_nt(x, q, s),
                      lambda x: k_i8.int8_matmul_nt(x, q, s),
                      lambda xf: k_i8.int8_matmul_nt_reference(xf, q, s), wd, True, M, K, N, n_launch)
+            x = rnd((M, K))  # a row's logits do not depend on the rows launched with it
+            together = k_i8.int8_matmul_nt(x, q, s)
+            if not all(torch.equal(together[m:m + 1], k_i8.int8_matmul_nt(x[m:m + 1].contiguous(), q, s))
+                       for m in range(M)):
+                fail(f"[{path}] an LM-head row launched with {M} rows differs from it launched alone")
+            log(f"[{path}] LM head: each of {M} rows equals its launch alone bit for bit")
         del wd
         torch.cuda.empty_cache()
         return counts

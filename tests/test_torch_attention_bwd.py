@@ -9,19 +9,21 @@ order only). The plain backward against torch autograd through the port's
 (kernels/tolerance.py) against what dropping one 64-key or 64-query tile
 costs. A plain-torch emulation of the tensor-core backward's arithmetic
 against the fp32 plain version: within ATOL with P and dS split into two
-bf16 parts, more than 10x over it with each rounded once.
+bf16 parts, more than 10x over it with each rounded once. The same for the
+tensor-core forward (tools/attention_arith.py::tensor_core_loop with its lse
+and its tile skip): the skip is exact (the bits of the loop that runs every
+tile), the loop stands within ATOL of the plain forward, and a skip rule that
+drops an attended tile fails the check.
 
 Card (marked ``cuda``): each kernel against its plain version on the same
 bf16 inputs (lengths around the 64-row tiles, right padding, packed
 segments), elementwise within the output's bf16 rounding plus the kernel's
-ATOL; lse (fp32 output) within 1e-4; rows that attend to nothing; equal bits
-run to run; HGMMA in the backward kernels' SASS; launch counts of the LLM
-forward and backward with and without remat.
+ATOL; lse (fp32 output) within 1e-4; rows that attend to nothing; rows of
+many short segments (tiles skipped); equal bits run to run; HGMMA and UTMALDG
+in the three kernels' SASS; launch counts of the LLM forward and backward with
+and without remat.
 """
 
-import os
-import shutil
-import subprocess
 import types
 
 import numpy as np
@@ -32,6 +34,7 @@ from callireader_tpu_torch.kernels import _build
 from callireader_tpu_torch.kernels import attention as tattn
 from callireader_tpu_torch.kernels import attention_bwd as tbwd
 from callireader_tpu_torch.kernels import tolerance
+from callireader_tpu_torch.tools.attention_arith import disjoint_ids, tensor_core_loop
 
 OUT_TOL, GRAD_TOL = 2e-5, 5e-4
 
@@ -256,6 +259,69 @@ def test_tensor_core_backward_needs_split_p_and_ds(backward_loop_case, split, i,
         assert excess > 10 * tolerance.ATOL[name]
 
 
+# ------------------------------- the tensor-core training forward (CPU check)
+
+
+def _forward_loop_case(kind):
+    """G = 4, D = 128, S = 320, causal: bf16 inputs, segment ids (``packed``:
+    three segments a row and a -1 tail; ``right_pad``: -1 padding), the mask,
+    and the fp32 plain forward (o, lse)."""
+    rng = np.random.default_rng(43)
+    B, G, S, D = 2, 4, 320, 128
+
+    def bf16(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16().float()
+
+    q, k, v = bf16((B, G, S, D)), bf16((B, 1, S, D)), bf16((B, 1, S, D))
+    seg = torch.from_numpy(_packed_segments(B, S) if kind == "packed"
+                           else _right_pad_segments(B, S, (0, 150)))
+    mask = (seg[:, :, None] == seg[:, None, :]) & torch.ones((S, S), dtype=torch.bool).tril()
+    want = tbwd.attention_fwd_lse_reference(q, k, v, seg, seg, True, D ** -0.5)
+    return q, k.expand(B, G, S, D), v.expand(B, G, S, D), seg, mask[:, None], want
+
+
+@pytest.mark.parametrize("kind", ["packed", "right_pad"])
+def test_training_forward_loop_skip_is_exact(kind):
+    """The forward loop that skips key tiles whose id range is disjoint from
+    the query tile's (the producer's rule) gives the bits of the loop that
+    runs every tile, output and lse; and it skips some."""
+    q, k, v, seg, mask, _ = _forward_loop_case(kind)
+    scale = q.shape[-1] ** -0.5
+    every = tensor_core_loop(q, k, v, scale, mask, True, with_lse=True)
+    skipping = tensor_core_loop(q, k, v, scale, mask, True, ids=(seg, seg), with_lse=True)
+    assert torch.equal(every[0], skipping[0]) and torch.equal(every[1], skipping[1])
+    q_ids = seg.reshape(seg.shape[0], -1, 16)[:, :, None]  # (B, query tile, 1, 16)
+    k_ids = seg.reshape(seg.shape[0], -1, 64)[:, None]  # (B, 1, key tile, 64)
+    causal = torch.arange(0, seg.shape[1], 16)[:, None] + 16 > torch.arange(0, seg.shape[1], 64)
+    skipped = disjoint_ids(q_ids.amin(-1), q_ids.amax(-1), k_ids.amin(-1), k_ids.amax(-1))
+    assert (skipped & causal).any()
+
+
+@pytest.mark.parametrize("kind", ["packed", "right_pad"])
+def test_training_forward_loop_matches_plain(kind):
+    """The tensor-core forward's arithmetic (split P, 64-key tiles, the tile
+    skip) stands within the card's ATOL of the fp32 plain forward, and its
+    lse within 1e-4; a row that attends to nothing gets lse -1e30."""
+    q, k, v, seg, mask, (want_o, want_lse) = _forward_loop_case(kind)
+    o, lse = tensor_core_loop(q, k, v, q.shape[-1] ** -0.5, mask, True, ids=(seg, seg),
+                              with_lse=True)
+    assert tolerance.excess_error(o, want_o) <= tolerance.ATOL["attn_train_fwd"]
+    assert tolerance.max_abs_error(lse, want_lse) <= 1e-4
+
+
+def test_training_forward_loop_fails_a_wrong_skip():
+    """A skip rule that also drops tiles whose id range only touches the
+    query tile's (a key tile ending in the queries' first id) drops attended
+    pairs: the check catches it."""
+    q, k, v, seg, mask, (want_o, _) = _forward_loop_case("packed")
+
+    def touching(qmin, qmax, kmin, kmax):
+        return (kmax <= qmin) | (kmin > qmax)
+
+    o = tensor_core_loop(q, k, v, q.shape[-1] ** -0.5, mask, True, ids=(seg, seg), skip=touching)
+    assert tolerance.excess_error(o, want_o) > 10 * tolerance.ATOL["attn_train_fwd"]
+
+
 # ------------------------------------------------------------ CUDA kernels
 
 
@@ -351,22 +417,42 @@ def test_cuda_backward_is_the_same_every_run(cuda):
 
 @pytest.mark.cuda
 def test_cuda_backward_kernels_run_on_tensor_cores(cuda):
-    """The built library's SASS for dq_kernel and dkdv_kernel holds HGMMA
-    (wgmma) instructions."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        pytest.skip("cuobjdump is not installed")
-    _build.load_library(tbwd.SOURCE)
-    sass = subprocess.run([tool, "-sass", str(_build.BUILD_DIR / f"{tbwd.SOURCE}.so")],
-                          capture_output=True, text=True, check=True).stdout
-    functions = {}
-    for chunk in sass.split("Function : ")[1:]:
-        name, _, body = chunk.partition("\n")
-        functions[name.strip()] = body
-    for kernel in ("dq_kernel", "dkdv_kernel"):
+    """The built library's SASS for the forward (the shared loop's LSE build,
+    flash_fwd_kernel), dq_kernel and dkdv_kernel holds HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions."""
+    functions = _build.sass_functions(tbwd.SOURCE)
+    for kernel in ("flash_fwd_kernel", "dq_kernel", "dkdv_kernel"):
         bodies = [body for name, body in functions.items() if kernel in name]
         assert bodies, f"{kernel} is not in the library"
-        assert all("HGMMA" in body for body in bodies), f"{kernel} has no HGMMA"
+        for op in ("HGMMA", "UTMALDG"):
+            assert all(op in body for body in bodies), f"{kernel} has no {op}"
+
+
+@pytest.mark.cuda
+def test_cuda_forward_skips_disjoint_tiles_exactly(cuda):
+    """Rows packed with many short segments (20-150 tokens) and a -1 tail:
+    most causal key tiles share no id with the query tile and the producer
+    skips them. The kernel stands within ATOL of the plain version, lse
+    within 1e-4, and two runs give the same bits."""
+    rng = np.random.default_rng(9)
+    B, Hkv, G, S, D = 2, 2, 4, 1024, 128
+    q = _bf16(rng, (B, Hkv * G, S, D), cuda)
+    k, v = _bf16(rng, (B, Hkv, S, D), cuda), _bf16(rng, (B, Hkv, S, D), cuda)
+    seg = np.full((B, S), -1, np.int32)
+    for b in range(B):
+        pos, sid = 0, 0
+        while pos < S - 100:
+            n = int(rng.integers(20, 151))
+            seg[b, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    seg = torch.from_numpy(seg).to(cuda)
+    o, lse = tbwd._launch_fwd(q, k, v, seg, seg, True, D ** -0.5)
+    o2, lse2 = tbwd._launch_fwd(q, k, v, seg, seg, True, D ** -0.5)
+    torch.cuda.synchronize()
+    po, plse = tbwd.attention_fwd_lse_reference(q, k, v, seg, seg, True)
+    assert tolerance.excess_error(o, po) <= tolerance.ATOL["attn_train_fwd"]
+    assert tolerance.max_abs_error(lse, plse) <= 1e-4
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda

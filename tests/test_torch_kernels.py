@@ -9,6 +9,9 @@ Inputs come from numpy seeds and go to both frameworks as float32. Tolerances:
   bf16 inputs: elementwise within the output's own bf16 rounding plus the
   kernel's ATOL for fp32 summation order (kernels/tolerance.py, the same
   check chip_smoke.py applies).
+A plain-torch emulation of the int8 LM head's fixed chunked summation order
+stands within its ATOL on the CPU and gives a row the same bits whatever M
+is; on the card the kernel itself does, and its SASS holds HMMA and UTMALDG.
 """
 
 import types
@@ -225,6 +228,58 @@ def test_tensor_core_loop_needs_split_p(case, split):
         assert tolerance.excess_error(out_split, want) <= tolerance.ATOL[name]
     else:
         assert tolerance.excess_error(out_single, want) > 10 * tolerance.ATOL[name]
+
+
+# ---------------------------- the int8 LM head's summation order (CPU check)
+
+
+def nt_chunked(h, q, scale):
+    """Plain-torch emulation of csrc/int8_matmul.cu's nt kernel order: K in
+    stages of 256 (zero-padded), each stage four groups of 64 whose sums
+    (exact, in fp64: bf16 x int8 products have 15 significant bits) are
+    rounded to fp32 and added in order into the stage's fp32 sum, the stages
+    added in order into the row's fp32 total, then the fp32 scale and one
+    rounding to bf16. h (M, K) bf16, q (N, K) int8, scale (N,) fp32."""
+    K = h.shape[1]
+    pad = -K % 256
+    hd = torch.nn.functional.pad(h.double(), (0, pad))
+    qd = torch.nn.functional.pad(q.double(), (0, pad))
+    total = torch.zeros((h.shape[0], q.shape[0]), dtype=torch.float32)
+    for k0 in range(0, K + pad, 256):
+        part = torch.zeros_like(total)
+        for g0 in range(k0, k0 + 256, 64):
+            part = part + (hd[:, g0:g0 + 64] @ qd[:, g0:g0 + 64].T).float()
+        total = total + part
+    return (total * scale.float()).to(h.dtype)
+
+
+def _nt_case(M, K, N=256, seed=0):
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).bfloat16()
+    q = torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8))
+    s = torch.from_numpy((rng.random(N) * 1e-3 + 1e-4).astype(np.float32))
+    return h, q, s
+
+
+@pytest.mark.parametrize("M", [1, 5, 8, 32])
+@pytest.mark.parametrize("K", [128, 4096])
+def test_nt_chunked_order_matches_plain(M, K):
+    """The LM head's fixed chunked fp32 order stands within the card's ATOL
+    of the fp32 plain version."""
+    h, q, s = _nt_case(M, K, seed=M + K)
+    with exact_fp32():
+        want = ti8.int8_matmul_nt_reference(h.float(), q, s)
+    assert tolerance.excess_error(nt_chunked(h, q, s), want) <= tolerance.ATOL["int8_matmul_nt"]
+
+
+@pytest.mark.parametrize("M", [8, 32])
+def test_nt_chunked_order_row_bits_do_not_depend_on_m(M):
+    """Under that order a row's output is the same bits whether it is
+    computed alone or among M rows."""
+    h, q, s = _nt_case(M, 4096, seed=M)
+    together = nt_chunked(h, q, s)
+    for m in range(M):
+        assert torch.equal(together[m:m + 1], nt_chunked(h[m:m + 1], q, s)), m
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -545,18 +600,58 @@ def test_cuda_int8_matmul_matches_plain(cuda, M, K, N):
     assert tolerance.excess_error(got, want) <= tolerance.ATOL["int8_matmul"]
 
 
+_NT_WEIGHTS = {}
+
+
+def _nt_weight(K, N, device):
+    """One seeded (N, K) weight and its scales per shape, kept for the
+    module (the LM head's is 380 MB)."""
+    if (K, N) not in _NT_WEIGHTS:
+        _NT_WEIGHTS.clear()
+        rng = np.random.default_rng(K + N)
+        _NT_WEIGHTS[K, N] = (_int8(rng, (N, K), device), _scales(rng, N, device))
+    return _NT_WEIGHTS[K, N]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4, 32])
-@pytest.mark.parametrize("K,N", [(4096, 92672), (128, 256)])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 9, 17, 32])
+@pytest.mark.parametrize("K", [128, 4096])
+@pytest.mark.parametrize("N", [128, 92672])
 def test_cuda_int8_matmul_nt_matches_plain(cuda, M, K, N):
     rng = np.random.default_rng(M + N)
-    h, q, s = _bf16(rng, (M, K), cuda), _int8(rng, (N, K), cuda), _scales(rng, N, cuda)
+    q, s = _nt_weight(K, N, cuda)
+    h = _bf16(rng, (M, K), cuda)
     got = ti8.int8_matmul_nt(h, q, s)
     torch.cuda.synchronize()
     with exact_fp32():
         want = ti8.int8_matmul_nt_reference(h.float(), q, s)
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     assert tolerance.excess_error(got, want) <= tolerance.ATOL["int8_matmul_nt"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 32])
+def test_cuda_int8_matmul_nt_rows_do_not_depend_on_m(cuda, M):
+    """Each row of an M-row launch equals, bit for bit, the same row launched
+    alone: a request's logits do not depend on its batch."""
+    rng = np.random.default_rng(M)
+    q, s = _nt_weight(4096, 92672, cuda)
+    h = _bf16(rng, (M, 4096), cuda)
+    together = ti8.int8_matmul_nt(h, q, s)
+    for m in range(M):
+        assert torch.equal(together[m:m + 1], ti8.int8_matmul_nt(h[m:m + 1].contiguous(), q, s)), m
+
+
+@pytest.mark.cuda
+def test_cuda_int8_matmul_nt_runs_on_tensor_cores(cuda):
+    """The built library's SASS for every instantiation of the LM-head
+    kernel holds tensor-core products (HMMA) and TMA loads (UTMALDG)."""
+    from callireader_tpu_torch.kernels import _build
+
+    bodies = [body for name, body in _build.sass_functions("int8_matmul").items()
+              if "nt_kernel" in name]
+    assert len(bodies) == 4, "one instantiation for each of 1-4 products of 8 rows"
+    assert all("HMMA" in body and "UTMALDG" in body for body in bodies)
 
 
 @pytest.mark.cuda
