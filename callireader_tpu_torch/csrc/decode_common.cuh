@@ -1,15 +1,16 @@
-// Split-K single-token GQA decode attention: the two passes shared by the
-// contiguous-cache kernel (flash_decode.cu) and the paged one (paged_decode.cu).
+// Split-K single-token GQA decode attention: pass 1 of the contiguous-cache
+// kernel (flash_decode.cu), and pass 2, which the paged kernel
+// (paged_decode.cu) shares.
 //
 // Pass 1, `decode_partial_block`: one block of CK threads owns one chunk of at
 // most CK keys of one KV head of one row, one thread per key. It reads the
 // chunk's K and V once for all G query heads of the group and leaves an fp32
 // partial (max, sum, weighted V) per query head at chunk index `c` of `NC`.
 // Keys masked out by `valid` are read for neither K nor V. A chunk with no
-// valid key leaves (max = -inf, sum = 0); with SKIP_DEAD it returns before it
-// touches K, V or its weighted-V partial, which pass 2 then never reads.
-// Pass 2, `decode_combine`: merges a row's NC partials in chunk order; a row
-// with no valid key at all comes out as zeros.
+// valid key leaves (max = -inf, sum = 0).
+// Pass 2, `decode_combine`: merges a row's NC partials in chunk order; a
+// partial whose max is -inf is never read for its weighted V, and a row with
+// no valid key at all comes out as zeros.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,7 +35,7 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
 // q: (rows, D) bf16 with the group's G query heads at rows qrow0 .. qrow0+G-1.
 // kc / vc: the chunk's first key row, (nk, D) bf16, contiguous.
 // valid_c: the chunk's nk validity flags.
-template <int D, int G, bool SKIP_DEAD>
+template <int D, int G>
 __device__ __forceinline__ void decode_partial_block(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const int* __restrict__ valid_c, int nk,
@@ -47,16 +48,6 @@ __device__ __forceinline__ void decode_partial_block(
   __shared__ float red[G][2];
 
   const bool ok = tid < nk && valid_c[tid] != 0;
-  if (SKIP_DEAD) {
-    if (!__syncthreads_or(ok)) {
-      if (tid < G) {
-        const long long idx = (qrow0 + tid) * NC + c;
-        part_ml[idx * 2] = -INFINITY;
-        part_ml[idx * 2 + 1] = 0.f;
-      }
-      return;
-    }
-  }
 
   for (int i = tid; i < G * D; i += CK) {
     const int g = i / D, d = i % D;

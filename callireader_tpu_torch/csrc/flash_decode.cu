@@ -28,9 +28,9 @@ __global__ void __launch_bounds__(CK) decode_partial(
   const int c = blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;
   const long long qrow0 = (long long)b * Hkv * G + (long long)hkv * G;
   const long long first = (((long long)layer * B + b) * Hkv + hkv) * (long long)S + c * CK;
-  decode::decode_partial_block<D, G, false>(q, ck + first * D, cv + first * D,
-                                            valid + (long long)b * S + c * CK, min(CK, S - c * CK),
-                                            part_acc, part_ml, qrow0, c, NC, scale_log2);
+  decode::decode_partial_block<D, G>(q, ck + first * D, cv + first * D,
+                                     valid + (long long)b * S + c * CK, min(CK, S - c * CK),
+                                     part_acc, part_ml, qrow0, c, NC, scale_log2);
 }
 
 template <int D, int G>

@@ -1,9 +1,10 @@
-// Hopper machinery shared by the port's tensor-core kernels (the forward
-// attention loop of flash_common.cuh, the training backward of
-// flash_attention_bwd.cu, the int8 LM head of int8_matmul.cu), sm_90a:
-// mbarriers, TMA loads, wgmma with its shared-memory descriptors over
-// swizzled 64-row tiles, and the TMA map encoder, fetched from libcuda at run
-// time (no -lcuda).
+// Hopper machinery shared by the port's tensor-core and copy-engine kernels
+// (the forward attention loop of flash_common.cuh, the training backward of
+// flash_attention_bwd.cu, the int8 products of int8_matmul.cu, the paged
+// decode of paged_decode.cu), sm_90a: mbarriers, TMA and bulk loads, cluster
+// barriers and distributed shared memory, wgmma with its shared-memory
+// descriptors over swizzled 64-row tiles, and the TMA map encoder, fetched
+// from libcuda at run time (no -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; its encoder is a libcuda entry point fetched at run time
@@ -35,6 +36,14 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// a consumer done reading a stage through the generic proxy (ld, ldmatrix)
+// hands it back to the async proxy that refills it (TMA, bulk copies):
+// without this fence the refill may land before the reads, seen on the H100
+__device__ __forceinline__ void mbar_release_stage(uint32_t bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  mbar_arrive(bar);
 }
 
 // arrive, and expect `bytes` more from TMA before the phase completes
@@ -74,6 +83,44 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte aligned)
+// into shared memory by one bulk copy, reported to `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// every thread of every block of the cluster: writes to shared memory before
+// it are seen by reads of any block after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared-memory address `addr` of this block, in block `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // The ids of rows r .. r + 63 of one batch row's ids `seg` (n = rows left,

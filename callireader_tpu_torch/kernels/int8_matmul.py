@@ -14,11 +14,15 @@ one kernel.
 
 What bounds them: the int8 weight bytes, about 2*M flops a byte at M <= 32
 rows (the decode batch). Per decode step of callireader-8b at batch 4 that
-is 32 x 218 MB of projections plus the 380 MB LM head. The LM head's kernel
-reads its weight once for any M <= 32 (TMA into a ring of shared-memory
-stages, products on the tensor cores) and sums each row in a fixed order
-that depends on K alone, so a row's logits do not depend on the batch it
-was launched in.
+is 32 x 218 MB of projections plus the 380 MB LM head. Both kernels read
+their weight once for any M <= 32 (TMA into a ring of shared-memory stages,
+products on the tensor cores) and sum each output in a fixed order that
+depends on K alone, so a row does not depend on the batch it was launched
+in, and the fused wqkv / w13 products, split, equal the separate ones bit
+for bit. The (K, N) kernel splits K into ``kn_splits(K)`` ranges (a
+thread-block cluster per 128-column tile) and adds the splits' fp32 sums in
+rank order through distributed shared memory: one launch, no partial sums
+in device memory.
 
 The ``*_reference`` functions are the plain PyTorch versions; the wrappers
 take them for CPU tensors only. On CUDA the wrappers take bf16 rows, M <= 32,
@@ -33,11 +37,18 @@ import torch
 
 from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr
 
-KERNEL = CudaKernel("int8_matmul", "int8_matmul_kn_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
+KERNEL = CudaKernel("int8_matmul", "int8_matmul_kn_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
 KERNEL_NT = CudaKernel("int8_matmul", "int8_matmul_nt_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
 MAX_ROWS = 32
 BLOCK = 128  # K and N must be multiples of this
-CHUNK = 256  # K rows per block of the (K, N) kernel (csrc/int8_matmul.cu KC)
+GROUP = 64  # K rows of one zero-started tensor-core sum (csrc/int8_matmul.cu KN_GROUP)
+
+
+def kn_splits(K: int) -> int:
+    """K ranges of the (K, N) kernel (csrc/int8_matmul.cu kn_splits): one a
+    1024 rows up to K = 8192, one a 2048 rows past it, 1 to 8; range s holds
+    the 64-row groups [G s / S, G (s + 1) / S) of G = K / 64."""
+    return min(8, max(1, K // (2048 if K > 8192 else 1024)))
 
 
 def int8_matmul_reference(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -68,9 +79,8 @@ def _launch(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     M = h.shape[0]
     K, N = q.shape
     _check(h, q, scale, M, K, N)
-    part = torch.empty((-(-K // CHUNK), M, N), dtype=torch.float32, device=h.device)
     out = torch.empty((M, N), dtype=h.dtype, device=h.device)
-    KERNEL(ptr(h), ptr(q), ptr(scale), ptr(part), ptr(out), M, K, N)
+    KERNEL(ptr(h), ptr(q), ptr(scale), ptr(out), M, K, N)
     return out
 
 

@@ -4,14 +4,18 @@ Port of callireader_tpu/kernels/paged_decode.py ``paged_flash_decode``: q
 (B, Hq, 1, D) of every serving slot against its own pages of the global pool
 (L, NPAGES, Hkv, page, D) at one layer index, with the slot's page ids in
 ``page_table`` (B, P) and a per-token validity mask (B, P, page). On the H100
-it is the hand-written CUDA kernel csrc/paged_decode.cu: a page is the split-K
-chunk (blocks over (table entry, KV head, slot), then a combine pass, both
-shared with csrc/flash_decode.cu), the page id is one load from the table, and
-a block whose entry holds no valid key returns before it reads K or V.
+it is the hand-written CUDA kernel csrc/paged_decode.cu: a block owns a run
+of RUN table entries of one (slot, KV head); its producer warp lists the
+run's live chunks of up to 64 keys (page id in the pool, a valid key) and
+streams their K, V and flags by bulk copies into a ring of shared-memory
+stages, four consumer warps keep an online softmax over them for the G
+query heads at once, and a combine pass (shared with csrc/flash_decode.cu)
+merges a slot's runs in table order. A dead entry or chunk is never read
+for K or V.
 
 What bounds it: the bytes of the live keys and values (2 * live * Hkv * D * 2
-per call, about half a flop per byte); dead table entries cost one launch
-slot each and no memory traffic.
+per call, about 4 flops a byte); a dead run costs one short block and no
+K or V traffic.
 
 ``paged_flash_decode_reference`` is the plain PyTorch version (gather the
 slot's pages, masked fp32 softmax); the wrapper uses it for CPU tensors only.
@@ -32,8 +36,9 @@ KERNEL = CudaKernel(
     "paged_decode", "paged_decode_launch",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float],
 )
-MAX_PAGE = 128  # one thread per key of a page (csrc/decode_common.cuh CK)
+MAX_PAGE = 128  # two 64-key ring stages a page (csrc/paged_decode.cu PD_MAX_PAGE)
 PAGE_MULTIPLE = 16
+RUN = 4  # table entries a block, one partial each (csrc/paged_decode.cu PD_RUN)
 
 
 def paged_flash_decode_reference(
@@ -80,8 +85,11 @@ def _launch(q, kpool, vpool, layer_idx, page_table, valid, scale):
         raise ValueError("valid must be a CUDA (B, P, page) tensor")
     table = page_table.to(torch.int32).contiguous()
     valid = valid.to(torch.int32).contiguous()
-    part_acc = torch.empty((B, Hq, P, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B, Hq, P, 2), dtype=torch.float32, device=q.device)
+    if valid.data_ptr() % 16:  # the flags go by 16-byte bulk copies
+        valid = valid.clone()
+    runs = -(-P // RUN)
+    part_acc = torch.empty((B, Hq, runs, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, Hq, runs, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     KERNEL(
         ptr(q), ptr(kpool), ptr(vpool), ptr(table), ptr(valid), ptr(part_acc), ptr(part_ml),

@@ -15,11 +15,16 @@ outputs v itself, |v| up to ~4) does not set the bar for the typical output,
 which is ~0.03-0.05 for random inputs over thousands of keys. ``ATOL`` holds
 what is left, the summation-order error. ``chip_smoke.py`` measured it on an
 H100 80GB HBM3 (700 W) at the main path's shapes: at most 6.5e-7 (ViT tile
-tower), 1.03e-6 (char tower), 3.0e-6 (prefill), 1.3e-8 (decode), 3.0e-9
-(paged decode) and 4.7e-8 (int8, K x N weights). The int8 LM head on the
-tensor cores (64-deep groups, fixed chunked order) reads 1.5e-8 to 3.7e-7
-at the paths' M = 1-8 rows (K = 4096, N = 92,672; the CUDA-core kernel it
-replaced, 1.2e-7). ATOL sits 3x (prefill) to hundreds of times above that, and far
+tower), 1.03e-6 (char tower), 3.0e-6 (prefill), 1.3e-8 (decode). The int8
+LM head on the tensor cores (64-deep groups, fixed chunked order) reads
+1.5e-8 to 3.7e-7 at the paths' M = 1-8 rows (K = 4096, N = 92,672; the
+CUDA-core kernel it replaced, 1.2e-7). The (K, N) int8 kernel on the
+tensor cores (the same groups, K split over a cluster) reads at most
+2.6e-7 at the paths' M = 2-8 rows (the CUDA-core kernel it replaced,
+4.7e-8), and up to 1.1e-6 at M = 16, K = 14336
+(``tools/decode_stream_probe.py``); the paged decode, fed by runs of
+pages, at most 4.7e-9 (the kernel it replaced, 3.0e-9). ATOL sits 3x
+(prefill) to hundreds of times above that, and far
 below what a lost 64-key tile, page, 64-query tile or 128-deep K block
 costs (tests/test_torch_kernels.py, tests/test_torch_paged.py,
 tests/test_torch_int8.py, tests/test_torch_attention_bwd.py).

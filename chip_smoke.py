@@ -44,7 +44,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      the weights cold in L2 (the (K, N) kernel walks the layers), beside
      the yardstick (bf16 torch.matmul against a dequantized bf16 copy of the
      weight, which the port never calls); the fused wqkv / w13 products,
-     split, must equal the separate products bit for bit;
+     split, must equal the separate products bit for bit, and each row of
+     an LM-head or w13 launch the same row launched alone;
   9. serve, paged: on the same 8b int8 engine, 8 request rows built from
      synthetic pages the way cli/serve.py prepares a wave (batch_calli_align,
      host load_image, encode_image_tiles, _build_row_embeds) go through a
@@ -132,8 +133,9 @@ and 2L+1 backward (no dw: the norm weights are frozen). Phases 3, 6, 12 and
 Each ``kernels`` entry carries the device ms a call (torch.profiler) and its
 ratio to the bound. The build log names each kernel beside its registers and
 spills (``-Xptxas -v``); phase 8 and 13 hold each row of the LM head's
-launch to the same row launched alone, bit for bit, and the log compares the
-LM head's device ms across the paths' row counts.
+launch, and of the (K, N) kernel's at the w13 projection, to the same row
+launched alone, bit for bit, and the log compares the int8 kernels' and the
+paged kernel's device ms with their bounds across the paths' row counts.
 Prints the ``kernels`` JSON line, then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
 port's sources next to it.
@@ -1272,7 +1274,8 @@ def main() -> int:
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                     "device_ms": dev_ms, "bound_ratio": ratio,
                 })
-                if name.startswith("attn_train") or name == "int8_matmul_nt":
+                if name.startswith("attn_train") or name in ("int8_matmul", "int8_matmul_nt",
+                                                             "paged_flash_decode"):
                     log(f"{row}: device {dev_ms} ms against its bound {b_ms:.4f} ms ({b_by}), "
                         f"{ratio:.2f}x")
         print(smi, flush=True)
@@ -1655,6 +1658,7 @@ def main() -> int:
         kn_shapes = {}
         for shape in shapes.calls["int8_matmul"]:
             kn_shapes[shape] = kn_shapes.get(shape, 0) + 1
+        counts_shapes = dict(kn_shapes)
         nt_shapes = {}
         for shape in shapes.calls["int8_matmul_nt"]:
             nt_shapes[shape] = nt_shapes.get(shape, 0) + 1
@@ -1679,6 +1683,16 @@ def main() -> int:
                          lambda x, q=q, s=s: k_i8.int8_matmul(x, q[L - 1], s[L - 1]), time_k,
                          lambda xf, q=q, s=s: k_i8.int8_matmul_reference(xf, q[L - 1], s[L - 1]),
                          wd, False, M, K, N, counts[label, M])
+            if label == "w13":  # a row's outputs do not depend on the rows launched with it
+                for M in sorted(m for (m, _k, _n) in counts_shapes if (_k, _n) == (K, N)):
+                    x = rnd((M, K))
+                    together = k_i8.int8_matmul(x, q[L - 1], s[L - 1])
+                    if not all(torch.equal(together[m:m + 1],
+                                           k_i8.int8_matmul(x[m:m + 1].contiguous(), q[L - 1], s[L - 1]))
+                               for m in range(M)):
+                        fail(f"[{path}] a (K, N) {label} row launched with {M} rows differs from it "
+                             f"launched alone")
+                    log(f"[{path}] (K, N) {label}: each of {M} rows equals its launch alone bit for bit")
             del wd
             torch.cuda.empty_cache()
         if kn_shapes:

@@ -9,9 +9,14 @@ Inputs come from numpy seeds and go to both frameworks as float32. Tolerances:
   bf16 inputs: elementwise within the output's own bf16 rounding plus the
   kernel's ATOL for fp32 summation order (kernels/tolerance.py, the same
   check chip_smoke.py applies).
-A plain-torch emulation of the int8 LM head's fixed chunked summation order
-stands within its ATOL on the CPU and gives a row the same bits whatever M
-is; on the card the kernel itself does, and its SASS holds HMMA and UTMALDG.
+Plain-torch emulations of the int8 kernels' fixed chunked summation orders
+(the LM head's, and the (K, N) product's split of K into ranges summed in
+rank order) stand within their ATOL on the CPU and give a row the same bits
+whatever M is; on the card the kernels themselves do, and their SASS holds
+HMMA and UTMALDG. An emulation of the paged decode kernel's merge order
+(runs of table entries, four warps' online softmaxes a run) stands within
+its ATOL, and dead entries, wherever they point, change no bit of it; the
+kernel's SASS holds bulk copies (UBLKCP).
 """
 
 import types
@@ -282,6 +287,208 @@ def test_nt_chunked_order_row_bits_do_not_depend_on_m(M):
         assert torch.equal(together[m:m + 1], nt_chunked(h[m:m + 1], q, s)), m
 
 
+# ------------------- the (K, N) int8 product's summation order (CPU check)
+
+
+def kn_chunked(h, q, scale, drop=None):
+    """Plain-torch emulation of csrc/int8_matmul.cu's kn kernel order: K in
+    ``kn_splits(K)`` ranges of whole 64-row groups; each group's sum from
+    zero (exact, in fp64: bf16 x int8 products have 15 significant bits)
+    rounded to fp32; four consecutive groups from a range's first added in
+    order into a stage's fp32 sum, the stages in order into the range's fp32
+    total, the ranges in rank order; then the fp32 scale and one rounding to
+    bf16. h (M, K) bf16, q (K, N) int8, scale (N,) fp32. ``drop``: a group
+    left out (to show that the check sees it)."""
+    K, G = h.shape[1], h.shape[1] // ti8.GROUP
+    S = ti8.kn_splits(K)
+    hd = h.double()
+    out = None
+    for s in range(S):
+        g0, g1 = G * s // S, G * (s + 1) // S
+        total = torch.zeros((h.shape[0], q.shape[1]), dtype=torch.float32)
+        for st in range(g0, g1, 4):
+            part = torch.zeros_like(total)
+            for g in range(st, min(st + 4, g1)):
+                if g != drop:
+                    k = slice(g * ti8.GROUP, (g + 1) * ti8.GROUP)
+                    part = part + (hd[:, k] @ q[k].double()).float()
+            total = total + part
+        out = total if out is None else out + total
+    return (out * scale.float()).to(h.dtype)
+
+
+# the main path's (K, N) projections of callireader-8b; the CPU checks take
+# their first 256 columns (a column's order depends on K alone)
+KN_PROJECTIONS = {"wqkv": (4096, 6144), "wo": (4096, 4096), "w13": (4096, 28672),
+                  "w2": (14336, 4096)}
+
+
+def _kn_case(M, K, N=256, seed=0):
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).bfloat16()
+    q = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))
+    s = torch.from_numpy((rng.random(N) * 1e-3 + 1e-4).astype(np.float32))
+    return h, q, s
+
+
+@pytest.mark.parametrize("K,want", [(128, 1), (1024, 1), (2048, 2), (4096, 4), (8192, 8),
+                                    (14336, 7), (28672, 8)])
+def test_kn_splits_depend_on_k_and_hold_whole_groups(K, want):
+    S, G = ti8.kn_splits(K), K // ti8.GROUP
+    assert S == want
+    bounds = [G * s // S for s in range(S + 1)]
+    assert bounds[0] == 0 and bounds[-1] == G and all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("M", [1, 5, 8, 32])
+@pytest.mark.parametrize("proj", sorted(KN_PROJECTIONS))
+def test_kn_chunked_order_matches_plain(proj, M):
+    """The (K, N) kernel's fixed split order stands within the card's ATOL
+    of the fp32 plain version at each main-path K."""
+    K, _ = KN_PROJECTIONS[proj]
+    h, q, s = _kn_case(M, K, seed=M + K + len(proj))
+    with exact_fp32():
+        want = ti8.int8_matmul_reference(h.float(), q, s)
+    assert tolerance.excess_error(kn_chunked(h, q, s), want) <= tolerance.ATOL["int8_matmul"]
+
+
+@pytest.mark.parametrize("M", [8, 32])
+@pytest.mark.parametrize("K", [4096, 14336])
+def test_kn_chunked_order_row_bits_do_not_depend_on_m(M, K):
+    h, q, s = _kn_case(M, K, seed=M)
+    together = kn_chunked(h, q, s)
+    for m in range(M):
+        assert torch.equal(together[m:m + 1], kn_chunked(h[m:m + 1], q, s)), m
+
+
+@pytest.mark.parametrize("parts", [(128, 64, 64), (192, 192)], ids=["wqkv", "w13"])
+def test_kn_chunked_fused_columns_equal_separate_products(parts):
+    """Fused columns, split apart, equal the separate products bit for bit:
+    nothing in the order depends on N or on a column's place."""
+    h, q, s = _kn_case(4, 4096, N=sum(parts), seed=len(parts))
+    fused = kn_chunked(h, q, s)
+    for got, qp, sp in zip(fused.split(parts, 1), q.split(parts, 1), s.split(parts)):
+        assert torch.equal(got, kn_chunked(h, qp, sp))
+
+
+@pytest.mark.parametrize("K,drop", [(4096, 0), (4096, 37), (14336, 127), (14336, 223)])
+def test_kn_chunked_dropped_group_fails_the_check(K, drop):
+    h, q, s = _kn_case(8, K, seed=K)
+    with exact_fp32():
+        want = ti8.int8_matmul_reference(h.float(), q, s)
+    got = kn_chunked(h, q, s, drop=drop)
+    assert tolerance.excess_error(got, want) > 10 * tolerance.ATOL["int8_matmul"]
+
+
+# ------------------------- the paged decode kernel's merge order (CPU check)
+
+
+def paged_runs(q, kpool, vpool, layer, table, valid, drop=None):
+    """Plain-torch (fp32) emulation of csrc/paged_decode.cu's order: per
+    (slot, KV head) runs of RUN table entries; in a run, the live 64-key
+    chunks (entry in the pool, a valid key) in table order, each split over
+    four warps of 16 keys that keep their own online softmax (max, sum,
+    weighted V) across the run's chunks; the warps merged in order into the
+    run's partial, the runs merged in order (decode_combine); a slot with no
+    valid key gives zeros. ``drop``: a (slot, entry) left out."""
+    B, Hq, _, D = q.shape
+    _, NP, Hkv, page, _ = kpool.shape
+    P, G = table.shape[1], Hq // Hkv
+    scale_log2 = torch.tensor(D**-0.5 * 1.4426950408889634, dtype=torch.float32)
+    ninf = torch.full((G,), float("-inf"))
+
+    def merge(states):
+        mx = torch.stack([m for m, _, _ in states]).max(0).values
+        L, acc = torch.zeros(G), torch.zeros(G, D)
+        for m, l, a in states:
+            c = torch.where(m == float("-inf"), 0.0, torch.exp2(m - mx))
+            L = L + l * c
+            acc = acc + a * c[:, None]
+        return mx, L, acc
+
+    out = torch.zeros(B, Hq, 1, D)
+    for b in range(B):
+        for hkv in range(Hkv):
+            qs = q[b, hkv * G:(hkv + 1) * G, 0].float() * scale_log2
+            runs = []
+            for r0 in range(0, P, tpaged.RUN):
+                warps = [(ninf, torch.zeros(G), torch.zeros(G, D)) for _ in range(4)]
+                for j in range(r0, min(P, r0 + tpaged.RUN)):
+                    pid = int(table[b, j])
+                    if not 0 <= pid < NP or (b, j) == drop:
+                        continue
+                    for c0 in range(0, page, 64):
+                        n = min(64, page - c0)
+                        ok = valid[b, j, c0:c0 + n] != 0
+                        if not ok.any():
+                            continue
+                        k = kpool[layer, pid, hkv, c0:c0 + n].float()
+                        v = vpool[layer, pid, hkv, c0:c0 + n].float()
+                        for w in range(4):
+                            ks = slice(16 * w, min(16 * w + 16, n))
+                            if ks.start >= n:
+                                continue
+                            m, l, a = warps[w]
+                            sc = torch.where(ok[ks], qs @ k[ks].T, float("-inf"))
+                            mn = torch.maximum(m, sc.max(-1).values)
+                            alpha = torch.where(mn == float("-inf"), 1.0, torch.exp2(m - mn))
+                            p = torch.where(ok[ks], torch.exp2(sc - mn[:, None]), 0.0)
+                            warps[w] = (mn, l * alpha + p.sum(-1), a * alpha[:, None] + p @ v[ks])
+                runs.append(merge(warps))
+            mx, L, acc = merge(runs)
+            out[b, hkv * G:(hkv + 1) * G, 0] = torch.where(L[:, None] > 0, acc / L[:, None], 0.0)
+    return out.to(q.dtype)
+
+
+PAGED_CPU_CASES = {
+    # name: (page, P, spans); dead entries point outside the pool in the "wild" ones
+    "partial_dead_empty": (128, 8, [(17, 300), (0, 0), (0, 1), (127, 129)]),
+    "runs_end_mid_table_wild": (128, 7, [(0, 896), (130, 700), (0, 0)]),
+    "page_16_wild": (16, 9, [(3, 50), (0, 144), (15, 17)]),
+    "page_64": (64, 6, [(0, 384), (70, 200), (0, 0), (63, 65)]),
+}
+
+
+def _paged_cpu_case(case, L=2):
+    page, P, spans = PAGED_CPU_CASES[case]
+    q, kpool, vpool, table, valid = _paged_case(np.random.default_rng(len(case)), "cpu", page, P,
+                                                spans, L=L)
+    q, kpool, vpool = q[:, :8], kpool[:, :, :2], vpool[:, :, :2]  # Hkv = 2, G = 4
+    if case.endswith("wild"):
+        table = _out_of_pool(table, valid, kpool.shape[1])
+    return q.contiguous(), kpool.contiguous(), vpool.contiguous(), table, valid
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CPU_CASES))
+def test_paged_runs_order_matches_plain(case):
+    q, kpool, vpool, table, valid = _paged_cpu_case(case)
+    got = paged_runs(q, kpool, vpool, 1, table, valid)
+    want = tpaged.paged_flash_decode_reference(q.float(), kpool, vpool, 1, table, valid)
+    assert tolerance.excess_error(got, want) <= tolerance.ATOL["paged_flash_decode"]
+    for b, (lo, hi) in enumerate(PAGED_CPU_CASES[case][2]):
+        if hi == lo:
+            assert got[b].abs().max().item() == 0  # an empty slot gives zeros
+
+
+def test_paged_runs_dead_entries_change_no_bit():
+    q, kpool, vpool, table, valid = _paged_cpu_case("partial_dead_empty")
+    base = paged_runs(q, kpool, vpool, 0, table, valid)
+    assert torch.equal(paged_runs(q, kpool, vpool, 0, _out_of_pool(table, valid, 10**6), valid),
+                       base)
+    moved = table.clone()
+    moved[valid.sum(-1) == 0] = table[0, 0]  # every dead entry onto one live page
+    assert torch.equal(paged_runs(q, kpool, vpool, 0, moved, valid), base)
+
+
+@pytest.mark.parametrize("case,drop", [("partial_dead_empty", (0, 1)),
+                                       ("runs_end_mid_table_wild", (1, 5))])
+def test_paged_runs_dropped_live_page_fails_the_check(case, drop):
+    q, kpool, vpool, table, valid = _paged_cpu_case(case)
+    want = tpaged.paged_flash_decode_reference(q.float(), kpool, vpool, 1, table, valid)
+    got = paged_runs(q, kpool, vpool, 1, table, valid, drop=drop)
+    assert tolerance.excess_error(got, want) > 10 * tolerance.ATOL["paged_flash_decode"]
+
+
 # ------------------------------------------------------------ CUDA kernels
 
 
@@ -504,13 +711,24 @@ def _paged_case(rng, device, page, P, spans, L=3):
     return q, kpool, vpool, torch.from_numpy(table).to(device), torch.from_numpy(valid).to(device)
 
 
+def _out_of_pool(table, valid, NP):
+    """``table`` with every entry that holds no valid key pointing outside a
+    pool of NP pages: past its end, or below 0."""
+    far = torch.full_like(table, NP + 7)
+    far[:, 1::2] = -1
+    return torch.where(valid.sum(-1) == 0, far, table)
+
+
 PAGED_CASES = {
-    # name: (page, P, spans)
+    # name: (page, P, spans); the dead entries of a "wild" case point outside the pool
     "path_shape": (128, 32, [(0, 3585), (100, 3700), (0, 3840), (3583, 3584), (5, 129), (0, 128),
                              (0, 4096), (2000, 2300)]),
     "partial_dead_empty": (128, 8, [(17, 300), (0, 0), (0, 1), (127, 129)]),
     "page_64": (64, 6, [(0, 384), (70, 200), (0, 0), (63, 65)]),
     "page_16": (16, 5, [(3, 50), (0, 80), (15, 17)]),
+    "runs_end_mid_table_wild": (128, 7, [(0, 896), (130, 700), (0, 0), (5, 6)]),
+    "page_16_wild": (16, 9, [(3, 50), (0, 144), (15, 17), (0, 0)]),
+    "path_shape_wild": (128, 30, [(0, 3585), (100, 3700), (0, 0), (3583, 3584), (1, 2)]),
 }
 
 
@@ -520,6 +738,8 @@ def test_cuda_paged_decode_matches_plain(cuda, case):
     page, P, spans = PAGED_CASES[case]
     rng = np.random.default_rng(len(case))
     q, kpool, vpool, table, valid = _paged_case(rng, cuda, page, P, spans)
+    if case.endswith("wild"):
+        table = _out_of_pool(table, valid, kpool.shape[1])
     before = tpaged.KERNEL.launches
     for layer in (0, 2):
         got = tpaged.paged_flash_decode(q, kpool, vpool, layer, table, valid)
@@ -586,12 +806,26 @@ def _scales(rng, n, device):
     return torch.from_numpy((rng.random(n) * 1e-3 + 1e-4).astype(np.float32)).to(device)
 
 
+_KN_WEIGHTS = {}
+
+
+def _kn_weight(K, N, device):
+    """One seeded (K, N) weight and its scales per shape, kept for the module
+    (the largest, 14336 x 28672, is 411 MB)."""
+    if (K, N) not in _KN_WEIGHTS:
+        rng = np.random.default_rng(K + N)
+        _KN_WEIGHTS[K, N] = (_int8(rng, (K, N), device), _scales(rng, N, device))
+    return _KN_WEIGHTS[K, N]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4, 32])
-@pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096), (256, 128)])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 17, 32])
+@pytest.mark.parametrize("K,N", [(K, N) for K in (4096, 14336) for N in (1024, 4096, 28672)]
+                         + [(4096, 6144), (256, 128), (1024, 768)])
 def test_cuda_int8_matmul_matches_plain(cuda, M, K, N):
     rng = np.random.default_rng(M + K)
-    h, q, s = _bf16(rng, (M, K), cuda), _int8(rng, (K, N), cuda), _scales(rng, N, cuda)
+    q, s = _kn_weight(K, N, cuda)
+    h = _bf16(rng, (M, K), cuda)
     got = ti8.int8_matmul(h, q, s)
     torch.cuda.synchronize()
     with exact_fp32():
@@ -640,6 +874,41 @@ def test_cuda_int8_matmul_nt_rows_do_not_depend_on_m(cuda, M):
     together = ti8.int8_matmul_nt(h, q, s)
     for m in range(M):
         assert torch.equal(together[m:m + 1], ti8.int8_matmul_nt(h[m:m + 1].contiguous(), q, s)), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 32])
+@pytest.mark.parametrize("K,N", [(4096, 28672), (14336, 4096)], ids=["w13", "w2"])
+def test_cuda_int8_matmul_rows_do_not_depend_on_m(cuda, M, K, N):
+    """Each row of an M-row (K, N) launch equals, bit for bit, the same row
+    launched alone."""
+    rng = np.random.default_rng(M + K)
+    q, s = _kn_weight(K, N, cuda)
+    h = _bf16(rng, (M, K), cuda)
+    together = ti8.int8_matmul(h, q, s)
+    for m in range(M):
+        assert torch.equal(together[m:m + 1], ti8.int8_matmul(h[m:m + 1].contiguous(), q, s)), m
+
+
+@pytest.mark.cuda
+def test_cuda_kn_and_paged_kernels_use_tensor_cores_and_copy_engines(cuda):
+    """The (K, N) kernel's SASS, for each of its three row counts, holds
+    tensor-core products (HMMA) and TMA loads (UTMALDG); the paged kernel's
+    holds bulk copies (UBLKCP). The wrappers' split rule and run length,
+    which the CPU emulations follow, are the kernels'."""
+    from callireader_tpu_torch.kernels import _build
+
+    kn = [body for name, body in _build.sass_functions("int8_matmul").items()
+          if "kn_kernel" in name]
+    assert len(kn) == 3, "one instantiation for each of 8, 16 and 32 rows of h"
+    assert all("HMMA" in body and "UTMALDG" in body for body in kn)
+    paged = [body for name, body in _build.sass_functions("paged_decode").items()
+             if "paged_kernel" in name]
+    assert len(paged) == 1 and "UBLKCP" in paged[0]
+    assert _build.load_library("paged_decode").paged_decode_run() == tpaged.RUN
+    splits = _build.load_library("int8_matmul").int8_matmul_kn_splits
+    for K in (128, 1024, 2048, 4096, 8192, 8320, 14336, 28672):
+        assert splits(K) == ti8.kn_splits(K), K
 
 
 @pytest.mark.cuda
