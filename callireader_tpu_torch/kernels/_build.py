@@ -8,7 +8,10 @@ tests import every module of the port.
 
 A ``CudaKernel`` owns one C entry point. Calling it launches on the current
 CUDA stream, raises if the C function returns a non-zero
-``cudaGetLastError()``, and adds one to ``launches``.
+``cudaGetLastError()``, and adds one to ``launches``. A decode step launches
+a few hundred small kernels from the host, so the call takes the stream's
+raw handle straight from PyTorch's C layer instead of building a
+``torch.cuda.Stream`` object each time.
 """
 
 from __future__ import annotations
@@ -175,8 +178,8 @@ class CudaKernel:
         return self._fn
 
     def __call__(self, *args) -> None:
-        fn = self._bind()
-        stream = torch.cuda.current_stream().cuda_stream
+        fn = self._fn or self._bind()
+        stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
         rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} failed: cudaError {rc}")

@@ -9,7 +9,8 @@ For x (..., E) and w (E,), with r = 1 / sqrt(mean(x^2) + eps) per row in fp32:
               dw = sum_rows dy * x * r
 
 On the H100 these are the hand-written CUDA kernels of csrc/rmsnorm.cu: the
-forward a block per row (sum of squares, then y), the backward a block per
+forward a block per row (the row read once into registers: sum of squares,
+then y), the backward a block per
 group of rows with dw as per-block fp32 partials that ``torch.sum`` adds (no
 atomics: the same bits on every run, as the JAX rule sums in XLA). What
 bounds them: bytes (x read, y written; x, dy read, dx written).
@@ -114,71 +115,86 @@ def rms_norm_bwd_reference(
 # ---------------------------------------------------------------- kernels
 
 
-def _check(x2: torch.Tensor, w: torch.Tensor) -> int:
-    if x2.dtype not in DTYPES:
-        raise ValueError(f"the RMSNorm kernels take bf16 or fp32 rows, got {x2.dtype}")
-    check_cuda(x2, "x", x2.dtype)
-    check_cuda(w, "w", x2.dtype)
-    E = x2.shape[1]
+def _row_args(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """What the kernels need to read rows of ``x`` (..., E) with weight ``w``
+    safely -> (x's address, w's address, rows, E, dtype code); raises
+    ValueError on a dtype, width, layout or alignment they do not take."""
+    code = DTYPES.get(x.dtype)
+    if code is None:
+        raise ValueError(f"the RMSNorm kernels take bf16 or fp32 rows, got {x.dtype}")
+    E = x.shape[-1]
     if E % WIDTH_MULTIPLE or not 0 < E <= MAX_WIDTH or w.shape != (E,):
         raise ValueError(f"unsupported RMSNorm width {E} (w {tuple(w.shape)}); the kernels "
                          f"take multiples of {WIDTH_MULTIPLE} up to {MAX_WIDTH}")
-    return E
+    if w.dtype != x.dtype:
+        raise ValueError(f"w must be {x.dtype}, got {w.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("x and w must be contiguous")
+    px, pw = x.data_ptr(), w.data_ptr()
+    if px % 16 or pw % 16:
+        raise ValueError("x and w must be 16-byte aligned")
+    return px, pw, x.numel() // E, E, code
 
 
-def _launch_fwd(x2: torch.Tensor, w: torch.Tensor, eps: float, mode: str, want_r: bool):
-    """x2 (rows, E) -> (y (rows, E), r fp32 (rows,) or None)."""
-    E = _check(x2, w)
-    rows = x2.shape[0]
-    y = torch.empty_like(x2)
-    r = torch.empty((rows,), dtype=torch.float32, device=x2.device) if want_r else None
-    KERNELS_FWD[mode](ptr(x2), ptr(w), ptr(y), None if r is None else ptr(r), rows, E,
-                      float(eps), DTYPES[x2.dtype])
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor, eps: float, mode: str, want_r: bool):
+    """x (..., E) -> (y of x's shape, r fp32 (rows,) or None)."""
+    if not (x.is_cuda and w.is_cuda):
+        raise ValueError("the RMSNorm kernels take CUDA tensors")
+    px, pw, rows, E, code = _row_args(x, w)
+    y = torch.empty_like(x)
+    r = torch.empty((rows,), dtype=torch.float32, device=x.device) if want_r else None
+    KERNELS_FWD[mode](px, pw, y.data_ptr(), None if r is None else r.data_ptr(), rows, E,
+                      eps, code)
     return y, r
 
 
 def _launch_bwd(x2: torch.Tensor, w: torch.Tensor, r: torch.Tensor, dy2: torch.Tensor, mode: str,
                 want_dw: bool):
     """-> (dx (rows, E), dw partials fp32 (blocks, E) or None)."""
-    E = _check(x2, w)
+    if not (x2.is_cuda and w.is_cuda):
+        raise ValueError("the RMSNorm kernels take CUDA tensors")
+    px, pw, rows, E, code = _row_args(x2, w)
     check_cuda(dy2, "dy", x2.dtype)
     check_cuda(r, "r", torch.float32)
-    rows = x2.shape[0]
     if dy2.shape != x2.shape or r.shape != (rows,):
         raise ValueError("dy must have x's shape and r one value a row")
     rpb = BWD_ROWS_PER_BLOCK if want_dw else 1
     dx = torch.empty_like(x2)
     part = (torch.empty((-(-rows // rpb), E), dtype=torch.float32, device=x2.device)
             if want_dw else None)
-    KERNELS_BWD[mode](ptr(x2), ptr(w), ptr(r), ptr(dy2), ptr(dx),
-                      None if part is None else ptr(part), rows, E, rpb, DTYPES[x2.dtype])
+    KERNELS_BWD[mode](px, pw, ptr(r), ptr(dy2), ptr(dx),
+                      None if part is None else ptr(part), rows, E, rpb, code)
     return dx, part
 
 
 def _weight_for(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
-    """The kernels read w in x's dtype: the model mode casts it (the plain
-    version's first step); the fused mode casts it to fp32 directly, which the
-    kernel can only match when it already is x's dtype."""
-    if mode == "model":
-        return w.to(x.dtype).contiguous()
+    """The kernels read w in x's dtype. The port's weights hold the norms in
+    the compute dtype, so on its paths this is w itself, and an update in
+    place is what the next call reads; in the model mode a weight of another
+    dtype is cast afresh on each call (the plain version's first step), never
+    kept. The fused mode casts w to fp32 directly, which the kernel can only
+    match when it already is x's dtype."""
     if w.dtype != x.dtype:
-        raise ValueError(f"fused RMSNorm on CUDA takes w in x's dtype {x.dtype}, got {w.dtype}")
+        if mode != "model":
+            raise ValueError(f"fused RMSNorm on CUDA takes w in x's dtype {x.dtype}, got {w.dtype}")
+        w = w.to(x.dtype)
     return w.contiguous()
 
 
 def _fwd(x: torch.Tensor, w: torch.Tensor, eps: float, mode: str, want_r: bool):
     """-> (y of x's shape, r fp32 (rows,) or None)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return rms_norm_fused_reference(x, w, eps, mode)
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    y, r = _launch_fwd(x2, _weight_for(x, w, mode), eps, mode, want_r)
-    return y.reshape(x.shape), r
+    _check_mode(mode)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    return _launch_fwd(x, _weight_for(x, w, mode), eps, mode, want_r)
 
 
 def _bwd(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, dy: torch.Tensor, mode: str,
          want_dw: bool):
     """-> (dx of x's shape in dy's dtype, dw fp32 (E,) or None)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return rms_norm_bwd_reference(x, w, r, dy, mode, want_dw)
     E = x.shape[-1]
     dx, part = _launch_bwd(x.reshape(-1, E).contiguous(), _weight_for(x, w, mode), r,
@@ -188,7 +204,6 @@ def _bwd(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, dy: torch.Tensor, mo
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, mode: str = "model") -> torch.Tensor:
     """Forward only (no autograd): x (..., E), w (E,) -> y in x's dtype."""
-    _check_mode(mode)
     return _fwd(x, w, eps, mode, False)[0]
 
 

@@ -15,7 +15,9 @@ outputs v itself, |v| up to ~4) does not set the bar for the typical output,
 which is ~0.03-0.05 for random inputs over thousands of keys. ``ATOL`` holds
 what is left, the summation-order error. ``chip_smoke.py`` measured it on an
 H100 80GB HBM3 (700 W) at the main path's shapes: at most 6.5e-7 (ViT tile
-tower), 1.03e-6 (char tower), 3.0e-6 (prefill), 1.3e-8 (decode). The int8
+tower), 1.03e-6 (char tower), 3.0e-6 (prefill), 3.2e-8 (decode, whose
+runs of 64-key chunks by bulk copies replaced a CUDA-core kernel that read
+1.3e-8). The int8
 LM head on the tensor cores (64-deep groups, fixed chunked order) reads
 1.5e-8 to 3.7e-7 at the paths' M = 1-8 rows (K = 4096, N = 92,672; the
 CUDA-core kernel it replaced, 1.2e-7). The (K, N) int8 kernel on the

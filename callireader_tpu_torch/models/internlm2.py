@@ -64,7 +64,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, policy: DTypePol
         y = k_rmsnorm.rms_norm_trainable(x, weight, eps, "model")
     else:
         y = k_rmsnorm.rms_norm(x, weight, eps, "model")
-    return y.to(policy.compute_dtype)
+    return y if y.dtype == policy.compute_dtype else y.to(policy.compute_dtype)
 
 
 def _inv_freq(cfg: LLMConfig, base, device) -> torch.Tensor:

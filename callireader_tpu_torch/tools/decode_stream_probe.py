@@ -1,9 +1,10 @@
 """What the decode step's streaming kernels trade, at the paths' shapes.
 
-The (K, N) int8 kernel (``kn_kernel`` of ``csrc/int8_matmul.cu``) and the
-paged decode kernel (``paged_kernel`` of ``csrc/paged_decode.cu``) make
-choices that this script measures against their alternatives, each build
-compiled from a copy of ``csrc/`` with one line changed:
+The (K, N) int8 kernel (``kn_kernel`` of ``csrc/int8_matmul.cu``), the
+paged decode kernel (``paged_kernel`` of ``csrc/paged_decode.cu``) and the
+contiguous decode kernel (``decode_kernel`` of ``csrc/flash_decode.cu``)
+make choices that this script measures against their alternatives, each
+build compiled from a copy of ``csrc/`` with one line changed:
 
 - ``no stage fence``: a consumer hands a ring stage back to the producer
   without ``fence.proxy.async`` (``mbar_release_stage`` reduced to the
@@ -16,12 +17,20 @@ compiled from a copy of ``csrc/`` with one line changed:
 - ``no products``: the (K, N) consumers skip their products, so the kernel
   only streams its weight and h through the ring and runs its epilogue
   (its outputs are not checked): the kernel's own streaming floor;
-- ``runs of 2 entries``: the paged kernel with PD_RUN = 2, not 4.
+- ``runs of 2 entries``: the paged kernel with PD_RUN = 2, not 4;
+- ``two-stage ring``: the contiguous decode kernel's ring at 2 stages, not
+  3, so three blocks share an SM, not two.
+
+The contiguous decode kernel takes its run length as an argument, so each
+build of it is also timed at runs of 1, 2, 4 and 8 chunks beside the
+wrapper's rule (``run_chunks``).
 
 At callireader-8b's four (K, N) projections (wqkv, wo, w13, w2) with M = 4,
 8, 16 and 32 rows of seeded bf16 N(0, 1), int8 weights and scales, and at
 the paged serve and HTTP shapes of ``chip_smoke.py`` (8 slots x 32 pages of
-128 keys; 27,450 live keys over the 8 slots, or 3,182 in one), each build's
+128 keys; 27,450 live keys over the 8 slots, or 3,182 in one), and at the
+contiguous decode's 8b batch (B=4 S=3840, 13,690 valid keys) and CLI (B=1
+S=4608, 3,682 valid keys) shapes, each build's
 device microseconds a call (torch.profiler, every kernel of the call,
 weights walked over 8 layers so that they come from device memory), its
 failure count and its largest excess beyond the output's bf16 rounding
@@ -43,10 +52,11 @@ import torch
 
 from callireader_tpu_torch.core.dtypes import exact_fp32
 from callireader_tpu_torch.kernels import _build, tolerance
+from callireader_tpu_torch.kernels import decode_attention as tdec
 from callireader_tpu_torch.kernels import int8_matmul as ti8
 from callireader_tpu_torch.kernels import paged_decode as tpaged
 
-SOURCES = ("int8_matmul", "paged_decode")
+SOURCES = ("int8_matmul", "paged_decode", "flash_decode")
 EDITS = {  # build: (file, text of one line, its replacement)
     "as built": None,
     "no stage fence": ("wgmma_common.cuh",
@@ -56,10 +66,12 @@ EDITS = {  # build: (file, text of one line, its replacement)
     "no products": ("int8_matmul.cu", "for (int kk = 0; kk < KN_GROUP; kk += 16) {",
                     "for (int kk = 0; kk < 0; kk += 16) {"),
     "runs of 2 entries": ("paged_decode.cu", "PD_RUN = 4;", "PD_RUN = 2;"),
+    "two-stage ring": ("flash_decode.cu", "FD_STAGES = 3;", "FD_STAGES = 2;"),
 }
 KN_BUILDS = ("as built", "no stage fence", "8 splits at K = 14336", "two blocks an SM",
              "no products")
 PAGED_BUILDS = ("as built", "no stage fence", "runs of 2 entries")
+DECODE_BUILDS = ("as built", "no stage fence", "two-stage ring")
 PROJECTIONS = {"wqkv": (4096, 6144), "wo": (4096, 4096), "w13": (4096, 28672), "w2": (14336, 4096)}
 LAUNCHES = 20
 LAYERS = 8
@@ -171,6 +183,45 @@ def _paged_rows(fns, dev, gen):
     return rows
 
 
+def _decode_rows(fns, dev, gen):
+    Hq, Hkv, D, L = 32, 8, 128, 4
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    rows = {}
+    for label, B, S, spans in (("8b", 4, 3840, ((414, 3840), (420, 3840), (426, 3840), (410, 3840))),
+                               ("cli", 1, 4608, ((414, 4096),))):
+        q = torch.randn((B, Hq, 1, D), device=dev, generator=gen).bfloat16()
+        ck = torch.randn((L, B, Hkv, S, D), device=dev, generator=gen).bfloat16()
+        cv = torch.randn((L, B, Hkv, S, D), device=dev, generator=gen).bfloat16()
+        valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        for b, (lo, hi) in enumerate(spans):
+            valid[b, lo:hi] = 1
+        want = tdec.flash_decode_reference(q.float(), ck, cv, 2, valid)
+        rule = tdec.run_chunks(B, Hkv, S)
+        row = {"bound us": 4 * int(valid.sum()) * Hkv * D / 3.35e6, "rule's run": rule}
+        for tag in DECODE_BUILDS:
+            fn = fns[tag]["flash_decode"]
+
+            def launch(R=rule, fn=fn):
+                part = torch.empty((B * Hq * -(-tdec.n_chunks(S) // R) * (D + 2),),
+                                   dtype=torch.float32, device=dev)
+                out = torch.empty_like(q)
+                rc = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(), valid.data_ptr(),
+                        part.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D, 2, R, D ** -0.5,
+                        stream())
+                if rc:
+                    raise RuntimeError(f"{tag}: cudaError {rc}")
+                return out
+
+            row[f"{tag}: failures"], row[f"{tag}: excess"] = _failures(
+                launch, want, tolerance.ATOL["flash_decode"])
+            for R in (1, 2, 4, 8):
+                row[f"{tag}: us, runs of {R}"] = device_us(lambda R=R: launch(R))
+        rows[f"decode {label}"] = row
+        print(f"decode {label}: " + ", ".join(f"{k} {v:.4g}" for k, v in row.items()), flush=True)
+        del q, ck, cv
+    return rows
+
+
 def main(seed: int = 0):
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -180,10 +231,12 @@ def main(seed: int = 0):
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi: not read")
     built = _build.build_variants(_build.BUILD_DIR / "decode_stream_probe", EDITS, SOURCES)
     fns = {tag: {"int8_matmul": ti8.KERNEL.entry_in(ctypes.CDLL(libs["int8_matmul"][0])),
-                 "paged_decode": tpaged.KERNEL.entry_in(ctypes.CDLL(libs["paged_decode"][0]))}
+                 "paged_decode": tpaged.KERNEL.entry_in(ctypes.CDLL(libs["paged_decode"][0])),
+                 "flash_decode": tdec.KERNEL.entry_in(ctypes.CDLL(libs["flash_decode"][0]))}
            for tag, libs in built.items()}
     gen = torch.Generator(device=dev).manual_seed(seed)
-    result = {**_kn_rows(fns, dev, gen), **_paged_rows(fns, dev, gen)}
+    result = {**_decode_rows(fns, dev, gen), **_kn_rows(fns, dev, gen),
+              **_paged_rows(fns, dev, gen)}
     print(json.dumps(result))
     return result
 

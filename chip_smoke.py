@@ -19,7 +19,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   4. kernels: each attention kernel against its plain version (fp32 math on
      the same bf16 inputs) at the shapes the 2b main path launched it with,
      elementwise within the output's bf16 rounding plus a per-kernel ATOL
-     (callireader_tpu_torch/kernels/tolerance.py); kernel, plain and one
+     (callireader_tpu_torch/kernels/tolerance.py), flash_decode also 20
+     times on the same inputs for the same bits; kernel, plain and one
      PyTorch library call (scaled_dot_product_attention, a yardstick the port
      never calls) timed with CUDA events; the least time the card could take
      (bound) computed from this run's inputs. The 2b engine is then freed;
@@ -118,6 +119,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
  18. beams and chat on that engine: chat_ocr with num_beams=4 (flash_decode
      at B=4, 32 launches a step, the best beam within 128 tokens), chat
      without CalliAlign and cli.chat's stream_generate for 64 tokens;
+     flash_decode is held against its plain version, as in phase 4, at the
+     CLI page's shape (batch 1 over its 4,608 slots) and the beams' shape;
  19. the RMSNorm kernels against their plain versions at every path's shapes
      (E = 4096; 8b batch, serve, CLI, beams: decode and prefill rows; train:
      2 x 2048 rows, forward and backward with dw on and off), both roundings:
@@ -313,10 +316,13 @@ class ShapeLog:
                                      None if a[3] is None else a[3].clone()),
         "attn_train_dq": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[8]),
         "attn_train_dkv": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[8]),
-        # (x2, w, eps, mode, want_r) / (x2, w, r, dy2, mode, want_dw): one entry
-        # per mode's kernel, both wrapping the same launch function
-        "rms_norm_fwd": lambda a: (*a[0].shape, a[0].dtype, a[4]) if a[3] == "model" else None,
-        "rms_norm_fwd_fused": lambda a: (*a[0].shape, a[0].dtype, a[4]) if a[3] == "fused" else None,
+        # (x, w, eps, mode, want_r) / (x2, w, r, dy2, mode, want_dw), x (..., E):
+        # (rows, E, ...), one entry per mode's kernel, both wrapping the same
+        # launch function
+        "rms_norm_fwd": lambda a: (a[0].numel() // a[0].shape[-1], a[0].shape[-1], a[0].dtype,
+                                   a[4]) if a[3] == "model" else None,
+        "rms_norm_fwd_fused": lambda a: (a[0].numel() // a[0].shape[-1], a[0].shape[-1], a[0].dtype,
+                                         a[4]) if a[3] == "fused" else None,
         "rms_norm_bwd": lambda a: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "model" else None,
         "rms_norm_bwd_fused": lambda a: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "fused" else None,
     }
@@ -906,6 +912,7 @@ def cli_phases(h, final_dir, work):
         shapes, launches = run_cli("cli page", ["--tgt", page_path, *argv])
     engine = kept["engine"]
     h.keep_norms("cli", shapes, launches)
+    h.flash_decode_row("cli", shapes, launches)
 
     # the merged leaf: base + scale * a @ b from the checkpoint, before int8
     saved = torch.load(os.path.join(final_dir, "state.pt"), map_location="cpu", mmap=True,
@@ -975,6 +982,7 @@ def cli_phases(h, final_dir, work):
              f"{int(lengths[0])}")
     log(f"[beams] best beam of 4: {int(lengths[0])} tokens, {resp[:30]!r}")
     h.keep_norms("beams", shapes, launches)
+    h.flash_decode_row("beams", shapes, launches)
     resp, _, _ = counted("chat", lambda: engine.chat(page, QUESTION, max_new_tokens=128))
     log(f"[chat] {resp[:30]!r}")
     out = io.StringIO()
@@ -1275,7 +1283,7 @@ def main() -> int:
                     "device_ms": dev_ms, "bound_ratio": ratio,
                 })
                 if name.startswith("attn_train") or name in ("int8_matmul", "int8_matmul_nt",
-                                                             "paged_flash_decode"):
+                                                             "paged_flash_decode", "flash_decode"):
                     log(f"{row}: device {dev_ms} ms against its bound {b_ms:.4f} ms ({b_by}), "
                         f"{ratio:.2f}x")
         print(smi, flush=True)
@@ -1283,17 +1291,8 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
                                                   "count": torch.cuda.device_count()}}), flush=True)
 
-    h = types.SimpleNamespace(torch=torch, dev=dev, kernels=kernels, zero_counts=zero_counts,
-                              read_counts=read_counts, rnd=rnd, bound=bound, row_for=row_for,
-                              results=results, plain_rms=plain_rms, check_norms=check_norms,
-                              norm_shapes={})
 
-    def keep_norms(path, shapes, launches):
-        """The RMSNorm launches of ``path`` by shape, for phase 19."""
-        h.norm_shapes[path] = (types.SimpleNamespace(
-            calls={n: list(shapes.calls[n]) for n in NORM_KERNELS}), launches)
 
-    h.keep_norms = keep_norms
     pages_boxes = [make_page(seed) for seed in range(N_PAGES)]
     pages = [p for p, _ in pages_boxes]
 
@@ -1477,7 +1476,10 @@ def main() -> int:
         valid = valid_d.clone()
         n_valid = int((valid > 0).sum().item())
         lay = L - 1
-        r = row_for("flash_decode", f"[{path}] B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} L={L} layer={lay}",
+        R = k_dec.run_chunks(B, Hkv, S)
+        r = row_for("flash_decode", f"[{path}] B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} L={L} layer={lay}, "
+                    f"{n_valid} valid keys, runs of {R} chunks "
+                    f"({B * Hkv * -(-k_dec.n_chunks(S) // R)} blocks)",
                     lambda: k_dec.flash_decode(qd, ckd, cvd, lay, valid),
                     lambda: k_dec.flash_decode_reference(qd.float(), ckd, cvd, lay, valid),
                     lambda: F.scaled_dot_product_attention(qd, ckd[lay], cvd[lay],
@@ -1485,9 +1487,14 @@ def main() -> int:
                                                            enable_gqa=True),
                     nbytes=2 * (2 * n_valid * Hkv * D + 2 * qd.numel()) + 4 * valid.numel(),
                     flops=4 * n_valid * Hq * D)
+        # the ring's stages are refilled only after their reads (the proxy fence)
+        first = k_dec.flash_decode(qd, ckd, cvd, lay, valid)
+        if not all(torch.equal(k_dec.flash_decode(qd, ckd, cvd, lay, valid), first) for _ in range(19)):
+            fail(f"[{path}] flash_decode gave other bits in 20 launches on the same inputs")
+        log(f"[{path}] flash_decode: 20 of 20 launches on the same inputs bit-equal")
         results.setdefault("flash_decode", []).append(
             (f"{path} B={B} L={L} S={S}", launches["flash_decode"], r))
-        del qd, ckd, cvd
+        del qd, ckd, cvd, first
         torch.cuda.empty_cache()
 
     def paged_row(path, shapes, launches):
@@ -1524,6 +1531,17 @@ def main() -> int:
         del qd, kpool, vpool
         torch.cuda.empty_cache()
 
+    h = types.SimpleNamespace(torch=torch, dev=dev, kernels=kernels, zero_counts=zero_counts,
+                              read_counts=read_counts, rnd=rnd, bound=bound, row_for=row_for,
+                              results=results, plain_rms=plain_rms, check_norms=check_norms,
+                              flash_decode_row=flash_decode_row, norm_shapes={})
+
+    def keep_norms(path, shapes, launches):
+        """The RMSNorm launches of ``path`` by shape, for phase 19."""
+        h.norm_shapes[path] = (types.SimpleNamespace(
+            calls={n: list(shapes.calls[n]) for n in NORM_KERNELS}), launches)
+
+    h.keep_norms = keep_norms
     ATTENTION_ROWS = {"vit_attention": vit_rows, "flash_attention": flash_attention_rows,
                       "flash_decode": flash_decode_row, "paged_flash_decode": paged_row}
 

@@ -201,6 +201,51 @@ def test_training_step_launch_counts(monkeypatch):
     assert calls == {"fwd": 2 * (2 * L + 1), "bwd": 0}
 
 
+def test_launch_path_reads_the_weight_as_it_stands():
+    """The kernels' weight is the norm weight itself when its dtype is x's
+    (the port makes its norm weights so): an update in place,
+    as the adapter merge and the training step make, is what the next call
+    reads. A weight of another dtype is cast afresh on every call, never
+    kept."""
+    x = torch.randn((2, 1, 64)).bfloat16()
+    w = torch.randn((64,)).bfloat16()
+    assert k._weight_for(x, w, "model") is w and k._weight_for(x, w, "fused") is w
+    w32 = torch.randn((64,))
+    first = k._weight_for(x, w32, "model")
+    w32.mul_(3)
+    assert torch.equal(k._weight_for(x, w32, "model"), w32.bfloat16())
+    assert not torch.equal(first, w32.bfloat16())
+    with pytest.raises(ValueError, match="fused"):
+        k._weight_for(x, w32, "fused")
+
+
+def test_launch_path_refuses_what_the_kernels_do_not_take(monkeypatch):
+    """The launch path's checks, which guard the kernels' memory accesses:
+    dtype, width, layout, 16-byte alignment, the weight's shape and dtype,
+    and the device (no CPU address ever reaches a kernel)."""
+    launched = []
+    monkeypatch.setattr(k, "KERNELS_FWD", {m: lambda *a: launched.append(a) for m in k.KERNELS_FWD})
+    x = torch.randn((3, 2, 64)).bfloat16()
+    w = torch.randn((64,)).bfloat16()
+    px, pw, rows, E, code = k._row_args(x, w)
+    assert (px, pw, rows, E, code) == (x.data_ptr(), w.data_ptr(), 6, 64, 0)
+    assert k._row_args(x.float(), w.float())[2:] == (6, 64, 1)
+    for bad_x, bad_w, match in (
+            (x.half(), w.half(), "bf16 or fp32"),
+            (x[..., :60], w[:60], "width"),
+            (torch.zeros((1, 2 * k.MAX_WIDTH)).bfloat16(), torch.zeros(2 * k.MAX_WIDTH).bfloat16(),
+             "width"),
+            (x, w[:32], "width"),
+            (x, w.float(), "must be"),
+            (x.transpose(0, 1), w, "contiguous"),
+            (torch.zeros(6 * 64 + 1).bfloat16()[1:].view(6, 64), w, "aligned")):
+        with pytest.raises(ValueError, match=match):
+            k._row_args(bad_x, bad_w)
+    with pytest.raises(ValueError, match="CUDA"):
+        k._launch_fwd(x, w, EPS, "model", False)
+    assert not launched
+
+
 # ---------------------------------------------------------------- card only
 
 
@@ -275,3 +320,48 @@ def test_cuda_refuses_what_it_does_not_take(cuda):
     x, w, _ = _cuda_inputs(4, 64, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="fused"):
         k.rms_norm(x, w.float(), EPS, "fused")
+
+
+@pytest.fixture(scope="module")
+def two_pass_forward(tmp_path_factory):
+    """The forward kernels of tests/data/rmsnorm_two_pass.cu (the row read
+    twice) -> launch(x, w, mode) -> (y, r)."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from callireader_tpu_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    src = Path(__file__).parent / "data" / "rmsnorm_two_pass.cu"
+    so = tmp_path_factory.mktemp("rmsnorm_two_pass") / "rmsnorm_two_pass.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+
+    def launch(x, w, mode):
+        fn = k.KERNELS_FWD[mode].entry_in(lib)
+        y = torch.empty_like(x)
+        r = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+        assert fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), r.data_ptr(), x.shape[0], x.shape[1],
+                  EPS, k.DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream) == 0
+        return y, r
+
+    return launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [64, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 4, 8, 2 * 2048, 4 * 3584])
+def test_cuda_forward_bits_equal_the_two_pass_kernel(cuda, two_pass_forward, rows, E):
+    """Reading each row once into registers keeps each thread's elements and
+    the order of the block's sum: y and r are the bits of the kernel that
+    read the row twice, in both roundings and both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, _ = _cuda_inputs(rows, E, dtype, cuda, seed=rows + E)
+        for mode in ("model", "fused"):
+            y, r = k._launch_fwd(x, w, EPS, mode, True)
+            y_old, r_old = two_pass_forward(x, w, mode)
+            torch.cuda.synchronize()
+            assert torch.equal(y, y_old) and torch.equal(r, r_old), (dtype, mode)
