@@ -10,9 +10,9 @@ import sys
 
 MODES = ("list-cfg", "train", "check-custom-dataset", "chat", "serve", "inference",
          "get-embeddings")
-# the JAX package's other modes, which wait for their modules
-NOT_PORTED = ("copy-cfg", "test", "evaluate", "convert", "preprocess", "mmbench", "judge",
-              "log-dataset")
+# the JAX package's other modes, which wait for their modules: mode -> ROADMAP item
+NOT_PORTED = {"copy-cfg": "A9", "test": "A8", "evaluate": "A8", "convert": "A7",
+              "preprocess": "A9", "mmbench": "A8", "judge": "A8", "log-dataset": "A9"}
 
 HELP = f"""callireader-tpu (PyTorch/CUDA port) command line
 
@@ -27,7 +27,7 @@ Where MODE is one of {MODES}
   python -m callireader_tpu_torch serve --input req.jsonl --output out.jsonl --paged --random-init
   python -m callireader_tpu_torch get-embeddings --data DIR --out OUT --random-init
 
-Not ported yet: {NOT_PORTED}
+Not ported yet: {tuple(NOT_PORTED)}
 """
 
 
@@ -57,8 +57,8 @@ def main(argv=None) -> int:
     elif mode == "get-embeddings":
         from callireader_tpu_torch.cli import get_embeddings as m
     elif mode in NOT_PORTED:
-        print(f"mode {mode!r} is not ported to the PyTorch package yet (ROADMAP A12)",
-              file=sys.stderr)
+        print(f"mode {mode!r} is not ported to the PyTorch package yet "
+              f"(ROADMAP {NOT_PORTED[mode]})", file=sys.stderr)
         return 2
     else:
         print(f"unknown mode {mode!r}\n{HELP}", file=sys.stderr)

@@ -68,4 +68,4 @@ def finetune(
 
 def evaluate_full_page(engine, parquet_path: str, save_json_path: Optional[str] = None, **kw):
     raise NotImplementedError("evaluate_full_page is not ported yet: it waits for "
-                              "evalx/callibench (ROADMAP A12)")
+                              "evalx/callibench (ROADMAP A8)")

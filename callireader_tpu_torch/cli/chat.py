@@ -7,8 +7,9 @@ callireader_tpu/cli/chat.py).
 ``stream_generate`` prefills the prompt, then decodes step by step through
 ``internlm2.decode_step``, printing the text as it grows and stopping at the
 template's separator, the tokenizer's eos, or a stop word. The REPL keeps
-the history; ``RESET`` clears it, ``EXIT`` quits. Runs on the GPU unless
-``--device cpu`` is given. Not ported yet: ``--agent`` (the ReAct agent of
+the history; ``RESET`` clears it, ``EXIT`` quits. ``--quant int8-all`` adds
+the W8A8 tile tower to the int8 LLM. Runs on the GPU unless ``--device cpu``
+is given. Not ported yet: ``--agent`` (the ReAct agent of
 runtime/agent.py) and what cli/common.py refuses.
 """
 
@@ -110,7 +111,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
     if args.agent:
-        parser.error("--agent is not ported yet: it waits for runtime/agent.py (ROADMAP A12)")
+        parser.error("--agent is not ported yet: it waits for runtime/agent.py (ROADMAP A9)")
 
     from callireader_tpu_torch.cli import common
 
@@ -118,7 +119,7 @@ def main(argv=None):
         engine = common.build_engine(preset=args.preset, checkpoint_dir=args.checkpoint,
                                      random_init_ok=args.random_init, quant=args.quant,
                                      adapter_path=args.adapter, device=args.device)
-    except (NotImplementedError, FileNotFoundError) as e:
+    except (NotImplementedError, FileNotFoundError, ValueError) as e:
         parser.error(str(e))
     history = None
     print("double enter to end input; 'RESET' clears history, 'EXIT' quits", file=sys.stderr)

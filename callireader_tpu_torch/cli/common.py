@@ -9,10 +9,12 @@ the bf16 base is drawn with the seed the trainer drew it with, the LoRA
 leaves are attached, the trainable subtree (LoRA + projector) is restored
 from the checkpoint and the adapters are merged into the dense weights.
 ``quant="int8"`` then quantizes the merged LLM (weight-only int8, vocab padded
-to 128, fused wqkv / w13), in the JAX CLI's order.
+to 128, fused wqkv / w13), in the JAX CLI's order; ``"int8-all"`` adds the
+W8A8 tile tower. ``device_tile_pages`` (default on, as in the JAX builder)
+and ``char_canvas`` go to the engine.
 
-Not ported yet: checkpoint loading (``checkpoint_dir``), ``quant="int8-all"``
-(the W8A8 ViT), meshes and the ``char_canvas`` lever; each raises.
+Not ported yet: checkpoint loading (``checkpoint_dir``), meshes and
+``trained_assets=False``; each raises.
 """
 
 from __future__ import annotations
@@ -31,21 +33,20 @@ def build_engine(
     adapter_path: Optional[str] = None,
     lora_rank: int = 128,
     lora_alpha: float = 256.0,
+    device_tile_pages: bool = True,
     char_canvas: Optional[int] = None,
     mesh_spec: Optional[str] = None,
     trained_assets: bool = True,
     device: str = "cuda",
 ):
-    for flag, value in (("--checkpoint", checkpoint_dir), ("--mesh", mesh_spec),
-                        ("--char-canvas", char_canvas)):
+    for flag, value, item in (("--checkpoint", checkpoint_dir, "A4"), ("--mesh", mesh_spec, "A11")):
         if value:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP A8, A14)")
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
     if not trained_assets:
         raise NotImplementedError("--no-trained-assets is not ported yet: the port always "
-                                  "overlays the committed trained assets (ROADMAP A8)")
-    if quant not in (None, "int8"):
-        raise NotImplementedError(f"--quant {quant} is not ported yet (ROADMAP A9); the port "
-                                  f"has bf16 and int8")
+                                  "overlays the committed trained assets (ROADMAP A5)")
+    if quant not in (None, "int8", "int8-all"):
+        raise ValueError(f"unknown quant mode {quant!r}")
     if not random_init_ok:
         raise FileNotFoundError("no checkpoint can be loaded yet; pass --random-init to run "
                                 "with random weights")
@@ -57,14 +58,15 @@ def build_engine(
 
     print("[engine] WARNING: RANDOM weights (outputs are noise; pipeline and speed testing "
           "only)", file=sys.stderr)
+    options = dict(device_tile_pages=device_tile_pages, char_canvas=char_canvas)
     if not adapter_path:
-        return engine_mod.build_engine(preset, device=device, quant=quant)
+        return engine_mod.build_engine(preset, device=device, quant=quant, **options)
 
     from callireader_tpu_torch.train import checkpoint as ckpt_mod
     from callireader_tpu_torch.train import e_it, lora
 
     # the base as cli.train draws it (bf16, seed 0), then its adapters
-    engine = engine_mod.build_engine(preset, device=device)
+    engine = engine_mod.build_engine(preset, device=device, **options)
     params, cfg = engine.params, engine.cfg
     print(f"[engine] loading adapter from {adapter_path}", file=sys.stderr)
     params["llm"] = lora.add_lora(params["llm"], cfg.llm,
@@ -76,7 +78,7 @@ def build_engine(
     state = ckpt_mod.restore_train_state(adapter_path, e_it.TrainState(trainable, {}, 0))
     params = e_it.merge_params(state.trainable, frozen)
     params["llm"] = lora.merge_lora(params["llm"])
-    if quant == "int8":
+    if quant is not None:
         before = quantize.param_bytes(params["llm"])
         params["llm"] = quantize.quantize_llm_int8(params["llm"])
         params["llm"], llm_cfg = internlm2.pad_vocab(params["llm"], cfg.llm, 128)
@@ -84,5 +86,7 @@ def build_engine(
         params["llm"] = quantize.fuse_llm_int8(params["llm"])
         print(f"[engine] int8 weight-only quantization: LLM {before / 1e9:.1f} GB -> "
               f"{quantize.param_bytes(params['llm']) / 1e9:.1f} GB", file=sys.stderr)
+    if quant == "int8-all":
+        params["vision"] = quantize.quantize_vit_int8(params["vision"])
     engine.params, engine.cfg = params, cfg
     return engine

@@ -9,8 +9,9 @@ A target is a page (a uint8 (H, W, 3) ``.npy`` array, or an image file that
 PIL decodes where PIL is installed) or a folder of them. One page: prints
 ``User: ...`` / ``Assistant: ...``. A folder: the same per page, and
 ``results/<save_name>`` with one record per page, ``"ERROR!"`` for a page
-that raised. Runs on the GPU unless ``--device cpu`` is given. Not ported
-yet: ``--checkpoint``, ``--quant int8-all``, ``--mesh``, ``--char-canvas``,
+that raised. Runs on the GPU unless ``--device cpu`` is given. ``--quant
+int8-all`` adds the W8A8 tile tower to the int8 LLM, ``--char-canvas`` sets the
+shared tower's char canvas. Not ported yet: ``--checkpoint``, ``--mesh``,
 ``--no-trained-assets`` (each exits with a message); ``--random-init`` is
 required.
 """
@@ -83,7 +84,9 @@ def main(argv=None):
     parser.add_argument("--adapter", type=str, default=None,
                         help="e-IT checkpoint dir of cli.train (LoRA + projector) to merge")
     parser.add_argument("--mesh", type=str, default=None, help="not ported yet")
-    parser.add_argument("--char-canvas", type=int, default=None, help="not ported yet")
+    parser.add_argument("--char-canvas", type=int, default=None,
+                        help="char-ViT canvas of the shared tower (default: the model's 448); "
+                        "a preset with the compact char tower keeps its own")
     parser.add_argument("--no-trained-assets", action="store_true", help="not ported yet")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
@@ -99,7 +102,7 @@ def main(argv=None):
             quant=args.quant, adapter_path=args.adapter, char_canvas=args.char_canvas,
             mesh_spec=args.mesh, trained_assets=not args.no_trained_assets, device=args.device,
         )
-    except (NotImplementedError, FileNotFoundError) as e:
+    except (NotImplementedError, FileNotFoundError, ValueError) as e:
         parser.error(str(e))
 
     def rec(image_path):

@@ -13,6 +13,11 @@ batched detector / OrderFormer / char pipeline, one fused tile encode); decode
 rides the slot scheduler (runtime/serving.py, or runtime/paged_cache.py with
 --paged) so every step advances all in-flight requests.
 
+``--device-tile-pages`` (the default) / ``--host-tile-pages`` select the
+engine's batch-API tiling route, as in the JAX CLI; the serve front half
+tiles on the host either way, as the JAX server's does. ``--quant int8-all``
+adds the W8A8 tile tower, ``--char-canvas`` the shared tower's canvas lever.
+
 Runs on the GPU unless ``--device cpu`` is given. No InternVL checkpoint ships
 with the repository and the port loads none yet: ``--random-init`` (seeded
 random ViT / LLM weights plus the committed trained detector, OrderFormer and
@@ -55,8 +60,15 @@ def main(argv=None):
                         help="pool size; default sized to slots*max_len")
     parser.add_argument("--preset", type=str, default="callireader-8b")
     parser.add_argument("--random-init", action="store_true")
-    parser.add_argument("--quant", type=str, default=None, choices=[None, "int8"])
+    parser.add_argument("--quant", type=str, default=None, choices=[None, "int8", "int8-all"])
     parser.add_argument("--repetition-penalty", type=float, default=1.0)
+    parser.add_argument("--device-tile-pages", action="store_true", default=True,
+                        help="(default) the engine's batch API tiles pages on the device")
+    parser.add_argument("--host-tile-pages", dest="device_tile_pages", action="store_false",
+                        help="the engine's batch API tiles pages on the host (bit-equal to the "
+                        "reference's preprocessing)")
+    parser.add_argument("--char-canvas", type=int, default=None,
+                        help="char-ViT canvas of the shared tower (default: the model's 448)")
     parser.add_argument("--prefix-cache", action="store_true",
                         help="auto-register each text-only prompt's prefix KV so the next "
                         "turn of a conversation prefills only its suffix")
@@ -73,15 +85,16 @@ def main(argv=None):
 
     import numpy as np
 
+    from callireader_tpu_torch.cli.common import build_engine
     from callireader_tpu_torch.runtime import generate as gen
     from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
-    from callireader_tpu_torch.runtime.engine import ALIGNED, build_engine
+    from callireader_tpu_torch.runtime.engine import ALIGNED
     from callireader_tpu_torch.runtime.serving import ContinuousBatcher, Request
     from callireader_tpu_torch.vision import preprocess
 
-    print("[engine] WARNING: RANDOM weights (outputs are noise; pipeline/perf testing only)",
-          file=sys.stderr)
-    engine = build_engine(args.preset, device=args.device, quant=args.quant)
+    engine = build_engine(preset=args.preset, random_init_ok=True, quant=args.quant,
+                          device_tile_pages=args.device_tile_pages, char_canvas=args.char_canvas,
+                          device=args.device)
     cfg = engine.cfg
     sep = get_conv_template(cfg.template).sep
     eos = (engine.tok.convert_tokens_to_ids(sep),)

@@ -88,7 +88,7 @@ def main(argv=None):
         parser.set_defaults(**{key_map[k]: v for k, v in recipe.items() if k in key_map})
     args = parser.parse_args(argv)
     if args.eval_chat_interval:
-        parser.error("--eval-chat-interval is not ported yet (ROADMAP A13); pass 0")
+        parser.error("--eval-chat-interval is not ported yet (ROADMAP A10); pass 0")
     if args.checkpoint:
         parser.error("--checkpoint: the port cannot load an InternVL checkpoint yet; "
                      "pass --random-init")

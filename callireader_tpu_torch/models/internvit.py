@@ -5,12 +5,15 @@ stored (in, out)), so ``runtime.weights.from_jax_params`` moves weights over
 unchanged. NHWC pixels; the stride == kernel patch conv is a reshape and one
 matmul; pre-norm layers with layer-scale ls1/ls2 and exact-erf GELU.
 Attention goes through ``kernels.vit_attention`` straight from the packed
-(B, S, 3E) projection. bf16 weights only (the W8A8 path is not ported).
+(B, S, 3E) projection. The layer linears run W8A8 where the tree holds
+int8 leaves (runtime/quantize.quantize_vit_int8, ``--quant int8-all``); the
+port's towers carry no LoRA, so the JAX linear's adapter delta has no
+counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +70,44 @@ def interp_pos_embed(pos_embed: torch.Tensor, grid_h: int, grid_w: int, base_gri
     return torch.cat([cls, resized], dim=1)
 
 
+def quantize_rows(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token absmax / 127 -> (int8 codes, fp32 scale (..., 1)), the JAX
+    _mm's arithmetic: fp32 division, round half to even, clip to +-127."""
+    amax = torch.linalg.vector_norm(h, ord=float("inf"), dim=-1, keepdim=True).float()
+    hs = torch.clamp(amax, min=1e-6) / 127.0
+    # h / hs promotes to fp32: the same values as h.float() / hs, one pass
+    hq = torch.div(h, hs).round_().clamp_(-127, 127).to(torch.int8)
+    return hq, hs
+
+
+def int8_product(hq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(..., K) int8 x (K, N) int8 -> (..., N) exact int32 sums, by
+    torch._int_mm on either device (a library int8 product: the JAX package
+    runs this one as an XLA dot, no Pallas kernel). On CUDA it needs more
+    than 16 rows, so fewer are zero-padded, and it is fast over a
+    column-major ``q`` (runtime/quantize.quantize_vit_int8 stores it so)."""
+    x = hq.reshape(-1, hq.shape[-1])
+    m = x.shape[0]
+    if x.is_cuda and m <= 16:
+        x = torch.cat([x, x.new_zeros((17 - m, x.shape[1]))])
+    return torch._int_mm(x, q)[:m].reshape(*hq.shape[:-1], q.shape[-1])
+
+
+def _linear(lp: Params, i: int, h: torch.Tensor, name: str) -> torch.Tensor:
+    """Layer ``i``'s ``name`` linear: bf16 (or the compute dtype), or W8A8 on
+    ``{name}_kernel_q`` + ``{name}_kernel_scale``: the activations quantized
+    per token, an int8 x int8 -> int32 product, then the activation scale
+    times the weight scale, and the bias."""
+    cd = h.dtype
+    q = lp.get(f"{name}_kernel_q")
+    if q is None:
+        return h @ lp[f"{name}_kernel"][i].to(cd) + lp[f"{name}_bias"][i].to(cd)
+    hq, hs = quantize_rows(h)
+    # int32 * fp32 promotes to fp32: (y * hs) * scale in fp32, as in JAX
+    y = torch.mul(int8_product(hq, q[i]), hs).mul_(lp[f"{name}_kernel_scale"][i])
+    return y.to(cd).add_(lp[f"{name}_bias"][i].to(cd))
+
+
 def forward(
     params: Params,
     cfg: VisionConfig,
@@ -94,14 +135,14 @@ def forward(
     eps = cfg.layer_norm_eps
     for i in range(cfg.num_hidden_layers):
         h = layer_norm(x, lp["norm1_scale"][i], lp["norm1_bias"][i], eps, policy)
-        qkv = h @ lp["qkv_kernel"][i].to(cd) + lp["qkv_bias"][i].to(cd)
+        qkv = _linear(lp, i, h, "qkv")
         ctx = attention_from_packed_qkv_nomax(qkv.contiguous(), Hn)
-        ctx = ctx @ lp["proj_kernel"][i].to(cd) + lp["proj_bias"][i].to(cd)
+        ctx = _linear(lp, i, ctx, "proj")
         x = x + ctx * lp["ls1"][i].to(cd)
 
         h = layer_norm(x, lp["norm2_scale"][i], lp["norm2_bias"][i], eps, policy)
-        h = h @ lp["fc1_kernel"][i].to(cd) + lp["fc1_bias"][i].to(cd)
+        h = _linear(lp, i, h, "fc1")
         h = F.gelu(h, approximate="none")
-        h = h @ lp["fc2_kernel"][i].to(cd) + lp["fc2_bias"][i].to(cd)
+        h = _linear(lp, i, h, "fc2")
         x = x + h * lp["ls2"][i].to(cd)
     return x

@@ -1,24 +1,29 @@
 """CalliReader engine (PyTorch port of callireader_tpu/runtime/engine.py):
 batched full-page ``batch_chat_ocr``, the per-request pieces the servers call
-(``calli_align``, ``_build_row_embeds``), and the single-image chat APIs
-(``chat_ocr`` with region-wise crops and beam search, ``chat``,
-``dynamic_chat``, ``batch_chat``), which tile pages on the host as the JAX
-engine's do.
+(``calli_align``, ``_build_row_embeds``), the phased box stage a pipelined
+caller schedules around a decode (``detect_dispatch`` / ``detect_fetch`` /
+``columns_stage`` / ``order_dispatch`` / ``order_fetch``), and the
+single-image chat APIs (``chat_ocr`` with region-wise crops and beam search,
+``chat``, ``dynamic_chat``, ``batch_chat``), which tile pages on the host as
+the JAX engine's do.
 
-    pages -> on-device dynamic tiling -> InternViT tile tower + projector
+    pages -> dynamic tiling (host, or on the device with device_tile_pages)
+          -> InternViT tile tower + projector
           -> YOLO detector + host NMS -> dedup / k-means / column merge
           -> OrderFormer + per-column y-sort -> raw char crops
-          -> on-device bicubic canvas -> compact char tower + projector
+          -> on-device bicubic canvas -> char tower + projector
           -> resampler -> cosine VQ -> Gaussian denorm
           -> double splice into the token embeddings
           -> one prefill + greedy decode (repetition penalty) for all rows
 
-The options of the JAX engine that select other paths (host tiling for the
-batch API, RGB char crops, the shared-tower canvas lever, ``char_window``,
-meshes) are not ported: the batch API always tiles on the device, every path
-ships luma crops and resizes them on the device, except crops that would be
-downscaled, which take the host path (PIL-compatible antialiased bicubic in
-numpy), as in the JAX engine.
+The engine options of the JAX package ported here: ``device_tile_pages``
+(the batch API's tiling route; host by default, as in JAX), ``char_canvas``
+(the shared tower's canvas lever) and ``char_window`` (crops per fused char
+dispatch). Not ported: RGB char crops (``gray_chars=False``), the host-only
+char route (``device_resize_chars=False``) and meshes. Every path ships luma
+crops and resizes them on the device, except crops that would be downscaled,
+which take the host path (PIL-compatible antialiased bicubic in numpy), as in
+the JAX engine.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy, requi
 from callireader_tpu_torch.models import detector as detector_mod
 from callireader_tpu_torch.models import internlm2, internvit, orderformer, projector, resampler
 from callireader_tpu_torch.runtime import generate as gen
-from callireader_tpu_torch.runtime import weights
+from callireader_tpu_torch.runtime import quantize, weights
 from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
 from callireader_tpu_torch.runtime.tokenizer import DEFAULT_MODEL, InternLM2Tokenizer
 from callireader_tpu_torch.vision import boxes as boxes_mod
@@ -49,7 +54,6 @@ from callireader_tpu_torch.vision.device_resize import CHAR_RAW_BUCKETS, bicubic
 CHAR_BUCKETS = (8, 16, 32, 64, 96, 128, 192, 256)
 IMG_START, IMG_END, IMG_CONTEXT = "<img>", "</img>", "<IMG_CONTEXT>"
 ALIGNED = "[UNUSED_TOKEN_140]"
-CHAR_WINDOW = CHAR_BUCKETS[-1]
 BATCH_TILE_BUCKETS = (26, 39, 52, 65, 78, 91, 104, 156, 208)
 
 
@@ -86,14 +90,42 @@ class CalliReaderEngine:
         *,
         device="cuda",
         policy: DTypePolicy = DEFAULT_POLICY,
+        device_tile_pages: bool = False,
+        char_canvas: Optional[int] = None,
+        char_window: Optional[int] = None,
     ):
         self.device = require_device(device)
         self.cfg = cfg
         self.params = params
         self.tok = tokenizer
         self.policy = policy
-        self.char_canvas = (cfg.char_vision.image_size if cfg.char_vision is not None
-                            else cfg.force_image_size)
+        # the batch API's page tiling: raw pages tiled on the device, or host
+        # load_image (the default, bit-equal to the JAX host tiles)
+        self.device_tile_pages = device_tile_pages
+        if cfg.char_vision is not None:
+            # the compact tower's canvas is its native size
+            if char_canvas and char_canvas != cfg.char_vision.image_size:
+                raise ValueError(f"char_canvas {char_canvas} conflicts with the dedicated char "
+                                 f"tower's native {cfg.char_vision.image_size}")
+            canvas = cfg.char_vision.image_size
+        else:
+            canvas = char_canvas or cfg.force_image_size
+            if canvas != cfg.force_image_size:
+                patch = cfg.vision.patch_size
+                if canvas % patch or (canvas // patch) % 2:
+                    raise ValueError(f"char_canvas {canvas} must be a multiple of {2 * patch} "
+                                     f"(even patch grid for pixel-shuffle)")
+                content_hi = preprocess.char_content_canvas(cfg.force_image_size)
+                if canvas < content_hi:
+                    raise ValueError(f"char_canvas {canvas} cannot hold the [200,{content_hi}] "
+                                     f"char content scale")
+        self.char_canvas = canvas
+        # the input size of the [200, 350] content rule: the compact tower's
+        # canvas, else the reference 448 semantics whatever the canvas
+        self.char_content_size = (cfg.char_vision.image_size if cfg.char_vision is not None
+                                  else cfg.force_image_size)
+        # crops per fused char dispatch: bounds the char tower's live set
+        self.char_window = int(char_window) if char_window else CHAR_BUCKETS[-1]
         self.detector = (detector_mod.Detector(params["detector"], cfg.detector, self.device)
                          if "detector" in params else None)
         self.timings = Timings()
@@ -224,7 +256,7 @@ class CalliReaderEngine:
     def _prep_char_raw_groups(self, raw_crops: List[np.ndarray]):
         """Group crops by raw square bucket with (src, tgt) dims for the
         device resize; crops that would downscale go to the host path."""
-        size = self.char_canvas
+        size = self.char_content_size
         hi = preprocess.char_content_canvas(size)
         by_bucket: Dict[int, List[int]] = {}
         host_idx: List[int] = []
@@ -253,7 +285,7 @@ class CalliReaderEngine:
     def _prep_char_crop_groups(self, raw_crops: List[np.ndarray]):
         """Host path: PIL-compatible bicubic to the [200, 350] rule, white pad
         to the smallest content-canvas bucket that holds it, luma."""
-        size = self.char_canvas
+        size = self.char_content_size
         buckets = preprocess.char_canvas_buckets(size)
         by_bucket: Dict[int, List[int]] = {}
         for i, c in enumerate(raw_crops):
@@ -351,6 +383,37 @@ class CalliReaderEngine:
                                         data["shapes"], w, h)
         return self._order_columns(char_boxes, col_order, thres)
 
+    # The batched box stage in phases, for a caller that schedules them around
+    # a decode in flight (bench.py): only the phases that read the device back
+    # (detect_fetch, order_fetch) wait for the work queued before them.
+    #
+    #   detect_dispatch  letterbox + upload + detector forward, no readback
+    #   detect_fetch     one readback + host NMS
+    #   columns_stage    host: dedup + k-means / column merge
+    #   order_dispatch   OrderFormer forward, no readback
+    #   order_fetch      score readback + per-column y-sort (+ saturated pages)
+    #
+    # batch_sort_boxes composes them for callers that do not pipeline.
+
+    def detect_dispatch(self, images: Sequence[np.ndarray]):
+        """One batched detector forward, no readback. A detector without
+        ``dispatch`` (a stub) is evaluated here, eagerly."""
+        disp = getattr(self.detector, "dispatch", None)
+        if disp is None:
+            det_batch = getattr(self.detector, "batch", None)
+            if det_batch is not None:
+                return ("dets", det_batch(list(images)))
+            return ("dets", [self.detector(im) for im in images])
+        return ("handle", disp(list(images)))
+
+    def detect_fetch(self, images: Sequence[np.ndarray], handle):
+        """The readback of the detector's candidates, then host NMS -> per
+        page box lists."""
+        kind, payload = handle
+        if kind == "dets":
+            return payload
+        return self.detector.postprocess(list(images), self.detector.fetch(payload))
+
     def columns_stage(self, images: Sequence[np.ndarray], dets, thres: float = 0.8):
         """Host: int-truncate, IoU dedup, k-means/merge columns. Saturated
         pages (>250 boxes) are deferred to the serial masking path."""
@@ -375,22 +438,39 @@ class CalliReaderEngine:
         return {"results": results, "pages": pages, "page_owner": page_owner,
                 "char_boxes_per": char_boxes_per, "saturated": saturated, "thres": thres}
 
-    def order_stage(self, inter, thres: float = 0.8):
+    def order_dispatch(self, inter):
+        """Queue the batched OrderFormer forward, no readback. Saturated
+        pages stay deferred to order_fetch."""
+        handle = None
+        if inter["pages"]:
+            handle = orderformer.predict_batch_dispatch(self.params["orderformer"],
+                                                        self.cfg.orderformer, inter["pages"])
+        return {"inter": inter, "handle": handle}
+
+    def order_fetch(self, st, thres: float = 0.8):
+        """The score readback and the per-column y-sort -> reading-ordered
+        flat box lists; saturated pages take the serial masking path here."""
+        inter = st["inter"]
         results = inter["results"]
         for i, img in inter["saturated"]:
             results[i] = self.sort_boxes(img, inter["thres"])
-        if inter["pages"]:
-            orders = orderformer.predict_batch(self.params["orderformer"],
-                                               self.cfg.orderformer, inter["pages"])
+        if st["handle"] is not None:
+            orders = orderformer.predict_batch_fetch(st["handle"])
             for owner, col_order in zip(inter["page_owner"], orders):
                 results[owner] = self._order_columns(inter["char_boxes_per"][owner],
                                                      col_order, thres)
         return results
 
-    def batch_sort_boxes(self, images: Sequence[np.ndarray], thres: float = 0.8):
+    def order_stage(self, inter, thres: float = 0.8):
+        """order_dispatch then order_fetch, back to back."""
+        return self.order_fetch(self.order_dispatch(inter), thres)
+
+    def batch_sort_boxes(self, images: Sequence[np.ndarray], thres: float = 0.8, dets=None):
         """One detector forward and one OrderFormer forward for N pages ->
-        reading-ordered flat box lists."""
-        dets = self.detector.batch(list(images))
+        reading-ordered flat box lists. ``dets``: detect_fetch's output, when
+        the caller ran the detector already."""
+        if dets is None:
+            dets = self.detect_fetch(images, self.detect_dispatch(images))
         return self.order_stage(self.columns_stage(images, dets, thres), thres)
 
     def batch_calli_align(
@@ -424,10 +504,11 @@ class CalliReaderEngine:
 
         n_learns = self.cfg.resampler.num_learns
         parts_ps, parts_ix, ns, idx_parts = [], [], [], []
-        # windows of at most CHAR_WINDOW crops bound the char tower's live
+        # windows of at most char_window crops bound the char tower's live
         # activations; the small pseudo outputs reassemble in one reorder
-        for lo in range(0, len(all_crops), CHAR_WINDOW):
-            pp, pi, nn, ii = self._char_parts(all_crops[lo:lo + CHAR_WINDOW], hard_vq)
+        win = self.char_window
+        for lo in range(0, len(all_crops), win):
+            pp, pi, nn, ii = self._char_parts(all_crops[lo:lo + win], hard_vq)
             parts_ps += pp
             parts_ix += pi
             ns += nn
@@ -529,7 +610,14 @@ class CalliReaderEngine:
         conv_sep = get_conv_template(self.cfg.template).sep
         imgs_np = [preprocess.as_rgb_array(im) for im in images]
         with self._span("page_tiling"):
-            tile_cat, tile_counts = self.batch_tile_pages(imgs_np)
+            if self.device_tile_pages:
+                tile_cat, tile_counts = self.batch_tile_pages(imgs_np)
+            else:
+                cfg = self.cfg
+                pixel_list = [preprocess.load_image(im, cfg.force_image_size, cfg.max_dynamic_patch,
+                                                    cfg.use_thumbnail) for im in imgs_np]
+                tile_counts = [pv.shape[0] for pv in pixel_list]
+                tile_cat = self._to_dev(np.concatenate(pixel_list, axis=0))
         aligned = (self.batch_calli_align(imgs_np, drop_zero=drop_zero, hard_vq=hard_vq,
                                           ordered_lists=ordered_lists)
                    if use_p else [(None, None)] * len(images))
@@ -854,26 +942,40 @@ def build_engine(
     seed: int = 0,
     tokenizer_path: str = DEFAULT_MODEL,
     quant: Optional[str] = None,
+    assets: Sequence[str] = weights.TRAINED_ASSETS,
+    **engine_options,
 ) -> CalliReaderEngine:
     """Engine for ``preset`` with seeded random weights (no InternVL
     checkpoint ships with the repo; outputs are noise) and, where the
-    preset's architecture matches, the committed trained detector,
-    OrderFormer and compact CalliAlign tower.
+    preset's architecture matches, the committed trained assets named in
+    ``assets`` (detector, OrderFormer, compact CalliAlign tower); the names
+    loaded are kept in ``engine.assets``. ``engine_options`` go to
+    CalliReaderEngine (``device_tile_pages``, ``char_canvas``,
+    ``char_window``).
 
     ``quant="int8"``: the JAX bench's flagship build. The LLM is drawn as
     int8 weight-only in the fused wqkv / w13 layout, its vocab tables are
     padded to a multiple of 128 (``real_vocab_size`` keeps the true size),
-    and the decode products run through the int8 kernels."""
-    if quant not in (None, "int8"):
-        raise ValueError(f"quant={quant!r}: the port has None (bf16) and 'int8'")
+    and the decode products run through the int8 kernels. ``"int8-all"``
+    adds the W8A8 tile tower (runtime/quantize.quantize_vit_int8); the
+    compact char tower stays bf16, as in the JAX builders."""
+    if quant not in (None, "int8", "int8-all"):
+        raise ValueError(f"quant={quant!r}: the port has None (bf16), 'int8' and 'int8-all'")
     dev = require_device(device)
     cfg = get_config(preset)
     g = torch.Generator(device=dev).manual_seed(seed)
-    params = weights.init_params(cfg, g, dtype=torch.bfloat16, device=dev, llm_int8=quant == "int8")
-    if quant == "int8":
+    params = weights.init_params(cfg, g, dtype=torch.bfloat16, device=dev,
+                                 llm_int8=quant is not None)
+    if quant is not None:
         params["llm"], llm_cfg = internlm2.pad_vocab(params["llm"], cfg.llm, 128)
         cfg = dataclasses.replace(cfg, llm=llm_cfg)
-    cfg, loaded = weights.overlay_trained_assets(params, cfg, dtype=torch.bfloat16, device=dev)
+    if quant == "int8-all":
+        params["vision"] = quantize.quantize_vit_int8(params["vision"])
+    cfg, loaded = weights.overlay_trained_assets(params, cfg, dtype=torch.bfloat16, device=dev,
+                                                 names=assets)
     if loaded:
         print(f"[engine] trained assets loaded: {', '.join(loaded)}", file=sys.stderr)
-    return CalliReaderEngine(cfg, params, InternLM2Tokenizer(tokenizer_path), device=dev)
+    engine = CalliReaderEngine(cfg, params, InternLM2Tokenizer(tokenizer_path), device=dev,
+                               **engine_options)
+    engine.assets = loaded
+    return engine

@@ -1,28 +1,30 @@
-"""Weight-only int8 quantization of the LLM (PyTorch port of
-callireader_tpu/runtime/quantize.py, the LLM half).
+"""int8 quantization (PyTorch port of callireader_tpu/runtime/quantize.py):
+weight-only int8 for the LLM, and the W8A8 ViT of ``--quant int8-all``.
 
 Scheme: symmetric per-output-channel absmax scales.
   w (.., in, out)  ->  q int8 (.., in, out), scale f32 (.., 1, out)
   y = (h @ q) * scale
 
-Quantized leaves sit in the same tree as ``{name}_q`` + ``{name}_scale``;
-models/internlm2 dispatches on their presence. The arithmetic is the JAX
+Quantized leaves sit in the same tree as ``{name}_q`` + ``{name}_scale``
+(the ViT's as ``{name}_kernel_q`` + ``{name}_kernel_scale``); models/internlm2
+and models/internvit dispatch on their presence. The arithmetic is the JAX
 package's (fp32 division by the scale, round half to even, clip to
 [-127, 127]), so the same fp32 tree quantizes to the same bits in both.
 
 Not ported here: the sharding-axis helpers (they wait for the port's
-parallel layer) and the W8A8 ViT of ``--quant int8-all``.
+parallel layer).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
 from callireader_tpu_torch.core.config import LLMConfig
 
 QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+VIT_QUANT_TARGETS = ("qkv", "proj", "fc1", "fc2")
 FUSED = (("wqkv", ("wq", "wk", "wv")), ("w13", ("w1", "w3")))
 
 
@@ -52,6 +54,45 @@ def quantize_llm_int8(llm_params: Dict[str, Any]) -> Dict[str, Any]:
     out["layers"] = layers
     for name in ("tok_embeddings", "output"):
         out[f"{name}_q"], out[f"{name}_scale"] = _quant(out.pop(name), (1,))
+    return out
+
+
+def quantize_vit_int8(vision_params: Dict[str, Any],
+                      targets: Sequence[str] = VIT_QUANT_TARGETS) -> Dict[str, Any]:
+    """New ViT tree with int8 layer linears: the stacked ``{name}_kernel``
+    (L, in, out) become ``{name}_kernel_q`` int8 and per-(layer, out-channel)
+    ``{name}_kernel_scale`` fp32 (L, 1, out). Patch-embed, the norms and the
+    layer scales stay as they are; models/internvit runs the quantized
+    linears as W8A8. Each layer's (in, out) codes are laid out column-major
+    (strides (in * out, 1, in)): torch._int_mm on the H100 takes 4.7-7x
+    longer over a row-major right operand at the towers' shapes."""
+    out = dict(vision_params)
+    layers = dict(out["layers"])
+    for name in targets:
+        q, layers[f"{name}_kernel_scale"] = _quant(layers.pop(f"{name}_kernel"), (1,))
+        layers[f"{name}_kernel_q"] = q.transpose(1, 2).contiguous().transpose(1, 2)
+    out["layers"] = layers
+    return out
+
+
+def dequantize_llm_int8(llm_params: Dict[str, Any], targets: Sequence[str] = QUANT_TARGETS,
+                        dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Inverse of quantize_llm_int8: ``{name}_q`` / ``{name}_scale`` leaves
+    folded back to dense weights, q * scale in fp32 then ``dtype`` (the int8
+    rounding of the original weights)."""
+    out = dict(llm_params)
+    layers = dict(out["layers"])
+    for name in targets:
+        q = layers.pop(f"{name}_q", None)
+        if q is None:
+            continue
+        layers[name] = (q.float() * layers.pop(f"{name}_scale")).to(dtype)
+    out["layers"] = layers
+    for name in ("tok_embeddings", "output"):
+        q = out.pop(f"{name}_q", None)
+        if q is None:
+            continue
+        out[name] = (q.float() * out.pop(f"{name}_scale")).to(dtype)
     return out
 
 

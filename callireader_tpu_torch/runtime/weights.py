@@ -15,7 +15,7 @@ import dataclasses
 import json
 import math
 from pathlib import Path
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -287,26 +287,33 @@ def apply_v3_asset(cfg: VLMConfig, path, dtype, device):
     return stack, dataclasses.replace(cfg, char_vision=vcfg, resampler=rcfg), meta
 
 
-def overlay_trained_assets(params: Dict, cfg: VLMConfig, *, dtype, device) -> Tuple[VLMConfig, List[str]]:
-    """The committed detector, OrderFormer and compact CalliAlign tower over a
-    random init, where the preset's architecture matches them (the JAX
-    cli/common._overlay_trained_assets rule). Returns (cfg, loaded names)."""
+TRAINED_ASSETS = ("detector", "orderformer", "callialign")
+
+
+def overlay_trained_assets(params: Dict, cfg: VLMConfig, *, dtype, device,
+                           names: Sequence[str] = TRAINED_ASSETS) -> Tuple[VLMConfig, List[str]]:
+    """The committed detector, OrderFormer and compact CalliAlign tower (those
+    of them in ``names``) over a random init, where the preset's architecture
+    matches them (the JAX cli/common._overlay_trained_assets rule). Returns
+    (cfg, loaded names)."""
     loaded = []
     det_d, of_d = DetectorConfig(), OrderFormerConfig()
-    if all(getattr(cfg.detector, f) == getattr(det_d, f) for f in
-           ("num_classes", "depth_mult", "width_mult", "max_channels", "reg_max", "img_size")):
+    if "detector" in names and all(
+            getattr(cfg.detector, f) == getattr(det_d, f) for f in
+            ("num_classes", "depth_mult", "width_mult", "max_channels", "reg_max", "img_size")):
         path = ASSETS_DIR / "detector_640.npz"
         if path.exists():
             params["detector"] = detector_mod.load_npz(str(path), device)
             loaded.append("detector")
-    if all(getattr(cfg.orderformer, f) == getattr(of_d, f) for f in
-           ("input_dim", "model_dim", "num_heads", "num_layers", "output_dim", "ff_dim")):
+    if "orderformer" in names and all(
+            getattr(cfg.orderformer, f) == getattr(of_d, f) for f in
+            ("input_dim", "model_dim", "num_heads", "num_layers", "output_dim", "ff_dim")):
         path = ASSETS_DIR / "orderformer.npz"
         if path.exists():
             params["orderformer"] = detector_mod.load_npz(str(path), device)
             loaded.append("orderformer")
     ca = ASSETS_DIR / "callialign.npz"
-    if (cfg.resampler == ResamplerConfig() and cfg.char_vision is None
+    if ("callialign" in names and cfg.resampler == ResamplerConfig() and cfg.char_vision is None
             and cfg.llm.hidden_size == 4096 and ca.exists() and asset_version(ca) >= 3):
         stack, cfg, _meta = apply_v3_asset(cfg, ca, dtype, device)
         params.update(stack)

@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught and continued):
   1. build: compile every CUDA kernel of the port (one nvcc per source, in
      parallel) and print the card's name and power limit;
-  2. main path, callireader-2b: build_engine("callireader-2b") with seeded
-     random weights and the committed trained detector / OrderFormer /
+  2. main path, callireader-2b: build_engine("callireader-2b",
+     device_tile_pages=True: pages tiled on the device) with seeded random
+     weights and the committed trained detector / OrderFormer /
      compact CalliAlign tower, then batch_chat_ocr (batch_prepare +
      batch_decode) on synthetic 788x2000 pages. Launch counts are zeroed just
      before and read just after; every attention kernel must have launched,
@@ -24,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      PyTorch library call (scaled_dot_product_attention, a yardstick the port
      never calls) timed with CUDA events; the least time the card could take
      (bound) computed from this run's inputs. The 2b engine is then freed;
-  5. main path, flagship: build_engine("callireader-8b", quant="int8") (24-
+  5. main path, flagship: build_engine("callireader-8b", quant="int8",
+     device_tile_pages=True) (24-
      layer tile tower, 32-layer LLM with int8 weight-only fused projections
      and a 128-padded int8 vocab) and batch_chat_ocr on the same pages with
      256 new tokens. All counts zeroed before, read after: every kernel must
@@ -79,6 +81,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      decode step beside the yardstick: gather of the slots' pages +
      scaled_dot_product_attention, which the port never calls), each entry
      carrying that run's launch counts;
+ 20. bench, short run (after phase 13, on the same engine): the port's
+     bench row code (callireader_tpu_torch/bench.py: its detector rule and
+     measure()) with 8 pages a batch: the warm-up batch, 2 TTFT samples, one
+     warm and 3 steady pipelined intervals, 256 tokens a batch. Counts zeroed before,
+     read after: every kernel of the 8b path launched, flash_decode and the
+     int8 kernels once a layer and step; every batch decodes 256 tokens; the
+     phased box stages give batch_sort_boxes' boxes; the row's JSON and the
+     combined line are under 2000 characters; flash_decode is held against
+     its plain version at the bench's batch of 8;
+ 21. W8A8 (``--quant int8-all``): the tile tower quantized by
+     quantize_vit_int8 on one page's tiles, and the shared char tower at the
+     448 canvas on the page's crops (the engine's raw-crop route), against
+     the bf16 towers: features within W8A8_REL_TOL relative L2; the int32
+     sums of the first layer's four products (torch._int_mm) equal an exact
+     fp64 product over W8A8_EXACT_ROWS rows; the ViT kernel against its
+     plain version at the char tower's shape;
  14. train, e-IT, callireader-8b bf16: four synthetic pages become e-IT data
      the way a user prepares it (uint8 .npy pages, pseudo embeddings from the
      int8 engine's batch_calli_align as .npy, a JSONL of question and text),
@@ -116,6 +134,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      vocabulary, 2 records in results/recognition.json; one merged bf16 leaf
      equals base + scale * a @ b of the checkpoint before it is quantized.
      Spans, prefill seconds, ms per decode step and peak memory are printed;
+     the int8 kernels against their plain versions at the CLI's one row
+     (M = 1), every launch of the run at that shape;
  18. beams and chat on that engine: chat_ocr with num_beams=4 (flash_decode
      at B=4, 32 launches a step, the best beam within 128 tokens), chat
      without CalliAlign and cli.chat's stream_generate for 64 tokens;
@@ -145,6 +165,7 @@ port's sources next to it.
 """
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -166,8 +187,6 @@ MAX_NEW_TOKENS_8B = 256
 SERVE_SLOTS, SERVE_PAGE, SERVE_PAGES_PER_SLOT = 8, 128, 32  # serve --slots 8 --max-len 4096
 SERVE_NEW_TOKENS = 256
 PRESSURE_FREE_PAGES, PRESSURE_NEW_TOKENS = 118, 160
-PAGE_W, PAGE_H = 788, 2000
-N_COLS, CHARS_PER_COL = 6, 16
 QUESTION = "读出图中所有文字。"
 # e-IT answers: the pages' "text", drawn from the Thousand Character Classic
 TRAIN_TEXT = ("天地玄黄宇宙洪荒日月盈昃辰宿列张寒来暑往秋收冬藏闰余成岁律吕调阳云腾致雨露结为霜金生丽水玉出昆冈"
@@ -180,6 +199,12 @@ TRAIN_CEILING = 8192  # the recipe's max_length
 REF_GRAD_CAP = 7e-2
 TRAIN_FROZEN = (("llm", "layers", "wq"), ("llm", "layers", "w2"), ("llm", "layers", "attn_norm"),
                 ("llm", "output"), ("vision", "layers", "fc1_kernel"))
+# phase 20: the bench's short run, batches of intervals (3 steady ones)
+BENCH_SHORT_BATCHES = 4
+# phase 21: W8A8 towers against the bf16 towers (features rel L2), and the
+# rows of each int32 product held to an exact fp64 product
+W8A8_REL_TOL = 5e-2
+W8A8_EXACT_ROWS = 512
 NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_fused", "rms_norm_bwd_fused")
 # H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor cores (data sheet)
 PEAK_BYTES_S = 3.35e12
@@ -187,27 +212,13 @@ PEAK_BF16_FLOPS = 989e12
 
 
 def make_page(seed: int = 0):
-    """Synthetic calligraphy page: 6 columns of 16 dark glyph blocks on
-    noisy paper (the layout of the repo's bench page). -> (page, boxes)."""
-    rng = np.random.RandomState(seed)
-    page = np.full((PAGE_H, PAGE_W, 3), 235, np.uint8)
-    page += rng.randint(0, 18, page.shape).astype(np.uint8)
-    boxes = []
-    col_w = PAGE_W // (N_COLS + 1)
-    for c in range(N_COLS):
-        x0 = PAGE_W - (c + 1) * col_w - 20
-        for r in range(CHARS_PER_COL):
-            y0 = 40 + r * (PAGE_H - 80) // CHARS_PER_COL
-            w = rng.randint(55, 75)
-            h = rng.randint(55, 75)
-            glyph = np.full((h, w, 3), 245, np.uint8)
-            for _ in range(6):
-                sx, sy = rng.randint(0, w - 8), rng.randint(0, h - 8)
-                glyph[sy:sy + rng.randint(4, h - sy), sx:sx + rng.randint(3, 8)] = rng.randint(10, 60)
-                glyph[sy:sy + rng.randint(3, 8), sx:sx + rng.randint(4, w - sx)] = rng.randint(10, 60)
-            page[y0:y0 + h, x0:x0 + w] = glyph
-            boxes.append([float(x0), float(y0), float(x0 + w), float(y0 + h)])
-    return page, boxes
+    """The bench's synthetic calligraphy page (callireader_tpu_torch/bench.py:
+    6 columns of 16 dark glyph blocks on noisy paper) -> (page, boxes);
+    imported here so that the script alone, without the port, still starts
+    and fails with its message."""
+    from callireader_tpu_torch.bench import make_page as bench_page
+
+    return bench_page(seed)
 
 
 def fail(msg: str) -> None:
@@ -913,6 +924,15 @@ def cli_phases(h, final_dir, work):
     engine = kept["engine"]
     h.keep_norms("cli", shapes, launches)
     h.flash_decode_row("cli", shapes, launches)
+    # the (K, N) kernel and the LM head at the CLI's one row: every launch of
+    # the run at M = 1, a quarter of the (K, N) launches per projection
+    counts = h.int8_rows("cli", shapes, launches, engine.params["llm"])
+    want = {**{(label, 1): launches["int8_matmul"] // 4 for label in ("wqkv", "wo", "w13", "w2")},
+            ("lm_head", 1): launches["int8_matmul_nt"]}
+    if counts != want:
+        fail(f"[cli] int8 launches by projection and rows {counts}, expected {want}")
+    log("[cli] int8 launches by projection and rows: "
+        + ", ".join(f"{label} M={M}: {n}" for (label, M), n in counts.items()))
 
     # the merged leaf: base + scale * a @ b from the checkpoint, before int8
     saved = torch.load(os.path.join(final_dir, "state.pt"), map_location="cpu", mmap=True,
@@ -991,6 +1011,142 @@ def cli_phases(h, final_dir, work):
     if len(hist) != 1 or hist[0][1] != resp or not out.getvalue().endswith("\n"):
         fail("[stream] stream_generate did not stream a whole turn")
     log(f"[stream] stream_generate: {len(out.getvalue())} characters streamed")
+
+
+def bench_phase(h, engine, batch_path):
+    """Phase 20: the port's bench row code in-process on the 8b int8 engine
+    (callireader_tpu_torch/bench.py's detector rule and measure(): the
+    warm-up batch, 2 TTFT samples, one warm and 3 steady pipelined intervals
+    of 8 pages x 256 tokens), every count zeroed just before and read just
+    after."""
+    import torch
+
+    from callireader_tpu_torch import bench
+    from callireader_tpu_torch.models import internlm2
+
+    page, gt = bench.make_page()
+    saved = engine.detector, engine.params["detector"]
+    det_mode = bench.choose_detector(engine, page, gt, smoke=False, gt_boxes=False)
+    n_chars = len(engine.sort_boxes(page)) if det_mode == "trained_ckpt" else len(gt)
+    # one warm interval: on the port the first after the primed batch holds
+    # no decode (that batch decoded inside batch_prepare)
+    protocol = bench.Protocol(batch=8, n_batches=BENCH_SHORT_BATCHES, n_ttft=2,
+                              max_warm_batches=1)
+    engine.timings.spans.clear()
+    h.zero_counts()
+    t0 = time.time()
+    with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill", "decode_step")) as st:
+        run = bench.measure(engine, page, protocol, n_chars=n_chars)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = h.read_counts()
+    engine.detector, engine.params["detector"] = saved
+    L = engine.cfg.llm.num_hidden_layers
+    n_pre, n_dec = st.n["prefill"], st.n["decode_step"]
+    # every batch decodes 256 tokens (measure() checks each batch's lengths):
+    # the warm-up, the primed batch and the warm and measured intervals'
+    # launches, 256 decode steps each; prefills: those batches' and the 4
+    # TTFT calls'
+    n_batches = 2 + 1 + BENCH_SHORT_BATCHES - 1
+    if run.n_decodes != n_batches or n_dec != n_batches * protocol.decode_tokens \
+            or n_pre != n_batches + 2 + protocol.n_ttft:
+        fail(f"[bench] {run.n_decodes} batches, {n_pre} prefills and {n_dec} decode steps; "
+             f"expected {n_batches}, {n_batches + 2 + protocol.n_ttft} and {n_batches} x "
+             f"{protocol.decode_tokens}")
+    missing = [n for n in batch_path if launches[n] == 0]
+    if missing:
+        fail(f"[bench] kernels never launched on the bench path: {missing}; {launches}")
+    if launches["flash_decode"] != L * n_dec or launches["int8_matmul"] != 4 * L * n_dec \
+            or launches["int8_matmul_nt"] != n_dec + n_pre:
+        fail(f"[bench] launches {launches} for {n_pre} prefills and {n_dec} decode steps")
+    h.check_norms("bench", launches, L, n_pre + n_dec)
+    if run.phased_boxes != run.fused_boxes:
+        fail("[bench] the phased box stages and batch_sort_boxes gave other boxes")
+    result = dict(run.result)
+    n_tiles = result.pop("tiles_per_image")
+    result["workload"] = {"batch": 8, "preset": "callireader-8b", "quant": "int8",
+                          "page": "synthetic_clone", "detector": det_mode,
+                          "chars_per_image": n_chars, "tiles_per_image": n_tiles,
+                          "char_canvas": engine.char_canvas,
+                          "decode_tokens": protocol.decode_tokens,
+                          "stages": bench.STAGES, "device": bench.card_description()}
+    line = bench.combined_line({"flagship_8b_int8": result}, ["flagship_8b_int8"])
+    if len(json.dumps(result, ensure_ascii=False)) >= 2000 or len(line) >= 2000 \
+            or json.loads(line)["value"] != result["value"]:
+        fail(f"[bench] the row's line ({len(json.dumps(result))}) or the combined line "
+             f"({len(line)}) is not a short JSON line")
+    log(f"[bench] short run on the 8b int8 engine, {wall:.1f} s: detector {det_mode}, "
+        f"{n_chars} chars, {n_tiles} tiles a page; phased boxes equal batch_sort_boxes' "
+        f"({sum(len(b) for b in run.phased_boxes)} boxes over 8 pages); {n_batches} batches x 8 rows "
+        f"x {protocol.decode_tokens} tokens; {json.dumps(result)}")
+    log(f"[bench] combined line ({len(line)} characters): {line}")
+    h.flash_decode_row("bench", shapes, launches)
+
+
+def w8a8_phase(h, engine):
+    """Phase 21: the W8A8 tile tower (``--quant int8-all``) on one page's
+    tiles and the shared char tower at the 448 canvas on the page's crops,
+    against the bf16 towers on the same inputs; the int32 sums of each of
+    the first layer's four products against an exact (fp64) product on a
+    slice of rows; the ViT kernel at both towers' shapes."""
+    import torch
+
+    from callireader_tpu_torch.models import internvit
+    from callireader_tpu_torch.runtime.engine import CalliReaderEngine
+    from callireader_tpu_torch.runtime.quantize import quantize_vit_int8
+    from callireader_tpu_torch.vision import preprocess
+    from callireader_tpu_torch.vision.device_resize import bicubic_canvas
+
+    cfg = engine.cfg
+    vit, proj = engine.params["vision"], engine.params["projector"]
+    vit8 = quantize_vit_int8(vit)
+    page, boxes = make_page(0)
+    tiles = engine._to_dev(preprocess.load_image(page, cfg.force_image_size, cfg.max_dynamic_patch,
+                                                 cfg.use_thumbnail))
+    # the shared tower's char canvases: the engine's raw-crop route at 448
+    shared = CalliReaderEngine(dataclasses.replace(cfg, char_vision=None), {}, engine.tok,
+                               device=engine.device)
+    crops = [page[int(y1):int(y2), int(x1):int(x2)] for x1, y1, x2, y2 in boxes]
+    groups, host_idx = shared._prep_char_raw_groups(crops)
+    if host_idx or shared.char_canvas != 448:
+        fail(f"[w8a8] {len(host_idx)} crops off the device route, canvas {shared.char_canvas}")
+    canvases = torch.cat([bicubic_canvas(engine._to_dev(raw), engine._to_dev(src),
+                                         engine._to_dev(tgt), 448) for _, raw, src, tgt in groups])
+    canvases = canvases[..., None].expand(*canvases.shape, 3)
+    products = []
+    product = internvit.int8_product
+
+    def kept_product(hq, q):
+        out = product(hq, q)
+        if len(products) < 4:
+            products.append((hq, q, out))
+        return out
+
+    rel = {}
+    h.zero_counts()
+    with torch.inference_mode(), ShapeLog(h.kernels) as shapes:
+        for label, x in (("tile tower", tiles), ("shared char tower at 448", canvases)):
+            products.clear()
+            with Swap(internvit, int8_product=kept_product):
+                f8 = engine._encode_tower(vit8, proj, cfg.vision, x).float()
+            f16 = engine._encode_tower(vit, proj, cfg.vision, x).float()
+            rel[label] = ((f8 - f16).norm() / f16.norm()).item()
+            for i, (hq, q, out) in enumerate(products):
+                rows = hq.reshape(-1, hq.shape[-1])[:W8A8_EXACT_ROWS]
+                exact = rows.double() @ q.double()
+                if not torch.equal(out.reshape(-1, out.shape[-1])[:W8A8_EXACT_ROWS].double(), exact):
+                    fail(f"[w8a8] {label}: the int32 sums of layer 0's product {i} differ from "
+                         f"the exact product")
+            log(f"[w8a8] {label}: {tuple(x.shape)}, features rel L2 error {rel[label]:.3e} against "
+                f"the bf16 tower (tol {W8A8_REL_TOL}); layer 0's four products "
+                f"{[tuple(q.shape) for _, q, _ in products]} exact over {W8A8_EXACT_ROWS} rows")
+            del f8, f16
+    launches = h.read_counts()
+    if any(r > W8A8_REL_TOL for r in rel.values()):
+        fail(f"[w8a8] the W8A8 towers stray from the bf16 towers: {rel}")
+    h.vit_rows("w8a8", shapes, launches)
+    del vit8, tiles, canvases
+    torch.cuda.empty_cache()
 
 
 def norm_rows(h):
@@ -1346,7 +1502,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- 2. main path, 2b
     t0 = time.time()
-    engine = build_engine("callireader-2b", device="cuda")
+    engine = build_engine("callireader-2b", device="cuda", device_tile_pages=True)
     torch.cuda.synchronize()
     log(f"engine built in {time.time() - t0:.1f} s: char tower "
         f"{engine.cfg.char_vision.hidden_size if engine.cfg.char_vision else 'shared'} wide, "
@@ -1534,7 +1690,8 @@ def main() -> int:
     h = types.SimpleNamespace(torch=torch, dev=dev, kernels=kernels, zero_counts=zero_counts,
                               read_counts=read_counts, rnd=rnd, bound=bound, row_for=row_for,
                               results=results, plain_rms=plain_rms, check_norms=check_norms,
-                              flash_decode_row=flash_decode_row, norm_shapes={})
+                              flash_decode_row=flash_decode_row, vit_rows=vit_rows,
+                              norm_shapes={})
 
     def keep_norms(path, shapes, launches):
         """The RMSNorm launches of ``path`` by shape, for phase 19."""
@@ -1559,7 +1716,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- 5. main path, 8b int8
     t0 = time.time()
-    engine = build_engine("callireader-8b", device="cuda", quant="int8")
+    engine = build_engine("callireader-8b", device="cuda", quant="int8", device_tile_pages=True)
     torch.cuda.synchronize()
     cfg = engine.cfg.llm
     llm = engine.params["llm"]
@@ -1669,10 +1826,12 @@ def main() -> int:
                     time_k=lambda: time_k(x))
         results.setdefault(name, []).append((f"{label} {M}x{K}x{N}", n_launch, r))
 
-    def int8_rows(path, shapes, launches):
+    def int8_rows(path, shapes, launches, llm=llm):
         """Each int8 kernel against its plain version at every (M, K, N)
-        ``path`` launched it with (the four layer projections at the last
-        layer, the LM head) -> {(projection, M): launches}."""
+        ``path`` launched it with (the four layer projections of ``llm``'s
+        last layer, the LM head) -> {(projection, M): launches}."""
+        layers = llm["layers"]
+        L = layers["wqkv_q"].shape[0]
         kn_shapes = {}
         for shape in shapes.calls["int8_matmul"]:
             kn_shapes[shape] = kn_shapes.get(shape, 0) + 1
@@ -1736,6 +1895,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         return counts
 
+    h.int8_rows = int8_rows
     counts = int8_rows("8b", run8.shapes, launches_8b)
     M = N_PAGES
     want = {**{(label, M): L * n_steps for label in ("wqkv", "wo", "w13", "w2")},
@@ -2080,6 +2240,10 @@ def main() -> int:
                     ("lm_head", SERVE_SLOTS): serve1.n_dec + 1}
             if counts != want:
                 fail(f"[serve] int8 launches by projection and rows {counts}, expected {want}")
+
+    # ---------------------------------------------------------- 20-21. bench, W8A8
+    bench_phase(h, engine, batch_path)
+    w8a8_phase(h, engine)
 
     # ---------------------------------------------------------- 14-16. training
     work = tempfile.mkdtemp(prefix="chip_smoke_eit_")

@@ -49,7 +49,7 @@ def engines():
                    policy=J_FP32, use_flash=False, device_tile_pages=True)
     np_params = jax.tree_util.tree_map(np.asarray, params)
     teng = TEngine(t_tiny(), from_jax_params(np_params, device="cpu"), TTok(),
-                   device="cpu", policy=T_FP32)
+                   device="cpu", policy=T_FP32, device_tile_pages=True)
     return jeng, teng
 
 

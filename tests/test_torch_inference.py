@@ -94,7 +94,8 @@ def engines():
     jeng = JEngine(cfg, params, JTok("callireader_tpu/assets/tokenizer.model"),
                    policy=J_FP32, use_flash=False)
     teng = TEngine(t_tiny(), from_jax_params(jax.tree_util.tree_map(np.asarray, params),
-                                             device="cpu"), TTok(), device="cpu", policy=T_FP32)
+                                             device="cpu"), TTok(), device="cpu", policy=T_FP32,
+                   device_tile_pages=True)
     for eng in (jeng, teng):
         eng.sort_boxes = _boxes
     return jeng, teng
@@ -268,8 +269,8 @@ def test_inference_cli_matches_jax(engines, tmp_path, monkeypatch, capsys):
     assert [r["response"] for r in recs] == ["ERROR!"] * 3
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8-all"], ["--mesh", "tensor=4"],
-                                  ["--checkpoint", "ckpt"], ["--char-canvas", "364"], []])
+@pytest.mark.parametrize("flag", [["--mesh", "tensor=4"], ["--checkpoint", "ckpt"],
+                                  ["--no-trained-assets"], []])
 def test_inference_cli_refuses_what_is_not_ported(tmp_path, capsys, flag):
     argv = ["--tgt", str(tmp_path), "--preset", "callireader-tiny", "--device", "cpu", *flag]
     if flag:

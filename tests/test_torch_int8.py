@@ -357,7 +357,7 @@ def test_batch_chat_ocr_int8_tokens_match_jax():
     tcfg = tconfig.callireader_tiny()
     _, tllm_cfg = tllm.pad_vocab({}, tcfg.llm, 128)
     teng = TEngine(dataclasses.replace(tcfg, llm=tllm_cfg), _t(params), TTok(), device="cpu",
-                   policy=T_FP32)
+                   policy=T_FP32, device_tile_pages=True)
     assert teng.cfg.llm.vocab_size == 92672 and teng.cfg.llm.real_vocab_size == 92554
 
     (p0, b0), (p1, b1) = _page(0, 70, 96), _page(1, 100, 90)
