@@ -35,12 +35,10 @@ Protocol (bench.py's, step for step):
   value = batch / median(steady intervals); spread = IQR / median.
 Each interval ends with ``torch.cuda.synchronize()`` before the host clock is
 read. The pipelined schedule is bench.py's (box stages of later batches
-around the decode sync), but the port's ``batch_prepare`` runs the whole
-decode before it returns, so on the port nothing overlaps a decode:
-``device_wait_s`` is near 0 and an interval is the front half and the
-decode one after the other. The first interval after the primed batch holds
-no decode (that batch decoded inside ``batch_prepare``); it falls in the
-warm-up.
+around the decode sync): ``batch_prepare`` enqueues the prefill and every
+chunk of the decode (CUDA graph replays) and returns, so the host builds
+the next batch while the card decodes this one, and ``device_wait_s`` is
+the part of the decode the host's work did not hide.
 
 Knobs (bench.py's): BENCH_PRESET, BENCH_QUANT (int8 | int8-all),
 BENCH_BATCH, BENCH_CALLIALIGN (0: the shared tower at the 448 canvas),

@@ -11,7 +11,11 @@ CUDA stream, raises if the C function returns a non-zero
 ``cudaGetLastError()``, and adds one to ``launches``. A decode step launches
 a few hundred small kernels from the host, so the call takes the stream's
 raw handle straight from PyTorch's C layer instead of building a
-``torch.cuda.Stream`` object each time.
+``torch.cuda.Stream`` object each time. Every ``LaunchCount`` (each
+``CudaKernel``, and the model's count of decode steps) is listed in
+``COUNTS``: a CUDA graph capture records launches that have not run, and
+runtime/decode_graph.py takes them off again and adds them back at each
+replay.
 """
 
 from __future__ import annotations
@@ -154,14 +158,26 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-class CudaKernel:
+class LaunchCount:
+    """A count of launches that graph replays keep true (``COUNTS``)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        COUNTS.append(self)
+
+
+COUNTS: List[LaunchCount] = []
+
+
+class CudaKernel(LaunchCount):
     """One C entry point of one source file, with its launch count."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        super().__init__(symbol)
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.launches = 0
         self._fn = None
 
     def entry_in(self, lib: ctypes.CDLL):

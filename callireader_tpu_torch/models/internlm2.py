@@ -23,19 +23,28 @@ adds ``((h @ a) @ b) * scale`` in ``h``'s dtype, as the JAX ``_proj`` does.
 Entry points: ``forward`` (the full-sequence forward of training, no cache;
 attention through kernels.attention_bwd.flash_attention_trainable, which
 autograd differentiates; ``remat=True`` recomputes each layer in the
-backward), ``prefill`` (prompt -> last logits + a fresh cache; attention
-through kernels.attention.flash_attention) and ``decode_step`` (one token;
-kernels.decode_attention.flash_decode over the stacked cache). The KV cache
-is one preallocated (L, B, Hkv, max_len, D) buffer per K and V that both
-entry points write IN PLACE: prefill fills [0, S), each decode step writes
-slot ``cache.length`` of every layer. For serving: ``prefill_with_prefix``
-(suffix-only prefill over a cached prefix KV) and ``decode_step_multislot``
-(every slot of a caller-owned cache advances one token at its own position).
+backward), ``prefill`` (prompt -> last logits + a fresh or caller-owned
+cache; attention through kernels.attention.flash_attention) and
+``decode_step`` (one token; kernels.decode_attention.flash_decode over the
+stacked cache). The KV cache is one preallocated (L, B, Hkv, max_len, D)
+buffer per K and V that both entry points write IN PLACE: prefill fills
+[0, S), each decode step writes slot ``cache.length`` of every layer.
+``decode_step_at`` is the same step with its slot in a device tensor, so a
+CUDA graph of it (runtime/decode_graph.py) reads the slot anew at each
+replay. For serving: ``prefill_with_prefix`` (suffix-only prefill over a
+cached prefix KV) and ``decode_step_multislot`` (every slot of a
+caller-owned cache advances one token at its own position).
+
+Nothing on the decode step copies host data to the card, reads the card
+from the host or allocates outside PyTorch's allocator, so the step can be
+captured in a CUDA graph; ``DECODE_STEPS`` counts the decode steps run (a
+``LaunchCount``, kept true under replays).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -45,12 +54,14 @@ from torch.utils.checkpoint import checkpoint
 from callireader_tpu_torch.core.config import LLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.kernels import rmsnorm as k_rmsnorm
+from callireader_tpu_torch.kernels._build import LaunchCount
 from callireader_tpu_torch.kernels.attention import flash_attention
 from callireader_tpu_torch.kernels.attention_bwd import flash_attention_trainable
 from callireader_tpu_torch.kernels.decode_attention import flash_decode
 from callireader_tpu_torch.kernels.int8_matmul import BLOCK, MAX_ROWS, int8_matmul, int8_matmul_nt
 
 Params = Dict[str, Any]
+DECODE_STEPS = LaunchCount("decode_step")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, policy: DTypePolicy) -> torch.Tensor:
@@ -72,6 +83,17 @@ def _inv_freq(cfg: LLMConfig, base, device) -> torch.Tensor:
     return 1.0 / (base ** exps)
 
 
+@functools.lru_cache(maxsize=None)
+def _fixed_inv_freq(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The RoPE frequencies at the configured base, made once per (width,
+    base, device): a host scalar copied to the card on every step would be a
+    copy that a CUDA graph capture refuses. A normal tensor (not an inference
+    one), so that training may read it too."""
+    with torch.inference_mode(False):
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+        return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exps)
+
+
 def cos_sin_for(cfg: LLMConfig, positions: torch.Tensor, kv_seq_len: int):
     """RoPE tables (B, S, D) for integer positions (B, S). Dynamic NTK
     rescales the base once the run's sequence (max position + 1) exceeds
@@ -88,7 +110,7 @@ def cos_sin_for(cfg: LLMConfig, positions: torch.Tensor, kv_seq_len: int):
         base = torch.where(seq > mpe, scaled, torch.full_like(scaled, cfg.rope_theta))
         inv = _inv_freq(cfg, base, dev)
     else:
-        inv = _inv_freq(cfg, torch.tensor(cfg.rope_theta, dtype=torch.float32, device=dev), dev)
+        inv = _fixed_inv_freq(cfg.head_dim, float(cfg.rope_theta), dev)
     freqs = pos[..., None] * inv
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
@@ -296,9 +318,12 @@ def prefill(
     max_len: int,
     cache_dtype=torch.bfloat16,
     policy: DTypePolicy = DEFAULT_POLICY,
+    cache: Optional[KVCache] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prompt -> (last logits (B, V), cache of capacity ``max_len`` with
-    length S). Padded positions get segment id -1 and position 0."""
+    length S). Padded positions get segment id -1 and position 0. ``cache``:
+    a caller-owned cache of that capacity (and ``cache_dtype``) to fill in
+    place instead of a fresh one; its slots from S on keep what they held."""
     x = inputs_embeds.to(policy.compute_dtype)
     B, S, _ = x.shape
     dev = x.device
@@ -306,7 +331,11 @@ def prefill(
     positions = torch.clamp(torch.cumsum(attention_mask, dim=1) - 1, min=0)
     segment_ids = torch.where(attention_mask > 0, 0, -1).to(torch.int32)
     cos, sin = cos_sin_for(cfg, positions, max(S, 1))
-    cache = KVCache.create(cfg, B, max_len, cache_dtype, dev)
+    if cache is None:
+        cache = KVCache.create(cfg, B, max_len, cache_dtype, dev)
+    elif cache.k.shape[1] != B or cache.max_len != max_len or cache.k.dtype != cache_dtype:
+        raise ValueError(f"the cache holds {cache.k.shape[1]} rows x {cache.max_len} slots of "
+                         f"{cache.k.dtype}, the prefill {B} x {max_len} of {cache_dtype}")
 
     for i in range(cfg.num_hidden_layers):
         p = _layer(params, i)
@@ -344,6 +373,7 @@ def decode_layers(
     (each (B, Hkv, D)) and ``attend(layer, q)`` maps the RoPE'd query
     (B, Hq, 1, D) to the context of the same shape, reading what was just
     written."""
+    DECODE_STEPS.launches += 1
     x = embed_tokens(params, input_ids, policy.compute_dtype)
     B, S, _ = x.shape
     cos, sin = cos_sin_for(cfg, positions, kv_seq_len)
@@ -371,7 +401,9 @@ def decode_step(
     policy: DTypePolicy = DEFAULT_POLICY,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One token for every row -> (logits (B, V), cache). Writes slot
-    ``cache.length`` of every layer in place and advances ``cache.length``.
+    ``cache.length`` of every layer in place and advances ``cache.length``:
+    ``decode_step_at`` at that slot. An int32 ``kv_valid_mask`` gets the slot
+    marked in place; None attends [0, slot].
 
     RoPE uses ``cache.length`` (the bucket slot), as the JAX decode_step does
     when called without positions (generate.py); for left-padded rows that
@@ -379,26 +411,42 @@ def decode_step(
     reference, kept for token parity)."""
     B = input_ids.shape[0]
     dev = cache.k.device
-    max_len = cache.max_len
     slot = cache.length
-    positions = torch.full((B, 1), slot, dtype=torch.int64, device=dev)
     if kv_valid_mask is None:
-        kv_valid_mask = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
-        kv_valid_mask[:, : slot + 1] = 1
-    else:
-        kv_valid_mask = kv_valid_mask.to(torch.int32).clone()
-        kv_valid_mask[:, slot] = 1  # the freshly written position
-
-    def write_kv(i, k, v):  # in-place single-slot cache write
-        cache.k[i, :, :, slot] = k.to(cache.k.dtype)
-        cache.v[i, :, :, slot] = v.to(cache.v.dtype)
-
-    logits = decode_layers(
-        params, cfg, input_ids=input_ids, positions=positions, kv_seq_len=max_len,
-        write_kv=write_kv, policy=policy,
-        attend=lambda i, q: flash_decode(q, cache.k, cache.v, i, kv_valid_mask))
+        kv_valid_mask = torch.zeros((B, cache.max_len), dtype=torch.int32, device=dev)
+        kv_valid_mask[:, :slot] = 1
+    logits = decode_step_at(
+        params, cfg, input_ids=input_ids, cache=cache, kv_valid=kv_valid_mask.to(torch.int32),
+        slot=torch.full((1,), slot, dtype=torch.int64, device=dev), policy=policy)
     cache.length = slot + 1
     return logits, cache
+
+
+def decode_step_at(
+    params: Params,
+    cfg: LLMConfig,
+    *,
+    input_ids: torch.Tensor,  # (B, 1)
+    cache: KVCache,
+    kv_valid: torch.Tensor,  # (B, max_len) int32, 1 = attendable; slot marked in place
+    slot: torch.Tensor,  # (1,) int64 on the cache's device: the write slot and RoPE position
+    policy: DTypePolicy = DEFAULT_POLICY,
+) -> torch.Tensor:
+    """``decode_step`` with its slot read on the device -> logits (B, V):
+    marks ``kv_valid[:, slot]``, writes the token's K/V at ``slot`` of every
+    layer and attends the marked slots, all in place. ``cache.length`` is the
+    host's bookkeeping and is left alone."""
+    B = input_ids.shape[0]
+    kv_valid.index_fill_(1, slot, 1)  # the freshly written position
+
+    def write_kv(i, k, v):  # in-place single-slot cache write
+        cache.k[i].index_copy_(2, slot, k[:, :, None].to(cache.k.dtype))
+        cache.v[i].index_copy_(2, slot, v[:, :, None].to(cache.v.dtype))
+
+    return decode_layers(
+        params, cfg, input_ids=input_ids, positions=slot.view(1, 1).expand(B, 1),
+        kv_seq_len=cache.max_len, write_kv=write_kv, policy=policy,
+        attend=lambda i, q: flash_decode(q, cache.k, cache.v, i, kv_valid))
 
 
 def prefill_with_prefix(

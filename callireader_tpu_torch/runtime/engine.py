@@ -129,6 +129,9 @@ class CalliReaderEngine:
         self.detector = (detector_mod.Detector(params["detector"], cfg.detector, self.device)
                          if "detector" in params else None)
         self.timings = Timings()
+        # decode steps batch_prepare enqueued after every row of their batch
+        # was done (the pad steps of an enqueued decode)
+        self.pad_steps = 0
 
     # ------------------------------------------------------------------ util
 
@@ -686,8 +689,21 @@ class CalliReaderEngine:
         eos_token_ids: Optional[Tuple[int, ...]] = None,
         prepared_rows: Optional[Dict[str, Any]] = None,
         ordered_lists=None,
+        overlap: bool = True,
     ) -> Dict[str, Any]:
-        """batch_build_rows (or ``prepared_rows``) + prefill + greedy decode."""
+        """Front half of batch_chat_ocr: batch_build_rows (or
+        ``prepared_rows``), then the prefill and the greedy decode put on the
+        stream, returning before the decode retires (the JAX batch_prepare's
+        async dispatch); batch_decode waits for it. ``overlap`` (default):
+        every chunk of the decode is enqueued now, so the host can build the
+        next batch meanwhile (the pipelined schedule of bench.py); ``tokens``
+        and ``lengths`` of the result are device tensors the decode fills.
+        An enqueued decode cannot stop early: the chunks after every row is
+        done run as pad steps (no token changes; batch_decode counts them in
+        ``pad_steps``). ``overlap=False`` (batch_chat_ocr, where nothing
+        overlaps the decode): the decode runs here, looking at ``done``
+        between chunks and stopping at the first boundary where every row is
+        done, as chat_ocr's does."""
         rows = prepared_rows if prepared_rows is not None else self.batch_build_rows(
             images, questions, histories=histories, use_p=use_p, drop_zero=drop_zero,
             hard_vq=hard_vq, ordered_lists=ordered_lists,
@@ -699,21 +715,33 @@ class CalliReaderEngine:
             pad_token_id=self.tok.pad_token_id,
             repetition_penalty=repetition_penalty,
         )
-        with self._span("generate"):
+        t0 = time.perf_counter()
+        with (contextlib.nullcontext() if overlap else self._span("generate")):
             tokens, lengths = gen.generate_from_embeds(
                 self.params["llm"], self.cfg.llm, rows["embeds"], self._to_dev(rows["mask"]),
                 gen_cfg=gen_cfg, max_cache_len=rows["bucket"] + max_new_tokens,
-                policy=self.policy,
+                policy=self.policy, overlap=overlap,
             )
+        if overlap:
+            self.timings.add("generate_dispatch", time.perf_counter() - t0)
         return {"tokens": tokens, "lengths": lengths, "embeds": rows["embeds"],
-                "out_questions": rows["out_questions"], "histories": rows["histories"],
-                "conv_sep": rows["conv_sep"], "n": rows["n"]}
+                "mask": rows["mask"], "bucket": rows["bucket"], "gen_cfg": gen_cfg,
+                "overlap": overlap, "out_questions": rows["out_questions"],
+                "histories": rows["histories"], "conv_sep": rows["conv_sep"], "n": rows["n"]}
 
     def batch_decode(self, prepared: Dict[str, Any], *, return_histories: bool = False):
-        """Token ids -> response text (and histories)."""
+        """Back half of batch_chat_ocr: wait for the decode of batch_prepare
+        (the device-to-host read of its tokens), then token ids -> response
+        text (and histories)."""
         t0 = time.perf_counter()
         tokens = prepared["tokens"].cpu().numpy()
         lengths = prepared["lengths"].cpu().numpy()
+        self.timings.add("generate_wait", time.perf_counter() - t0)
+        if prepared.get("overlap"):
+            prepared["pad_steps"] = gen.pad_steps(tokens, lengths,
+                                                  prepared["gen_cfg"].eos_token_ids)
+            self.pad_steps += prepared["pad_steps"]
+        t0 = time.perf_counter()
         conv_sep = prepared["conv_sep"]
         out, new_histories = [], []
         for i in range(prepared["n"]):
@@ -749,7 +777,7 @@ class CalliReaderEngine:
             images, questions, histories=histories, use_p=use_p, drop_zero=drop_zero,
             hard_vq=hard_vq, repetition_penalty=repetition_penalty,
             max_new_tokens=max_new_tokens, eos_token_ids=eos_token_ids,
-            ordered_lists=ordered_lists,
+            ordered_lists=ordered_lists, overlap=False,
         )
         return self.batch_decode(prepared, return_histories=return_histories)
 

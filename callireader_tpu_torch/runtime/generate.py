@@ -1,6 +1,7 @@
 """Generation from input embeddings (PyTorch port of
 callireader_tpu/runtime/generate.py): greedy or sampled decoding
-(``generate_from_embeds``) and beam search (``beam_generate_from_embeds``).
+(``generate_from_embeds``, ``start_generate``) and beam search
+(``beam_generate_from_embeds``).
 
 HF semantics kept from the JAX package: the repetition penalty sees
 generated tokens only (generate() was called with inputs_embeds), the
@@ -8,16 +9,26 @@ penalty rule is score < 0 ? score * p : score / p, any eos id stops a row,
 finished rows emit pad. Sampling applies temperature, then top-k, then top-p
 exactly as the JAX ``_sample`` does, and draws with the Gumbel-max rule from
 an explicit ``torch.Generator`` (the draws differ from ``jax.random``'s; the
-kept set does not). The JAX loops are on-device while_loops; here the loops
-run on the host and look at ``done`` only every SYNC_EVERY steps (each look
-is a device sync). Rows already done keep emitting pad, so the extra steps
-change no token.
+kept set does not).
+
+The JAX decode is one on-device ``lax.while_loop``. Here the loop's state
+lives on the device (``DecodeState``: the cache, logits, ``seen``, tokens,
+``done``, lengths, the validity mask, the step and slot counters) and
+``_decode_chunk`` advances it SYNC_EVERY steps in place with no host read;
+on a CUDA device each chunk is a CUDA graph (runtime/decode_graph.py), so a
+step costs replays instead of ~900 launches from Python. The host looks at
+``done`` between chunks only (each look is a device sync), where the loop
+stops; rows already done keep emitting pad, so the extra steps of a chunk
+change no token. A ``max_new_tokens`` that is not a multiple of SYNC_EVERY
+ends with a tail graph of the remaining steps. ``eager=True`` runs the same
+chunks uncaptured on the card (tests and chip_smoke.py compare the two); on
+the CPU they always run uncaptured. Beam search stays host-stepped.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -26,8 +37,13 @@ import torch
 from callireader_tpu_torch.core.config import LLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.models import internlm2
+from callireader_tpu_torch.runtime import decode_graph
 
-SYNC_EVERY = 8  # decode steps between host checks of `done`
+SYNC_EVERY = 8  # decode steps between host checks of `done`: a chunk, one graph
+# decode graphs with their state kept between calls; each holds its KV cache
+# (L x B x Hkv x max_len x D x 2 x 2 bytes: 2.1 GB at callireader-8b, B=4,
+# 4096 slots) and a memory pool of one chunk's temporaries
+GRAPHS = decode_graph.GraphCache(capacity=2)
 PROMPT_BUCKETS = (128, 256, 512, 1024, 2048, 3072, 3584, 4096, 6144, 8192)
 
 
@@ -90,6 +106,226 @@ def _sample(logits: torch.Tensor, gen_cfg: GenerateConfig,
     return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
 
 
+@dataclasses.dataclass
+class DecodeState:
+    """The decode loop's state, on the device and updated in place (the JAX
+    while_loop's carry): the cache, the next logits, the seen-token mask, the
+    tokens so far, done flags, generated lengths, the attendable slots, the
+    index of the next token (``step``) and the cache slot it writes
+    (``slot``), both (1,) int64."""
+
+    cache: internlm2.KVCache
+    logits: torch.Tensor  # (B, V) in the policy's logits dtype
+    seen: torch.Tensor  # (B, V) bool
+    tokens: torch.Tensor  # (B, T) int32
+    done: torch.Tensor  # (B,) bool
+    lengths: torch.Tensor  # (B,) int32
+    kv_valid: torch.Tensor  # (B, max_len) int32
+    step: torch.Tensor
+    slot: torch.Tensor
+    eos: torch.Tensor  # (n_eos,) int32
+    rows: torch.Tensor  # (B,) int64
+
+    @classmethod
+    def create(cls, cfg: LLMConfig, B: int, T: int, max_len: int, eos_ids, device,
+               logits_dtype) -> "DecodeState":
+        z = dict(device=device)
+        return cls(
+            cache=internlm2.KVCache.create(cfg, B, max_len, torch.bfloat16, device),
+            logits=torch.zeros((B, cfg.vocab_size), dtype=logits_dtype, **z),
+            seen=torch.zeros((B, cfg.vocab_size), dtype=torch.bool, **z),
+            tokens=torch.zeros((B, T), dtype=torch.int32, **z),
+            done=torch.zeros((B,), dtype=torch.bool, **z),
+            lengths=torch.zeros((B,), dtype=torch.int32, **z),
+            kv_valid=torch.zeros((B, max_len), dtype=torch.int32, **z),
+            step=torch.zeros((1,), dtype=torch.int64, **z),
+            slot=torch.zeros((1,), dtype=torch.int64, **z),
+            eos=torch.tensor(eos_ids, dtype=torch.int32, **z),
+            rows=torch.arange(B, **z),
+        )
+
+    def reset(self, logits: torch.Tensor, attention_mask: torch.Tensor, pad_id: int) -> None:
+        """The state after a prefill of S slots: ``logits`` (B, V), the
+        prompt's mask (B, S) int32 as the attendable slots."""
+        S = attention_mask.shape[1]
+        self.logits.copy_(logits)
+        self.seen.zero_()
+        self.tokens.fill_(pad_id)
+        self.done.zero_()
+        self.lengths.zero_()
+        self.kv_valid.zero_()
+        self.kv_valid[:, :S] = attention_mask
+        self.step.zero_()
+        self.slot.fill_(S)
+
+
+def _decode_chunk(st: DecodeState, params, cfg: LLMConfig, gen_cfg: GenerateConfig,
+                  policy: DTypePolicy, generator: Optional[torch.Generator], n: int) -> None:
+    """``n`` steps of the loop on ``st``, in place and without a host read:
+    pick each row's token from the current logits, record it, then run the
+    decode step that writes it at ``slot`` (JAX generate.py's step_fn)."""
+    for _ in range(n):
+        logits = _apply_repetition_penalty(st.logits, st.seen, gen_cfg.repetition_penalty)
+        next_tok = _sample(logits, gen_cfg, generator)
+        next_tok = torch.where(st.done, torch.full_like(next_tok, gen_cfg.pad_token_id), next_tok)
+        is_eos = (next_tok[:, None] == st.eos[None, :]).any(dim=-1)
+        st.lengths.copy_(torch.where(st.done, st.lengths, st.lengths + 1))
+        st.tokens.index_copy_(1, st.step, next_tok[:, None])
+        idx = next_tok.long()
+        st.seen[st.rows, idx] = st.seen[st.rows, idx] | ~st.done
+        st.done.logical_or_(is_eos)
+        st.logits.copy_(internlm2.decode_step_at(
+            params, cfg, input_ids=next_tok[:, None], cache=st.cache, kv_valid=st.kv_valid,
+            slot=st.slot, policy=policy))
+        st.step.add_(1)
+        st.slot.add_(1)
+
+
+class _Graphs:
+    """One cached decode: its state, its chunk graph of SYNC_EVERY steps and
+    a tail graph of the remainder, sharing the chunk's memory pool. Holds no
+    reference to the parameters, so that GRAPHS drops the entry when they
+    die."""
+
+    def __init__(self, st: DecodeState, chunk: Callable, device,
+                 generator: Optional[torch.Generator]):
+        self.st, self.chunk, self.device, self.generator = st, chunk, device, generator
+        self.by_steps = {}
+
+    def run(self, params, n: int) -> None:
+        g = self.by_steps.get(n)
+        if g is None:
+            g = self.by_steps[n] = decode_graph.StepGraph(
+                self.device, generator=self.generator, share=self.by_steps.get(SYNC_EVERY))
+        g(lambda: self.chunk(params, n))
+
+
+class DecodeRun:
+    """A greedy or sampled decode after its prefill (``start_generate``):
+    its plan of chunks (SYNC_EVERY steps each, then the remainder).
+
+    ``finish()`` runs the chunks not yet run, looking at ``done`` before
+    each (the loop stops at the first chunk boundary where every row is
+    done, as the JAX while_loop stops at the first step), and returns
+    (tokens, lengths). ``enqueue_all()`` puts every chunk on the stream at
+    once and returns (tokens, lengths) without a host read: the counterpart
+    of the JAX async dispatch, so that the host can prepare the next batch
+    while this one decodes. An enqueued loop cannot stop early: the chunks
+    after every row is done run as pad steps (no token changes;
+    ``pad_steps`` counts them). Both return copies, so that the next decode
+    through the same graphs (which resets this state in stream order) leaves
+    the result alone."""
+
+    def __init__(self, st: DecodeState, plan: List[Tuple[int, Callable[[], None]]],
+                 on_error: Callable[[], None]):
+        self.st, self.plan, self.on_error = st, plan, on_error
+        self.next = 0  # chunks run so far
+        self.steps = 0  # decode steps run so far
+
+    @torch.inference_mode()
+    def step(self) -> bool:
+        """Runs the next chunk (no look at ``done``); False if none is left."""
+        if self.next == len(self.plan):
+            return False
+        n, fn = self.plan[self.next]
+        try:
+            fn()
+        except Exception:
+            self.on_error()
+            raise
+        self.next, self.steps = self.next + 1, self.steps + n
+        return True
+
+    def _result(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        with torch.inference_mode():
+            return self.st.tokens.clone(), self.st.lengths.clone()
+
+    def enqueue_all(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        while self.step():
+            pass
+        return self._result()
+
+    def finish(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        while not (self.steps and bool(self.st.done.all())) and self.step():
+            pass
+        return self._result()
+
+
+def pad_steps(tokens: np.ndarray, lengths: np.ndarray, eos_ids: Sequence[int]) -> int:
+    """The steps of an enqueued T-step decode (``DecodeRun.enqueue_all``)
+    that ``finish()`` would not have run: those after the first chunk
+    boundary where every row had emitted an eos."""
+    T = tokens.shape[1]
+    last = tokens[np.arange(tokens.shape[0]), np.maximum(lengths, 1) - 1]
+    if tokens.shape[0] == 0 or not np.isin(last, eos_ids).all():
+        return 0
+    stop = max(SYNC_EVERY, -(-int(lengths.max()) // SYNC_EVERY) * SYNC_EVERY)
+    return T - min(T, stop)
+
+
+def _plan(T: int) -> List[int]:
+    """Step counts of the chunks of a T-step decode: SYNC_EVERY each, then
+    the remainder."""
+    return [SYNC_EVERY] * (T // SYNC_EVERY) + ([T % SYNC_EVERY] if T % SYNC_EVERY else [])
+
+
+@torch.inference_mode()
+def start_generate(
+    params,
+    cfg: LLMConfig,
+    inputs_embeds: torch.Tensor,  # (B, S, E), left-padded to a bucket
+    attention_mask: torch.Tensor,  # (B, S) 1 = valid
+    *,
+    gen_cfg: GenerateConfig,
+    max_cache_len: int,
+    generator: Optional[torch.Generator] = None,
+    policy: DTypePolicy = DEFAULT_POLICY,
+    eager: bool = False,
+) -> DecodeRun:
+    """The prefill, enqueued, and the decode loop ready to run -> a
+    DecodeRun. On a CUDA device (unless ``eager``) the state and the chunk
+    graphs come from ``GRAPHS``, keyed by (config, B, cache capacity, T,
+    sampling knobs, policy, device, generator) and the parameters' identity:
+    a repeated call replays graphs captured by an earlier one, on the same
+    state: run (or enqueue) a DecodeRun's chunks before the next call with
+    the same key. ``generator`` drives the draws when ``gen_cfg.do_sample``
+    (default: seeded 0 anew on each call)."""
+    B, S, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    T = gen_cfg.max_new_tokens
+    if gen_cfg.num_beams > 1:
+        raise ValueError("beam search is beam_generate_from_embeds")
+    attention_mask = attention_mask.to(dev, torch.int32)
+    own_generator = gen_cfg.do_sample and generator is None
+    if not gen_cfg.do_sample:
+        generator = None
+
+    def build() -> _Graphs:
+        gen = torch.Generator(device=dev) if own_generator else generator
+        st = DecodeState.create(cfg, B, T, max_cache_len, gen_cfg.eos_token_ids, dev,
+                                policy.logits_dtype)
+        return _Graphs(st, lambda p, n: _decode_chunk(st, p, cfg, gen_cfg, policy, gen, n),
+                       dev, gen)
+
+    graphed = dev.type == "cuda" and not eager
+    if graphed:
+        key = (cfg, B, max_cache_len, T, gen_cfg, policy, str(dev),
+               None if own_generator else id(generator))
+        g = GRAPHS.get(key, params, build)
+    else:
+        g = build()
+    if own_generator:
+        g.generator.manual_seed(0)
+    logits, _ = internlm2.prefill(
+        params, cfg, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
+        max_len=max_cache_len, policy=policy, cache=g.st.cache,
+    )
+    g.st.reset(logits, attention_mask, gen_cfg.pad_token_id)
+    run = g.run if graphed else g.chunk
+    plan = [(n, lambda n=n: run(params, n)) for n in _plan(T)]
+    return DecodeRun(g.st, plan, on_error=lambda: GRAPHS.discard(g))
+
+
 @torch.inference_mode()
 def generate_from_embeds(
     params,
@@ -101,46 +337,21 @@ def generate_from_embeds(
     max_cache_len: int,
     generator: Optional[torch.Generator] = None,
     policy: DTypePolicy = DEFAULT_POLICY,
+    eager: bool = False,
+    overlap: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens (B, max_new_tokens) int32, pad after eos; lengths (B,)
     int32, generated count including eos). ``generator`` drives the draws
-    when ``gen_cfg.do_sample`` (default: seeded 0 on the embeddings' device)."""
-    B, S, _ = inputs_embeds.shape
-    dev = inputs_embeds.device
-    T = gen_cfg.max_new_tokens
-    attention_mask = attention_mask.to(dev, torch.int32)
-    logits, cache = internlm2.prefill(
-        params, cfg, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
-        max_len=max_cache_len, policy=policy,
-    )
-    kv_valid = torch.zeros((B, max_cache_len), dtype=torch.int32, device=dev)
-    kv_valid[:, :S] = attention_mask
-    eos = torch.tensor(gen_cfg.eos_token_ids, dtype=torch.int32, device=dev)
-    seen = torch.zeros((B, logits.shape[-1]), dtype=torch.bool, device=dev)
-    tokens = torch.full((B, T), gen_cfg.pad_token_id, dtype=torch.int32, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    lengths = torch.zeros((B,), dtype=torch.int32, device=dev)
-    rows = torch.arange(B, device=dev)
-    if gen_cfg.do_sample and generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-
-    for i in range(T):
-        if i % SYNC_EVERY == 0 and i > 0 and bool(done.all()):
-            break
-        logits = _apply_repetition_penalty(logits, seen, gen_cfg.repetition_penalty)
-        next_tok = _sample(logits, gen_cfg, generator)
-        next_tok = torch.where(done, torch.full_like(next_tok, gen_cfg.pad_token_id), next_tok)
-        is_eos = (next_tok[:, None] == eos[None, :]).any(dim=-1)
-        lengths = torch.where(done, lengths, lengths + 1)
-        tokens[:, i] = next_tok
-        seen[rows, next_tok.long()] = seen[rows, next_tok.long()] | ~done
-        done = done | is_eos
-        kv_valid[:, cache.length] = 1
-        logits, cache = internlm2.decode_step(
-            params, cfg, input_ids=next_tok[:, None], cache=cache,
-            kv_valid_mask=kv_valid, policy=policy,
-        )
-    return tokens, lengths
+    when ``gen_cfg.do_sample`` (default: seeded 0 on the embeddings' device).
+    On a CUDA device the chunks are CUDA graphs unless ``eager``.
+    ``overlap``: every chunk is enqueued and the call returns before the
+    decode retires (``DecodeRun.enqueue_all``; rows done early run pad
+    steps); else it stops at the first chunk boundary where all rows are
+    done."""
+    run = start_generate(params, cfg, inputs_embeds, attention_mask, gen_cfg=gen_cfg,
+                         max_cache_len=max_cache_len, generator=generator, policy=policy,
+                         eager=eager)
+    return run.enqueue_all() if overlap else run.finish()
 
 
 @torch.inference_mode()

@@ -10,7 +10,9 @@ Attention walks the page table inside the kernel
 The pools are written IN PLACE (prompt pages at admission, one (page, offset)
 per slot and layer at each decode step). On a CUDA device every decode goes
 through the paged kernel, whatever the page size; a page size the kernel
-lacks raises there.
+lacks raises there. A tick's decode (one step, or the window of k steps)
+reads static inputs the host fills before each tick, the page table among
+them, and is a CUDA graph on the card, as in runtime/serving.py.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ from callireader_tpu_torch.core.config import LLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.kernels.paged_decode import paged_flash_decode
 from callireader_tpu_torch.models import internlm2
+from callireader_tpu_torch.runtime import decode_graph
 from callireader_tpu_torch.runtime import generate as gen
 from callireader_tpu_torch.runtime.serving import (
-    PrefixCacheMixin, Request, _penalize, _pick_tokens,
+    PrefixCacheMixin, Request, TickInputs, _penalize, _pick_tokens,
 )
 
 
@@ -81,6 +84,7 @@ class PagedBatcher(PrefixCacheMixin):
         cache_dtype=torch.bfloat16,
         steps_per_sync: int = 1,
         alloc_watermark: Optional[int] = None,
+        eager: bool = False,
     ):
         self.params = llm_params
         self.cfg = cfg
@@ -118,6 +122,10 @@ class PagedBatcher(PrefixCacheMixin):
         self._admit_seq = 0
         self.seen = torch.zeros((num_slots, cfg.vocab_size), dtype=torch.bool, device=self.device)
         self._init_prefix_cache()
+        self._in = TickInputs(num_slots, self.device, table=torch.zeros(
+            (num_slots, max_pages_per_slot), dtype=torch.int32, device=self.device))
+        # the tick's CUDA graph (``eager``: uncaptured on the card too, for tests)
+        self._tick = decode_graph.StepGraph(self.device, eager=eager)
 
     @property
     def _cache_dtype(self):
@@ -183,6 +191,17 @@ class PagedBatcher(PrefixCacheMixin):
             lengths = lengths + active
             out.append(toks)
         return torch.stack(out)
+
+    def _tick_fn(self) -> Optional[torch.Tensor]:
+        """The tick's decode on ``self._in``: one step writing
+        ``last_logits`` (steps_per_sync 1), or the window -> its (k, B) ids."""
+        inp, k = self._in, self.steps_per_sync
+        if k == 1:
+            arrays = self._derive_step_arrays(inp.table, inp.lengths, inp.starts, inp.active)
+            self.last_logits.copy_(self._decode(inp.tokens[:, None], inp.table, *arrays))
+            return None
+        return self._decode_k(inp.tokens, inp.table, inp.lengths, inp.starts, k, inp.pens,
+                              inp.active)
 
     # ------------------------------------------------------------------
 
@@ -337,15 +356,16 @@ class PagedBatcher(PrefixCacheMixin):
                     self._pending[s] = torch.argmax(
                         _penalize(logits[i][None], self.seen[s][None], pen)[0])
 
-    def _pens(self, active: List[int]) -> torch.Tensor:
+    def _pens(self, active: List[int]) -> np.ndarray:
         pens = np.ones(self.B, np.float32)
         for s in active:
             pens[s] = self.slots[s].req.repetition_penalty
-        return self._to_dev(pens)
+        return pens
 
-    def _step_inputs(self, active: List[int]):
-        """Device copies of the active slots' page table, lengths and starts,
-        and the active mask (inactive slots: zeros)."""
+    def _fill_inputs(self, active: List[int], tokens, pens: np.ndarray) -> None:
+        """The tick's inputs: ``tokens``, ``pens`` and the active slots' page
+        table, lengths and starts, and the active mask (inactive slots:
+        zeros)."""
         page_table = np.zeros((self.B, self.P), np.int32)
         lengths = np.zeros(self.B, np.int64)
         starts = np.zeros(self.B, np.int64)
@@ -356,8 +376,8 @@ class PagedBatcher(PrefixCacheMixin):
             lengths[s] = slot.length
             starts[s] = slot.start
             active_mask[s] = 1
-        return (self._to_dev(page_table), self._to_dev(lengths), self._to_dev(starts),
-                self._to_dev(active_mask))
+        self._in.fill(tokens=tokens, pens=pens, table=page_table, lengths=lengths,
+                      starts=starts, active=active_mask)
 
     def _retire(self, s: int) -> None:
         slot = self.slots[s]
@@ -375,7 +395,8 @@ class PagedBatcher(PrefixCacheMixin):
         if self.steps_per_sync > 1:
             return self._step_windowed(active)
 
-        toks_dev = _pick_tokens(self.last_logits, self.seen, self._pens(active))
+        pens = self._pens(active)
+        toks_dev = _pick_tokens(self.last_logits, self.seen, self._to_dev(pens))
         next_tokens = toks_dev.cpu().numpy()  # B ids: the only per-step device-to-host copy
         for s in active:
             slot = self.slots[s]
@@ -396,9 +417,8 @@ class PagedBatcher(PrefixCacheMixin):
 
         still = [s for s in range(self.B) if self.slots[s] is not None]
         if still:
-            page_table, lengths, starts, active_mask = self._step_inputs(still)
-            valid, wp, wo, pos = self._derive_step_arrays(page_table, lengths, starts, active_mask)
-            self.last_logits = self._decode(toks_dev[:, None], page_table, valid, wp, wo, pos)
+            self._fill_inputs(still, toks_dev, pens)
+            self._tick(self._tick_fn)
             for s in still:
                 self.slots[s].length += 1
         return len(still)
@@ -429,11 +449,8 @@ class PagedBatcher(PrefixCacheMixin):
         next_tokens = np.zeros(self.B, np.int32)
         for s in active:
             next_tokens[s] = self._pending[s]
-        page_table, lengths, starts, active_mask = self._step_inputs(active)
-        window = self._decode_k(
-            self._to_dev(next_tokens), page_table, lengths, starts, k, self._pens(active),
-            active_mask,
-        ).cpu().numpy()  # (k, B): ONE device-to-host copy per k steps
+        self._fill_inputs(active, next_tokens, self._pens(active))
+        window = self._tick(self._tick_fn).cpu().numpy()  # (k, B): one device-to-host copy
         cap = self.P * self.page  # architectural cap; _grow covers the rest
         for s in active:
             slot = self.slots[s]

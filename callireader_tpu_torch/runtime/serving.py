@@ -16,9 +16,14 @@ The host keeps the queue and slot bookkeeping, O(slots) Python per tick, with
 B (or k * B) token ids as the only device-to-host traffic.
 
 Where the JAX package is functional (donated buffers, per-shape ``jax.jit``
-caches, a ``lax.scan`` window), the port updates IN PLACE and runs eagerly:
-the one slot cache, ``seen`` and ``last_logits`` are written by index, the
-window is a host loop of k steps with one device-to-host copy at its end.
+caches, a ``lax.scan`` window), the port updates IN PLACE: the one slot
+cache, ``seen`` and ``last_logits`` are written by index. A tick's decode
+(one step, or the window of k steps with its picks) reads static input
+buffers that the host fills with ``copy_`` (``TickInputs``) and is a CUDA
+graph on the card (runtime/decode_graph.py: its first tick runs eagerly and
+is captured, later ticks replay it), with one device-to-host copy of the
+picked ids at its end; on the CPU the same function runs uncaptured.
+Admission (prefill) runs eagerly.
 Everything that launches work runs inside ``torch.inference_mode()``, which is
 thread-local: ``submit``, ``register_prefix`` and ``step`` each enter it on
 the thread that calls them. All launches go to that thread's current stream;
@@ -38,6 +43,7 @@ import torch
 from callireader_tpu_torch.core.config import LLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.models import internlm2
+from callireader_tpu_torch.runtime import decode_graph
 from callireader_tpu_torch.runtime import generate as gen
 
 
@@ -51,8 +57,33 @@ def _pick_tokens(logits: torch.Tensor, seen: torch.Tensor, pens: torch.Tensor) -
     """HF repetition penalty + greedy argmax for every slot, on the device.
     Marks the picked ids in ``seen`` in place; returns (B,) int32."""
     toks = torch.argmax(_penalize(logits, seen, pens), dim=-1)
-    seen[torch.arange(seen.shape[0], device=seen.device), toks] = True
+    # a device value: a host scalar would be a host-to-device copy, which a
+    # CUDA graph capture refuses
+    rows = torch.arange(seen.shape[0], device=seen.device)
+    seen[rows, toks] = torch.ones_like(toks, dtype=torch.bool)
     return toks.to(torch.int32)
+
+
+class TickInputs:
+    """The static (B,) inputs of a batcher's tick on the device, filled from
+    the host before each run so that a captured tick reads them anew: the
+    first tokens, lengths, starts, active mask and repetition penalties (and
+    the paged batcher's page table, ``extra``)."""
+
+    def __init__(self, B: int, device, **extra: torch.Tensor):
+        self.tokens = torch.zeros((B,), dtype=torch.int32, device=device)
+        self.lengths = torch.zeros((B,), dtype=torch.int64, device=device)
+        self.starts = torch.zeros((B,), dtype=torch.int64, device=device)
+        self.active = torch.zeros((B,), dtype=torch.int64, device=device)
+        self.pens = torch.ones((B,), dtype=torch.float32, device=device)
+        for name, t in extra.items():
+            setattr(self, name, t)
+
+    def fill(self, **host: Any) -> None:
+        """name=numpy array or device tensor -> copied into the buffer."""
+        for name, a in host.items():
+            src = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+            getattr(self, name).copy_(src)
 
 
 @dataclasses.dataclass
@@ -251,6 +282,7 @@ class ContinuousBatcher(PrefixCacheMixin):
         policy: DTypePolicy = DEFAULT_POLICY,
         cache_dtype=torch.bfloat16,
         steps_per_sync: int = 1,
+        eager: bool = False,
     ):
         self.params = llm_params
         self.cfg = cfg
@@ -278,10 +310,22 @@ class ContinuousBatcher(PrefixCacheMixin):
         self.done: List[Request] = []
         self._pending: List[Any] = [None] * num_slots
         self._init_prefix_cache()
+        self._in = TickInputs(num_slots, self.device)
+        # the tick's CUDA graph (``eager``: uncaptured on the card too, for tests)
+        self._tick = decode_graph.StepGraph(self.device, eager=eager)
 
     @property
     def _cache_dtype(self):
         return self.cache_k.dtype
+
+    def _tick_fn(self) -> Optional[torch.Tensor]:
+        """The tick's decode on ``self._in``: one step writing
+        ``last_logits`` (steps_per_sync 1), or the window -> its (k, B) ids."""
+        inp, k = self._in, self.steps_per_sync
+        if k == 1:
+            self.last_logits.copy_(self._decode(inp.tokens, inp.lengths, inp.starts))
+            return None
+        return self._decode_k(inp.tokens, inp.lengths, inp.active, inp.starts, k, inp.pens)
 
     def _prefix_capacity(self) -> int:
         return self.max_len
@@ -411,8 +455,8 @@ class ContinuousBatcher(PrefixCacheMixin):
         still = [s for s in range(self.B) if self.slot_req[s] is not None]
         if not still:
             return 0
-        self.last_logits = self._decode(
-            toks_dev, self._to_dev(self.lengths), self._to_dev(self.starts))
+        self._in.fill(tokens=toks_dev, lengths=self.lengths, starts=self.starts)
+        self._tick(self._tick_fn)
         for s in still:
             self.lengths[s] += 1
         return len(still)
@@ -447,11 +491,9 @@ class ContinuousBatcher(PrefixCacheMixin):
             pens[s] = self.slot_req[s].repetition_penalty
         active_mask = np.zeros(self.B, np.int64)
         active_mask[active] = 1
-        window = self._decode_k(
-            self._to_dev(next_tokens), self._to_dev(self.lengths),
-            self._to_dev(active_mask), self._to_dev(self.starts),
-            k, self._to_dev(pens),
-        ).cpu().numpy()  # (k, B)
+        self._in.fill(tokens=next_tokens, lengths=self.lengths, active=active_mask,
+                      starts=self.starts, pens=pens)
+        window = self._tick(self._tick_fn).cpu().numpy()  # (k, B)
         for s in active:
             req = self.slot_req[s]
             retired = False

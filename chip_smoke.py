@@ -33,9 +33,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      have launched, the (K, N) int8 kernel 4 x 32 times per decode step and
      the LM-head kernel once per step plus once in prefill; token ids below
      the real vocabulary. Spans, prefill time, time per decode step against
-     the step's weight bytes, and peak memory are printed; then host against
-     device ms of one decode step (16 steps on the host clock, 4 under
-     torch.profiler) with the RMSNorm kernel and with the plain norm, in
+     the step's weight bytes, and peak memory are printed. The decode ran as
+     CUDA graphs (runtime/decode_graph.py); its token ids must equal the same
+     chunks run uncaptured (``eager=True``), and so must a sampled decode's
+     (a seeded generator, three chunks and a tail graph). Then host against
+     device ms and the device's idle share of a decode step, its chunks
+     replayed as graphs and run uncaptured, in turns, and of the host-stepped
+     ``decode_step`` with the RMSNorm kernel and with the plain norm, in
      turns;
   6. reference: one 128-token row, prefill plus one decode step through the
      kernels against the same 8b model with every kernel swapped for its
@@ -57,9 +61,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      tokens, once with steps_per_sync=1 and once with 8. Counts zeroed before,
      read after: the paged kernel launched 32 times per decode step and
      flash_decode not at all; every request finished with token ids below the
-     real vocabulary; every page returned. Admissions, prefill seconds, ms per
-     decode step, tokens per second and peak memory are printed, then host
-     against device ms a step from a profiler trace, for both settings;
+     real vocabulary; every page returned; the ticks, CUDA graphs, give the
+     token ids, decode steps and launches of the same ticks run uncaptured.
+     Admissions, prefill seconds, ms per decode step, tokens per second and
+     peak memory are printed, then host against device ms a step and the
+     device's idle share from a profiler trace, for both settings, graphed
+     and uncaptured;
  10. serve, pressure: the same rows against a pool too small for them: at
      least one preemption, every request completes or fails with its own
      error, every page returns;
@@ -67,7 +74,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      one text-only /v1/chat/completions over a real socket, two page images
      through SchedulerLoop.submit; then a short ContinuousBatcher run (the
      contiguous scheduler's decode goes through flash_decode). Both with the
-     counts zeroed before and read after, and their shapes logged;
+     counts zeroed before and read after, and their shapes logged; the
+     contiguous ticks at steps_per_sync 1 and 8, graphed, give the token ids
+     and launches of the same ticks run uncaptured;
  12. reference: three page rows into a batcher of the serve sizes, one
      step() (admission prefill + the first paged decode step) through the
      kernels against the same model with every kernel swapped for its plain
@@ -84,7 +93,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
  20. bench, short run (after phase 13, on the same engine): the port's
      bench row code (callireader_tpu_torch/bench.py: its detector rule and
      measure()) with 8 pages a batch: the warm-up batch, 2 TTFT samples, one
-     warm and 3 steady pipelined intervals, 256 tokens a batch. Counts zeroed before,
+     warm and 3 steady pipelined intervals, 256 tokens a batch, each batch's
+     decode enqueued by batch_prepare behind the next batch's front half
+     (its device wait printed). Counts zeroed before,
      read after: every kernel of the 8b path launched, flash_decode and the
      int8 kernels once a layer and step; every batch decodes 256 tokens; the
      phased box stages give batch_sort_boxes' boxes; the row's JSON and the
@@ -148,6 +159,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      rule, the model's two-rounding form within one bf16 ulp elementwise and
      few elements apart; the backward's bits equal in two runs; beside
      torch.nn.functional.rms_norm (a yardstick the port never calls).
+Decode steps are counted by the model's ``DECODE_STEPS`` and launches by the
+kernels' counts, both kept true under graph replays (a capture's launches are
+taken off and added back at each replay), and the shape log records a
+graph's captured launches again at each of its replays.
 Every phase that drives a path asserts the RMSNorm counts: the model forward
 2L+1 times per prefill and per decode step (2b, 8b, serve, pressure, HTTP,
 contiguous, CLI, beams, chat, stream); in a training micro-step under remat 4L+1 forward
@@ -199,6 +214,10 @@ TRAIN_CEILING = 8192  # the recipe's max_length
 REF_GRAD_CAP = 7e-2
 TRAIN_FROZEN = (("llm", "layers", "wq"), ("llm", "layers", "w2"), ("llm", "layers", "attn_norm"),
                 ("llm", "output"), ("vision", "layers", "fc1_kernel"))
+# phase 5: the sampled decode held graph against eager (3 chunks and a tail of 4)
+SAMPLED_TOKENS = 28
+# phase 11: the contiguous server's ticks held graph against eager
+CONT_NEW_TOKENS = 24
 # phase 20: the bench's short run, batches of intervals (3 steady ones)
 BENCH_SHORT_BATCHES = 4
 # phase 21: W8A8 towers against the bf16 towers (features rel L2), and the
@@ -307,62 +326,117 @@ def device_ms(fn, torch, n: int = 16, tries: int = 3):
 
 class ShapeLog:
     """Records, per kernel wrapper, a light summary of each launch's inputs on
-    the main path (the script wraps the wrappers' launch functions; the port
-    is unchanged): shapes, plus the small mask tensors the kernel is held to."""
+    the main path (the script wraps the wrappers' launch functions while a log
+    is open; the port is unchanged): shapes, plus the small mask tensors the
+    kernel is held to. A launch made while a CUDA graph is captured did not
+    run: its summary is kept with the graph (runtime/decode_graph.StepGraph,
+    ``install``) and recorded again at each replay, as the launch counts are;
+    its masks are kept by reference (the graph rewrites them at each replay),
+    a launch's are cloned."""
 
     SUMMARY = {
-        "vit_attention": lambda a: (tuple(a[0].shape), a[1]),
-        "flash_attention": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[3],
-                                      a[4].clone(), a[5].clone(), a[7]),
-        "flash_decode": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[3], a[4].clone()),
-        "int8_matmul": lambda a: (a[0].shape[0], *a[1].shape),  # (M, K, N)
-        "int8_matmul_nt": lambda a: (a[0].shape[0], a[1].shape[1], a[1].shape[0]),
+        "vit_attention": lambda a, keep: (tuple(a[0].shape), a[1]),
+        "flash_attention": lambda a, keep: (tuple(a[0].shape), tuple(a[1].shape), a[3],
+                                            keep(a[4]), keep(a[5]), a[7]),
+        "flash_decode": lambda a, keep: (tuple(a[0].shape), tuple(a[1].shape), a[3], keep(a[4])),
+        "int8_matmul": lambda a, keep: (a[0].shape[0], *a[1].shape),  # (M, K, N)
+        "int8_matmul_nt": lambda a, keep: (a[0].shape[0], a[1].shape[1], a[1].shape[0]),
         # (q, kpool, vpool, layer, page_table, valid, scale): the table and the
         # validity of the deepest layer's call only (one clone a decode step)
-        "paged_flash_decode": lambda a: (
-            (tuple(a[0].shape), tuple(a[1].shape), a[3], a[4].clone(), a[5].clone())
+        "paged_flash_decode": lambda a, keep: (
+            (tuple(a[0].shape), tuple(a[1].shape), a[3], keep(a[4]), keep(a[5]))
             if a[3] == a[1].shape[0] - 1 else None),
         # (q, k, v, q_seg, kv_seg, causal, scale) / (q, k, v, do, lse, dsum, q_seg, ...)
-        "attn_train_fwd": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[5],
-                                     None if a[3] is None else a[3].clone()),
-        "attn_train_dq": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[8]),
-        "attn_train_dkv": lambda a: (tuple(a[0].shape), tuple(a[1].shape), a[8]),
+        "attn_train_fwd": lambda a, keep: (tuple(a[0].shape), tuple(a[1].shape), a[5],
+                                           None if a[3] is None else keep(a[3])),
+        "attn_train_dq": lambda a, keep: (tuple(a[0].shape), tuple(a[1].shape), a[8]),
+        "attn_train_dkv": lambda a, keep: (tuple(a[0].shape), tuple(a[1].shape), a[8]),
         # (x, w, eps, mode, want_r) / (x2, w, r, dy2, mode, want_dw), x (..., E):
         # (rows, E, ...), one entry per mode's kernel, both wrapping the same
         # launch function
-        "rms_norm_fwd": lambda a: (a[0].numel() // a[0].shape[-1], a[0].shape[-1], a[0].dtype,
-                                   a[4]) if a[3] == "model" else None,
-        "rms_norm_fwd_fused": lambda a: (a[0].numel() // a[0].shape[-1], a[0].shape[-1], a[0].dtype,
-                                         a[4]) if a[3] == "fused" else None,
-        "rms_norm_bwd": lambda a: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "model" else None,
-        "rms_norm_bwd_fused": lambda a: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "fused" else None,
+        "rms_norm_fwd": lambda a, keep: (a[0].numel() // a[0].shape[-1], a[0].shape[-1],
+                                         a[0].dtype, a[4]) if a[3] == "model" else None,
+        "rms_norm_fwd_fused": lambda a, keep: (a[0].numel() // a[0].shape[-1], a[0].shape[-1],
+                                               a[0].dtype, a[4]) if a[3] == "fused" else None,
+        "rms_norm_bwd": lambda a, keep: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "model" else None,
+        "rms_norm_bwd_fused": lambda a, keep: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "fused"
+        else None,
     }
+    OPEN = []  # the logs recording now
+    capture = None  # the summaries of the capture under way
+    originals = {}  # (module, launch function name) -> the function, while wrapped
 
-    def __init__(self, kernels):
-        self.kernels = kernels
-        self.calls = {name: [] for name in kernels}
-        self._orig = {}
+    @classmethod
+    def install(cls, kernels, torch, decode_graph):
+        """Wraps StepGraph's capture and call for the rest of the run; the
+        kernels' launch functions are wrapped while a log is open."""
+        cls.kernels, cls.torch = kernels, torch
+        run_and_capture, call = decode_graph.StepGraph._run_and_capture, decode_graph.StepGraph.__call__
 
-    def __enter__(self):
-        for name, k in self.kernels.items():
-            orig = getattr(k.module, k.launch)
-            self._orig[name] = orig
+        def capture(graph, fn):
+            outer, cls.capture = cls.capture, []
+            try:
+                return run_and_capture(graph, fn)
+            finally:
+                graph.shape_log, cls.capture = cls.capture, outer
 
-            def rec(*args, _orig=orig, _name=name):
-                summary = self.SUMMARY[_name](args)
-                if _name in ("flash_decode", "paged_flash_decode"):  # the last step's mask only
-                    self.calls[_name] = self.calls[_name][-1:]
-                if summary is not None:
-                    self.calls[_name].append(summary)
+        def replay(graph, fn):
+            replaying = graph.captured and not graph.eager
+            out = call(graph, fn)
+            if replaying:
+                for log in cls.OPEN:
+                    for n, summary in getattr(graph, "shape_log", ()):
+                        log.add(n, summary)
+            return out
+
+        decode_graph.StepGraph._run_and_capture = capture
+        decode_graph.StepGraph.__call__ = replay
+
+    @classmethod
+    def _wrap(cls):
+        by_fn = {}  # two kernels may share a launch function (the RMSNorm modes)
+        for name, k in cls.kernels.items():
+            by_fn.setdefault((k.module, k.launch), []).append(name)
+        for (module, launch), names in by_fn.items():
+            orig = cls.originals[module, launch] = getattr(module, launch)
+
+            def rec(*args, _orig=orig, _names=tuple(names)):
+                capturing = cls.torch.cuda.is_current_stream_capturing()
+                keep = (lambda t: t) if capturing else (lambda t: t.clone())
+                for n in _names:
+                    summary = cls.SUMMARY[n](args, keep)
+                    if summary is None:
+                        continue
+                    if capturing:
+                        if cls.capture is not None:
+                            cls.capture.append((n, summary))
+                    else:
+                        for log in cls.OPEN:
+                            log.add(n, summary)
                 return _orig(*args)
 
-            setattr(k.module, k.launch, rec)
+            setattr(module, launch, rec)
+
+    def __init__(self, kernels):
+        self.calls = {name: [] for name in kernels}
+
+    def add(self, name, summary):
+        if name in ("flash_decode", "paged_flash_decode"):  # the last step's mask only
+            self.calls[name] = self.calls[name][-1:]
+        self.calls[name].append(summary)
+
+    def __enter__(self):
+        if not ShapeLog.OPEN:
+            ShapeLog._wrap()
+        ShapeLog.OPEN.append(self)
         return self
 
     def __exit__(self, *exc):
-        # in reverse: two kernels may wrap one launch function
-        for name, k in reversed(list(self.kernels.items())):
-            setattr(k.module, k.launch, self._orig[name])
+        ShapeLog.OPEN.remove(self)
+        if not ShapeLog.OPEN:
+            for (module, launch), orig in ShapeLog.originals.items():
+                setattr(module, launch, orig)
+            ShapeLog.originals.clear()
 
 
 class CallCount:
@@ -877,8 +951,7 @@ def cli_phases(h, final_dir, work):
         out = io.StringIO()
         t0 = time.time()
         with ShapeLog(h.kernels) as shapes, \
-                CallCount(internlm2, ("prefill", "decode_step"), timed=("prefill",),
-                          torch=torch) as steps, \
+                CallCount(internlm2, ("prefill",), timed=("prefill",), torch=torch) as steps, \
                 Swap(gen_mod, generate_from_embeds=generate_and_keep), \
                 contextlib.redirect_stdout(out):
             inf_cli.main(argv)
@@ -888,7 +961,7 @@ def cli_phases(h, final_dir, work):
         engine = kept["engine"]
         cfg = engine.cfg.llm
         L, vocab = cfg.num_hidden_layers, cfg.real_vocab_size or cfg.vocab_size
-        n_pre, n_dec = steps.n["prefill"], steps.n["decode_step"]
+        n_pre, n_dec = steps.n["prefill"], h.decode_steps()
         missing = [n for n in cli_path if launches[n] == 0]
         char_calls = [a for a in shapes.calls["vit_attention"]
                       if a[0][-1] // 3 // a[1] != engine.cfg.vision.head_dim]
@@ -979,13 +1052,13 @@ def cli_phases(h, final_dir, work):
     def counted(label, fn):
         h.zero_counts()
         t0 = time.time()
-        with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill", "decode_step")) as st, \
+        with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill",)) as st, \
                 Swap(gen_mod, beam_generate_from_embeds=beam_and_keep):
             result = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = h.read_counts()
-        n_pre, n_dec = st.n["prefill"], st.n["decode_step"]
+        n_pre, n_dec = st.n["prefill"], h.decode_steps()
         if launches["flash_decode"] != L * n_dec or not n_dec:
             fail(f"[{label}] flash_decode launches {launches['flash_decode']} != {L} x {n_dec}")
         h.check_norms(label, launches, L, n_pre + n_dec)
@@ -1028,21 +1101,20 @@ def bench_phase(h, engine, batch_path):
     saved = engine.detector, engine.params["detector"]
     det_mode = bench.choose_detector(engine, page, gt, smoke=False, gt_boxes=False)
     n_chars = len(engine.sort_boxes(page)) if det_mode == "trained_ckpt" else len(gt)
-    # one warm interval: on the port the first after the primed batch holds
-    # no decode (that batch decoded inside batch_prepare)
+    # one warm interval (the first after the primed batch), then 3 measured
     protocol = bench.Protocol(batch=8, n_batches=BENCH_SHORT_BATCHES, n_ttft=2,
                               max_warm_batches=1)
     engine.timings.spans.clear()
     h.zero_counts()
     t0 = time.time()
-    with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill", "decode_step")) as st:
+    with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill",)) as st:
         run = bench.measure(engine, page, protocol, n_chars=n_chars)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = h.read_counts()
     engine.detector, engine.params["detector"] = saved
     L = engine.cfg.llm.num_hidden_layers
-    n_pre, n_dec = st.n["prefill"], st.n["decode_step"]
+    n_pre, n_dec = st.n["prefill"], h.decode_steps()
     # every batch decodes 256 tokens (measure() checks each batch's lengths):
     # the warm-up, the primed batch and the warm and measured intervals'
     # launches, 256 decode steps each; prefills: those batches' and the 4
@@ -1080,6 +1152,9 @@ def bench_phase(h, engine, batch_path):
         f"({sum(len(b) for b in run.phased_boxes)} boxes over 8 pages); {n_batches} batches x 8 rows "
         f"x {protocol.decode_tokens} tokens; {json.dumps(result)}")
     log(f"[bench] combined line ({len(line)} characters): {line}")
+    log(f"[bench] device wait inside an interval (the decode the host's work did not hide): "
+        f"median {result['device_wait_s']} s of {result['batches']} s intervals; "
+        f"pad steps {engine.pad_steps}")
     h.flash_decode_row("bench", shapes, launches)
 
 
@@ -1283,6 +1358,7 @@ def main() -> int:
         from callireader_tpu_torch.kernels import tolerance
         from callireader_tpu_torch.kernels import vit_attention as k_vit
         from callireader_tpu_torch.models import internlm2, internvit
+        from callireader_tpu_torch.runtime import decode_graph
         from callireader_tpu_torch.runtime import generate as gen_mod
         from callireader_tpu_torch.runtime import http_server, paged_cache, serving
         from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
@@ -1359,11 +1435,19 @@ def main() -> int:
             f"decode steps")
 
     def zero_counts():
-        for k in kernels.values():
-            k.counter.launches = 0
+        """Every kernel's launch count and the model's count of decode steps
+        (all kept true under graph replays) to 0."""
+        for c in _build.COUNTS:
+            c.launches = 0
 
     def read_counts():
         return {name: k.counter.launches for name, k in kernels.items()}
+
+    def decode_steps():
+        """Decode steps run since zero_counts(), eager or replayed."""
+        return internlm2.DECODE_STEPS.launches
+
+    ShapeLog.install(kernels, torch, decode_graph)
 
     # ---------------------------------------------------------- 1. build
     t0 = time.time()
@@ -1467,15 +1551,17 @@ def main() -> int:
         engine.timings.spans.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        with ShapeLog(kernels) as shapes, CallCount(internlm2, ("prefill", "decode_step"),
-                                                    timed=("prefill",), torch=torch) as steps:
+        with ShapeLog(kernels) as shapes, CallCount(internlm2, ("prefill",), timed=("prefill",),
+                                                    torch=torch) as steps:
             prepared = engine.batch_prepare(
                 pages, [QUESTION] * N_PAGES, max_new_tokens=max_new_tokens,
                 repetition_penalty=1.5, ordered_lists=ordered)
+            t_dispatch = time.time() - t0
             texts = engine.batch_decode(prepared)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = read_counts()
+        n_dec = decode_steps()
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[{label}] batch_chat_ocr on {N_PAGES} pages: {wall:.3f} s wall, peak memory {peak:.2f} GiB")
         log(f"[{label}] stage timings (s): "
@@ -1494,11 +1580,14 @@ def main() -> int:
         if not ((tokens >= 0) & (tokens < vocab)).all():
             fail(f"[{label}] token ids out of the vocabulary ({vocab})")
         log(f"[{label}] prompt bucket {embeds.shape[1]}, generated lengths {lengths.tolist()}, "
-            f"first response {texts[0][:40]!r}")
-        check_norms(label, launches, engine.cfg.llm.num_hidden_layers,
-                    steps.n["prefill"] + steps.n["decode_step"])
+            f"first response {texts[0][:40]!r}; batch_prepare returned after {t_dispatch:.3f} s "
+            f"(the front half and the prefill's device time included: the prefill is timed "
+            f"with syncs) with {n_dec} decode "
+            f"steps enqueued, {prepared['pad_steps']} of them after every row was done (pad steps)")
+        check_norms(label, launches, engine.cfg.llm.num_hidden_layers, steps.n["prefill"] + n_dec)
         return types.SimpleNamespace(prepared=prepared, shapes=shapes, launches=launches, wall=wall,
-                                     peak=peak, steps=steps, spans=dict(engine.timings.spans))
+                                     peak=peak, steps=steps, n_dec=n_dec,
+                                     spans=dict(engine.timings.spans))
 
     # ---------------------------------------------------------- 2. main path, 2b
     t0 = time.time()
@@ -1691,7 +1780,7 @@ def main() -> int:
                               read_counts=read_counts, rnd=rnd, bound=bound, row_for=row_for,
                               results=results, plain_rms=plain_rms, check_norms=check_norms,
                               flash_decode_row=flash_decode_row, vit_rows=vit_rows,
-                              norm_shapes={})
+                              decode_steps=decode_steps, norm_shapes={})
 
     def keep_norms(path, shapes, launches):
         """The RMSNorm launches of ``path`` by shape, for phase 19."""
@@ -1733,19 +1822,95 @@ def main() -> int:
     missing = [n for n in batch_path if launches_8b[n] == 0]
     if missing:
         fail(f"kernels never launched on the 8b int8 main path: {missing}")
-    n_steps = run8.steps.n["decode_step"]
+    n_steps = run8.n_dec
     if run8.steps.n["prefill"] != 1 or n_steps < 1:
-        fail(f"[8b] expected one prefill and some decode steps, got {run8.steps.n}")
+        fail(f"[8b] expected one prefill and some decode steps, got {run8.steps.n} and {n_steps}")
     if launches_8b["int8_matmul"] != 4 * L * n_steps:
         fail(f"[8b] (K, N) int8 launches {launches_8b['int8_matmul']} != 4 x {L} x {n_steps}")
     if launches_8b["int8_matmul_nt"] != n_steps + 1:
         fail(f"[8b] LM-head int8 launches {launches_8b['int8_matmul_nt']} != {n_steps} + 1")
     prefill_s = run8.steps.seconds["prefill"]
-    decode_ms = (run8.spans["generate"] - prefill_s) / n_steps * 1e3
+    decode_ms = (run8.spans["generate_dispatch"] + run8.spans["generate_wait"] - prefill_s) \
+        / n_steps * 1e3
     floor_ms = step_bytes / PEAK_BYTES_S * 1e3
     log(f"[8b] prefill {prefill_s:.4f} s; {n_steps} decode steps at {decode_ms:.3f} ms a step "
-        f"(host clock, generate span minus prefill); the step's int8 weights are "
+        f"(host clock, batch_prepare's dispatch and batch_decode's wait minus prefill); the "
+        f"step's int8 weights are "
         f"{step_bytes / 1e9:.4f} GB, a floor of {floor_ms:.3f} ms at 3.35 TB/s")
+
+    # the graphs against the same chunks run uncaptured: the main path's
+    # decode, then a sampled one (a tail graph, the generator's draws)
+    prep8 = run8.prepared
+    mask8 = torch.from_numpy(prep8["mask"]).to(dev)
+    t0 = time.time()
+    eager8 = gen_mod.generate_from_embeds(llm, cfg, prep8["embeds"], mask8, gen_cfg=prep8["gen_cfg"],
+                                          max_cache_len=prep8["bucket"] + MAX_NEW_TOKENS_8B,
+                                          eager=True)
+    torch.cuda.synchronize()
+    eager_s = time.time() - t0
+    if not (torch.equal(eager8[0], prep8["tokens"]) and torch.equal(eager8[1], prep8["lengths"])):
+        fail(f"[8b] the graphed decode's tokens differ from the eager loop's: lengths "
+             f"{prep8['lengths'].tolist()} against {eager8[1].tolist()}")
+    log(f"[8b] graphed batch_chat_ocr decode = eager loop: {N_PAGES} rows x {MAX_NEW_TOKENS_8B} token "
+        f"ids equal (the eager loop {eager_s:.3f} s with its prefill)")
+    sampled = gen_mod.GenerateConfig(max_new_tokens=SAMPLED_TOKENS, eos_token_ids=(-1,),
+                                     pad_token_id=engine.tok.pad_token_id, do_sample=True,
+                                     temperature=0.8, top_k=50, top_p=0.9)
+    draws = [gen_mod.generate_from_embeds(
+        llm, cfg, prep8["embeds"], mask8, gen_cfg=sampled, eager=eager,
+        max_cache_len=prep8["bucket"] + SAMPLED_TOKENS,
+        generator=torch.Generator(device=dev).manual_seed(5))[0] for eager in (True, False)]
+    if not torch.equal(draws[0], draws[1]):
+        fail(f"[8b] sampled decode: the graphs drew other tokens than the eager loop "
+             f"({int((draws[0] != draws[1]).sum())} of {draws[0].numel()} differ)")
+    log(f"[8b] sampled decode (T 0.8, top-k 50, top-p 0.9, {SAMPLED_TOKENS} tokens: chunks and a "
+        f"tail graph), seeded generator: graph = eager, {draws[0].numel()} token ids equal, "
+        f"{len(set(draws[0][0].tolist()))} distinct ids in row 0")
+    del eager8, draws
+
+    def chunk_profile(mode, measure=False):
+        """Host clock against device time of a decode step at the main path's
+        shape, its chunks replayed as graphs or run uncaptured: 10 chunks
+        timed with a sync at the end, then 4 under torch.profiler.
+        ``measure``: the memory of the (new) graph entry."""
+        gcfg = gen_mod.GenerateConfig(max_new_tokens=8 * 18, eos_token_ids=(-1,),
+                                      repetition_penalty=1.5)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved, allocated = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        run = gen_mod.start_generate(llm, cfg, prep8["embeds"], mask8, gen_cfg=gcfg,
+                                     max_cache_len=prep8["bucket"] + 8 * 18, eager=mode == "eager")
+        run.step()
+        run.step()  # the graphs' first run and capture, then a replay
+        torch.cuda.synchronize()
+        if measure:
+            torch.cuda.empty_cache()
+            cache = 2 * run.st.cache.k.numel() * 2
+            state = cache + sum(t.numel() * t.element_size() for t in vars(run.st).values()
+                                if isinstance(t, torch.Tensor))
+            pool = (torch.cuda.memory_reserved() - reserved) - (torch.cuda.memory_allocated() - allocated)
+            log(f"[8b] a decode graph entry (B={prep8['embeds'].shape[0]}, {prep8['bucket'] + 8 * 18} "
+                f"cache slots): its state {state / 2**20:.1f} MiB (the KV cache {cache / 2**20:.1f}); "
+                f"the capture's memory pool, reserved beyond the live tensors, {pool / 2**20:.1f} MiB")
+        t0 = time.perf_counter()
+        for _ in range(10):
+            run.step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 80 * 1e3
+        kern, idle = device_kernels(run.step, torch, 4)
+        if not kern:
+            log(f"[8b] decode chunks, {mode}: {host_ms:.3f} ms a step on the host clock; the "
+                f"profiler trace holds no device events (device ms not measured)")
+            return
+        busy_ms = sum(us for us, _ in kern.values()) / 32 / 1e3
+        log(f"[8b] decode chunks, {mode}: {host_ms:.3f} ms a step on the host clock (no profiler), "
+            f"{busy_ms:.3f} ms of device kernels a step ({sum(k for _, k in kern.values()) / 32:.0f} "
+            f"kernels); device idle in the trace {100 * idle:.1f}% (profiler on), 1 - device / host "
+            f"ms {100 * (1 - busy_ms / host_ms):.1f}% (two runs)")
+
+    gen_mod.GRAPHS.clear()  # the first profile makes a new entry
+    for i, mode in enumerate(("graph", "eager", "eager", "graph")):  # in turns: the host drifts
+        chunk_profile(mode, measure=i == 0)
 
     # ---------------------------------------------------------- 6. reference, 8b
     plain_int8 = dict(int8_matmul=k_i8.int8_matmul_reference,
@@ -1980,19 +2145,18 @@ def main() -> int:
         if len(batcher.pool.free) != num_pages - 1 or any(sl is not None for sl in batcher.slots):
             fail(f"[{label}] {num_pages - 1 - len(batcher.pool.free)} pages did not return to the pool")
 
-    def serve_run(label, steps_per_sync, rows=None):
+    def serve_run(label, steps_per_sync, rows=None, eager=False):
         """Submit 8 rows to a fresh PagedBatcher and drain it; every count
         zeroed just before, read just after. ``rows`` None: the wave's front
         half (tiling, detector, char path, tile tower) runs inside the counted
-        region too."""
+        region too. ``eager``: the ticks uncaptured."""
         num_pages = SERVE_SLOTS * SERVE_PAGES_PER_SLOT + 1
-        batcher = paged_batcher(steps_per_sync)
+        batcher = paged_batcher(steps_per_sync, eager=eager)
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t_prep = time.time()
         with ShapeLog(kernels) as shapes, \
-                CallCount(internlm2, ("prefill",), timed=("prefill",), torch=torch) as pre, \
-                CallCount(paged_cache.PagedBatcher, ("_decode",)) as dec:
+                CallCount(internlm2, ("prefill",), timed=("prefill",), torch=torch) as pre:
             if rows is None:
                 rows = serve_rows(serve_pages)
             torch.cuda.synchronize()
@@ -2007,7 +2171,7 @@ def main() -> int:
         check_done(label, done, len(rows), batcher, num_pages)
         if any(r.error is not None for r in done):
             fail(f"[{label}] a request failed: {[r.error for r in done if r.error]}")
-        n_dec, n_pre = dec.n["_decode"], pre.n["prefill"]
+        n_dec, n_pre = decode_steps(), pre.n["prefill"]
         n_tok = sum(len(r.tokens) for r in done)
         log(f"[{label}] front half {t0 - t_prep:.3f} s; {len(rows)} rows of "
             f"{[int(r.shape[0]) for r in rows]} tokens, {batcher._admit_seq} admissions in {n_pre} "
@@ -2025,7 +2189,10 @@ def main() -> int:
         if launches["flash_attention"] != L * n_pre:
             fail(f"[{label}] prefill attention launches {launches['flash_attention']} != {L} x {n_pre}")
         check_norms(label, launches, L, n_pre + n_dec)
-        return types.SimpleNamespace(rows=rows, launches=launches, shapes=shapes, n_dec=n_dec)
+        if not eager and not batcher._tick.captured:
+            fail(f"[{label}] the ticks were not captured")
+        return types.SimpleNamespace(rows=rows, launches=launches, shapes=shapes, n_dec=n_dec,
+                                     tokens={r.uid: r.tokens for r in done})
 
     serve1 = serve_run("serve k=1", 1)
     keep_norms("serve", serve1.shapes, serve1.launches)
@@ -2033,13 +2200,25 @@ def main() -> int:
     if missing:
         fail(f"kernels never launched on the paged serve path: {missing}")
     rows = serve1.rows
-    serve_run("serve k=8", 8, rows=rows)
+    serve8 = serve_run("serve k=8", 8, rows=rows)
+    # the graphed ticks against the same ticks run uncaptured (serve k=1 ran
+    # the wave's front half too: the ViT launches are not the ticks')
+    for k, graphed in ((1, serve1), (8, serve8)):
+        eager = serve_run(f"serve k={k} eager", k, rows=rows, eager=True)
+        if eager.tokens != graphed.tokens or eager.n_dec != graphed.n_dec or any(
+                eager.launches[n] != graphed.launches[n] for n in serve_path if n != "vit_attention"):
+            fail(f"[serve k={k}] the graphed ticks gave other tokens or launches than the eager "
+                 f"ones: {graphed.launches} / {eager.launches}")
+        log(f"[serve k={k}] graphed ticks = eager ticks: {len(eager.tokens)} requests, "
+            f"{sum(len(t) for t in eager.tokens.values())} token ids equal, {eager.n_dec} decode "
+            f"steps and the launches of every kernel of the ticks and the prefill equal")
+    del serve8, eager
 
-    def step_profile(k):
+    def step_profile(k, eager=False):
         """Host clock against device kernel time of a decode step, all 8
-        slots live: 16 steps timed with a sync at the end, then 16 under
-        torch.profiler."""
-        batcher = paged_batcher(k)
+        slots live, its ticks replayed as graphs or run uncaptured: 16 steps
+        timed with a sync at the end, then 16 under torch.profiler."""
+        batcher = paged_batcher(k, eager=eager)
         for r in requests_for(rows, 100_000):
             batcher.submit(r)
         n_calls = max(1, 16 // k)
@@ -2052,22 +2231,25 @@ def main() -> int:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) / (n_calls * k) * 1e3
         kern, idle = device_kernels(batcher.step, torch, n_calls)
+        mode = "eager" if eager else "graph"
         if not kern:
-            log(f"[serve k={k}] step profile: {host_ms:.3f} ms a step on the host clock; the "
-                f"profiler trace holds no device events (device ms not measured)")
+            log(f"[serve k={k}] step profile, {mode}: {host_ms:.3f} ms a step on the host clock; "
+                f"the profiler trace holds no device events (device ms not measured)")
             return
         steps = n_calls * k
         busy_ms = sum(us for us, _ in kern.values()) / steps / 1e3
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
-        log(f"[serve k={k}] step profile: {host_ms:.3f} ms a step on the host clock (no profiler), "
+        log(f"[serve k={k}] step profile, {mode}: {host_ms:.3f} ms a step on the host clock (no "
+            f"profiler), "
             f"{busy_ms:.3f} ms of device kernels a step ({sum(c for _, c in kern.values()) / steps:.0f} "
             f"kernels); device idle in the trace {100 * idle:.1f}% (profiler on), 1 - device / host "
             f"ms {100 * (1 - busy_ms / host_ms):.1f}% (two runs); by kernel (us a step, "
             f"launches a step): " + "; ".join(
                 f"{name[:40]} {us / steps:.1f} ({c / steps:.0f})" for name, (us, c) in top))
 
-    for k in (1, 8, 8, 1):  # in turns: the host's speed drifts within a run
-        step_profile(k)
+    # in turns: the host's speed drifts within a run
+    for k, eager in ((1, False), (1, True), (8, True), (8, False), (1, False), (1, True)):
+        step_profile(k, eager)
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 10. serve, pressure
@@ -2075,14 +2257,13 @@ def main() -> int:
     batcher = paged_batcher(num_pages=n_pool, alloc_watermark=0)
     zero_counts()
     t0 = time.time()
-    with CallCount(internlm2, ("prefill", "prefill_with_prefix")) as pre, \
-            CallCount(paged_cache.PagedBatcher, ("_decode",)) as dec:
+    with CallCount(internlm2, ("prefill", "prefill_with_prefix")) as pre:
         for r in requests_for(rows, PRESSURE_NEW_TOKENS):
             batcher.submit(r)
         done = batcher.run()
     torch.cuda.synchronize()
     check_done("pressure", done, len(rows), batcher, n_pool)
-    check_norms("pressure", read_counts(), L, sum(pre.n.values()) + dec.n["_decode"])
+    check_norms("pressure", read_counts(), L, sum(pre.n.values()) + decode_steps())
     log(f"[pressure] {PRESSURE_FREE_PAGES} free pages for {len(rows)} requests of 28 + 2 pages: "
         f"{batcher.n_preempted} preemptions, {batcher._admit_seq} admissions, tokens per request "
         f"{[len(r.tokens) for r in sorted(done, key=lambda r: r.uid)]}, errors "
@@ -2098,7 +2279,6 @@ def main() -> int:
     http_shapes = ShapeLog(kernels)
     http_shapes.__enter__()  # the scheduler thread launches through the logging wrappers
     http_pre = CallCount(internlm2, ("prefill", "prefill_with_prefix")).__enter__()
-    http_dec = CallCount(paged_cache.PagedBatcher, ("_decode",)).__enter__()
     server, loop = http_server.serve_http(engine, batcher, port=0, model_name="callireader-8b")
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -2124,7 +2304,6 @@ def main() -> int:
         loop.shutdown()
         server.server_close()
         thread.join(timeout=60)
-        http_dec.__exit__()
         http_pre.__exit__()
         http_shapes.__exit__()
     http_launches = read_counts()
@@ -2142,7 +2321,7 @@ def main() -> int:
     missing = [n for n in serve_path if http_launches[n] == 0]
     if missing or http_launches["flash_decode"]:
         fail(f"[http] kernels never launched behind the HTTP server: {missing}; launches {http_launches}")
-    check_norms("http", http_launches, L, sum(http_pre.n.values()) + http_dec.n["_decode"])
+    check_norms("http", http_launches, L, sum(http_pre.n.values()) + decode_steps())
     log(f"[http] /health ok; text completion {chat['usage']}; 2 pages through SchedulerLoop.submit: "
         f"{[(i['prompt_tokens'], i['completion_tokens'], i['finish_reason']) for _, i in ocr]}; "
         f"{time.time() - t0:.3f} s; launches {http_launches}")
@@ -2150,26 +2329,39 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the contiguous scheduler, briefly: its decode goes through flash_decode
-    cont = serving.ContinuousBatcher(llm, cfg, num_slots=2, max_len=512, policy=engine.policy)
-    zero_counts()
-    with ShapeLog(kernels) as cont_shapes, \
-            CallCount(internlm2, ("decode_step_multislot", "prefill", "prefill_with_prefix")) as dec:
-        for uid in range(2):
-            row = rows[uid][-(100 + 28 * uid):]
-            cont.submit(serving.Request(uid, row.float().cpu().numpy(), max_new_tokens=4,
-                                        eos_token_ids=eos))
-        done = cont.run()
-    n_dec = dec.n["decode_step_multislot"]
-    cont_launches = read_counts()
-    if len(done) != 2 or any(r.error or not all(0 <= t < vocab for t in r.tokens) for r in done) \
-            or cont_launches["flash_decode"] != L * n_dec or n_dec < 1 \
-            or cont_launches["paged_flash_decode"]:
-        fail(f"[contiguous] {[(r.tokens, r.error) for r in done]}, launches {cont_launches}, "
-             f"{n_dec} decode steps")
+    def contiguous_run(max_new, k=1, eager=False):
+        """Two requests through a fresh ContinuousBatcher -> (tokens by uid,
+        launches, decode steps, prefills, shapes); counts zeroed before."""
+        cont = serving.ContinuousBatcher(llm, cfg, num_slots=2, max_len=512, policy=engine.policy,
+                                         steps_per_sync=k, eager=eager)
+        zero_counts()
+        with ShapeLog(kernels) as shp, \
+                CallCount(internlm2, ("prefill", "prefill_with_prefix")) as pre:
+            for uid in range(2):
+                row = rows[uid][-(100 + 28 * uid):]
+                cont.submit(serving.Request(uid, row.float().cpu().numpy(), max_new_tokens=max_new,
+                                            eos_token_ids=eos))
+            done = cont.run()
+        if len(done) != 2 or any(r.error or not all(0 <= t < vocab for t in r.tokens) for r in done):
+            fail(f"[contiguous] {[(r.tokens, r.error) for r in done]}")
+        if not eager and not cont._tick.captured:
+            fail("[contiguous] the ticks were not captured")
+        return ({r.uid: r.tokens for r in done}, read_counts(), decode_steps(), sum(pre.n.values()),
+                shp)
+
+    _, cont_launches, n_dec, n_pre, cont_shapes = contiguous_run(4)
+    if cont_launches["flash_decode"] != L * n_dec or n_dec < 1 or cont_launches["paged_flash_decode"]:
+        fail(f"[contiguous] launches {cont_launches}, {n_dec} decode steps")
     log(f"[contiguous] ContinuousBatcher: 2 requests, {n_dec} multislot decode steps, launches "
         f"{cont_launches}")
-    check_norms("contiguous", cont_launches, L, sum(dec.n.values()))
-    del cont
+    check_norms("contiguous", cont_launches, L, n_pre + n_dec)
+    for k in (1, 8):  # the graphed ticks against the same ticks run uncaptured
+        graphed, eager_run = (contiguous_run(CONT_NEW_TOKENS, k, e)[:3] for e in (False, True))
+        if graphed != eager_run:
+            fail(f"[contiguous k={k}] the graphed ticks gave other tokens or launches than the "
+                 f"eager ones: {graphed} / {eager_run}")
+        log(f"[contiguous k={k}] graphed ticks = eager ticks: 2 requests x {CONT_NEW_TOKENS} token "
+            f"ids, {graphed[2]} decode steps and every kernel's launches equal")
 
     # ---------------------------------------------------------- 12. reference, paged step
     class Recorded:
