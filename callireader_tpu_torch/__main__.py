@@ -9,10 +9,10 @@ from __future__ import annotations
 import sys
 
 MODES = ("list-cfg", "train", "check-custom-dataset", "chat", "serve", "inference",
-         "get-embeddings")
+         "get-embeddings", "convert")
 # the JAX package's other modes, which wait for their modules: mode -> ROADMAP item
-NOT_PORTED = {"copy-cfg": "A9", "test": "A8", "evaluate": "A8", "convert": "A7",
-              "preprocess": "A9", "mmbench": "A8", "judge": "A8", "log-dataset": "A9"}
+NOT_PORTED = {"copy-cfg": "A9", "test": "A8", "evaluate": "A8", "preprocess": "A9",
+              "mmbench": "A8", "judge": "A8", "log-dataset": "A9"}
 
 HELP = f"""callireader-tpu (PyTorch/CUDA port) command line
 
@@ -22,7 +22,12 @@ Where MODE is one of {MODES}
 
   python -m callireader_tpu_torch list-cfg
   python -m callireader_tpu_torch train --config e_it --data ann.jsonl --image-root DIR --random-init
+  python -m callireader_tpu_torch convert export --checkpoint ... --out ...
+  python -m callireader_tpu_torch convert merge --checkpoint ... --adapter ... --out ...
+  python -m callireader_tpu_torch convert split SRC DST --max-shard-size 2GB
+  python -m callireader_tpu_torch convert consolidate SRC DST --dtype bfloat16
   python -m callireader_tpu_torch inference --tgt page.npy --random-init --quant int8
+  python -m callireader_tpu_torch inference --tgt page.npy --checkpoint InternVL/ --quant int8
   python -m callireader_tpu_torch chat --image page.npy --random-init
   python -m callireader_tpu_torch serve --input req.jsonl --output out.jsonl --paged --random-init
   python -m callireader_tpu_torch get-embeddings --data DIR --out OUT --random-init
@@ -56,6 +61,8 @@ def main(argv=None) -> int:
         from callireader_tpu_torch.cli import inference as m
     elif mode == "get-embeddings":
         from callireader_tpu_torch.cli import get_embeddings as m
+    elif mode == "convert":
+        from callireader_tpu_torch.cli import convert as m
     elif mode in NOT_PORTED:
         print(f"mode {mode!r} is not ported to the PyTorch package yet "
               f"(ROADMAP {NOT_PORTED[mode]})", file=sys.stderr)

@@ -2,13 +2,14 @@
 
     from callireader_tpu_torch import apis
 
-    engine = apis.load_engine(preset="callireader-8b", random_init=True, quant="int8")
+    engine = apis.load_engine(preset="callireader-8b", checkpoint="InternVL/", quant="int8")
     text = apis.recognize(engine, "page.npy")
     answer, history = apis.ask(engine, "page.npy", "作者是谁？")
     out_dir = apis.finetune("ann.jsonl", image_root="pages/", max_iters=100)
 
-Not ported yet: ``evaluate_full_page`` (it waits for evalx/callibench) and
-checkpoint loading (``random_init`` must be set).
+``checkpoint`` is a reference-layout directory (cli/common.py); without one,
+``random_init`` must be set. Not ported yet: ``evaluate_full_page`` (it waits
+for evalx/callibench).
 """
 
 from __future__ import annotations

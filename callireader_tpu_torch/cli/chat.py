@@ -97,7 +97,7 @@ def main(argv=None):
     parser.add_argument("--image", type=str, default=None)
     parser.add_argument("--preset", type=str, default="callireader-8b")
     parser.add_argument("--checkpoint", type=str, default=os.environ.get("CALLIREADER_CKPT"),
-                        help="InternVL checkpoint directory (not loadable by the port yet)")
+                        help="InternVL checkpoint directory (reference layout)")
     parser.add_argument("--random-init", action="store_true")
     parser.add_argument("--quant", type=str, default=None, choices=[None, "int8", "int8-all"])
     parser.add_argument("--adapter", type=str, default=None,

@@ -82,7 +82,7 @@ def main(argv=None):
     parser.add_argument("--format", choices=["npy", "pt"], default="npy")
     parser.add_argument("--preset", type=str, default="callireader-8b")
     parser.add_argument("--checkpoint", type=str, default=os.environ.get("CALLIREADER_CKPT"),
-                        help="InternVL checkpoint directory (not loadable by the port yet)")
+                        help="InternVL checkpoint directory (reference layout)")
     parser.add_argument("--random-init", action="store_true")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)

@@ -2,18 +2,21 @@
 flags, plus ``--device``).
 
   python -m callireader_tpu_torch.cli.inference --tgt page.npy \
-      --prompt '这幅书法作品内容是什么？' --preset callireader-8b --random-init \
-      --quant int8 --adapter work_dir/final
+      --prompt '这幅书法作品内容是什么？' --preset callireader-8b \
+      --checkpoint InternVL/ --quant int8 --adapter work_dir/final
 
 A target is a page (a uint8 (H, W, 3) ``.npy`` array, or an image file that
 PIL decodes where PIL is installed) or a folder of them. One page: prints
 ``User: ...`` / ``Assistant: ...``. A folder: the same per page, and
 ``results/<save_name>`` with one record per page, ``"ERROR!"`` for a page
-that raised. Runs on the GPU unless ``--device cpu`` is given. ``--quant
-int8-all`` adds the W8A8 tile tower to the int8 LLM, ``--char-canvas`` sets the
-shared tower's char canvas. Not ported yet: ``--checkpoint``, ``--mesh``,
-``--no-trained-assets`` (each exits with a message); ``--random-init`` is
-required.
+that raised. Runs on the GPU unless ``--device cpu`` is given.
+``--checkpoint`` (default ``$CALLIREADER_CKPT``) is a reference-layout InternVL
+directory, its side files under ``params/``; without one, ``--random-init``
+draws seeded random weights. ``--no-trained-assets`` keeps the committed
+detector, OrderFormer and CalliAlign tower off the components drawn at
+random. ``--quant int8-all`` adds the W8A8 tile tower to the int8 LLM,
+``--char-canvas`` sets the shared tower's char canvas. Not ported yet:
+``--mesh`` (exits with a message).
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ def main(argv=None):
                         help="HF generate parity (reference always 1)")
     parser.add_argument("--preset", type=str, default="callireader-8b")
     parser.add_argument("--checkpoint", type=str, default=os.environ.get("CALLIREADER_CKPT"),
-                        help="InternVL checkpoint directory (not loadable by the port yet)")
+                        help="InternVL checkpoint directory (reference layout)")
     parser.add_argument("--random-init", action="store_true")
     parser.add_argument("--quant", type=str, default=None, choices=[None, "int8", "int8-all"])
     parser.add_argument("--adapter", type=str, default=None,
@@ -87,7 +90,8 @@ def main(argv=None):
     parser.add_argument("--char-canvas", type=int, default=None,
                         help="char-ViT canvas of the shared tower (default: the model's 448); "
                         "a preset with the compact char tower keeps its own")
-    parser.add_argument("--no-trained-assets", action="store_true", help="not ported yet")
+    parser.add_argument("--no-trained-assets", action="store_true",
+                        help="skip the in-repo trained detector/orderformer/CalliAlign overlays")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
 

@@ -2,7 +2,7 @@
 batching, or an HTTP server (PyTorch port of callireader_tpu/cli/serve.py).
 
   python -m callireader_tpu_torch.cli.serve --input requests.jsonl \
-      --output out.jsonl --slots 8 --paged --quant int8 --random-init
+      --output out.jsonl --slots 8 --paged --quant int8 --checkpoint InternVL/
 
 Request lines: {"id": ..., "question": "...", "image": "path.jpg"?,
                 "use_p": true?, "max_new_tokens": 1024?, "stop_tokens": [id..]?,
@@ -18,17 +18,20 @@ engine's batch-API tiling route, as in the JAX CLI; the serve front half
 tiles on the host either way, as the JAX server's does. ``--quant int8-all``
 adds the W8A8 tile tower, ``--char-canvas`` the shared tower's canvas lever.
 
-Runs on the GPU unless ``--device cpu`` is given. No InternVL checkpoint ships
-with the repository and the port loads none yet: ``--random-init`` (seeded
-random ViT / LLM weights plus the committed trained detector, OrderFormer and
-CalliAlign tower) must be passed, as for the JAX CLI without a checkpoint.
-Image files are decoded with PIL, imported only when a request names one.
+Runs on the GPU unless ``--device cpu`` is given. ``--checkpoint`` (default
+``$CALLIREADER_CKPT``) is a reference-layout InternVL directory, its side
+files under ``params/``; without one, ``--random-init`` draws seeded random
+ViT / LLM weights, as the JAX CLI does. The committed trained detector,
+OrderFormer and CalliAlign tower overlay the components drawn at random
+unless ``--no-trained-assets`` is given. Image files are decoded with PIL,
+imported only when a request names one.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -59,6 +62,8 @@ def main(argv=None):
     parser.add_argument("--num-pages", type=int, default=None,
                         help="pool size; default sized to slots*max_len")
     parser.add_argument("--preset", type=str, default="callireader-8b")
+    parser.add_argument("--checkpoint", type=str, default=os.environ.get("CALLIREADER_CKPT"),
+                        help="InternVL checkpoint directory (reference layout)")
     parser.add_argument("--random-init", action="store_true")
     parser.add_argument("--quant", type=str, default=None, choices=[None, "int8", "int8-all"])
     parser.add_argument("--repetition-penalty", type=float, default=1.0)
@@ -72,6 +77,8 @@ def main(argv=None):
     parser.add_argument("--prefix-cache", action="store_true",
                         help="auto-register each text-only prompt's prefix KV so the next "
                         "turn of a conversation prefills only its suffix")
+    parser.add_argument("--no-trained-assets", action="store_true",
+                        help="skip the in-repo trained detector/orderformer/CalliAlign overlays")
     parser.add_argument("--steps-per-sync", type=int, default=1,
                         help="decode steps per host round trip: amortizes the sync, costs "
                         "up to k-1 throwaway steps per retiring request")
@@ -79,9 +86,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.http is None and (args.input is None or args.output is None):
         parser.error("--input/--output are required in JSONL batch mode (or pass --http PORT)")
-    if not args.random_init:
-        raise FileNotFoundError(
-            "no checkpoint can be loaded yet; pass --random-init to run with random weights")
 
     import numpy as np
 
@@ -92,9 +96,10 @@ def main(argv=None):
     from callireader_tpu_torch.runtime.serving import ContinuousBatcher, Request
     from callireader_tpu_torch.vision import preprocess
 
-    engine = build_engine(preset=args.preset, random_init_ok=True, quant=args.quant,
+    engine = build_engine(preset=args.preset, checkpoint_dir=args.checkpoint,
+                          random_init_ok=args.random_init, quant=args.quant,
                           device_tile_pages=args.device_tile_pages, char_canvas=args.char_canvas,
-                          device=args.device)
+                          trained_assets=not args.no_trained_assets, device=args.device)
     cfg = engine.cfg
     sep = get_conv_template(cfg.template).sep
     eos = (engine.tok.convert_tokens_to_ids(sep),)

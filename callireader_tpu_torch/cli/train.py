@@ -12,12 +12,14 @@ batch 2 x accumulation 2, remat on. An iteration (logs, checkpoints, the
 schedule) is one update of ``--grad-accum`` micro-batches; ``--resume``
 continues from a checkpoint at its step and data position.
 
-Page images are ``.npy`` arrays of uint8 pixels (train/data.py). No InternVL
-checkpoint ships with the repository and the port loads none yet:
-``--random-init`` must be passed. Not offered: ``--mesh`` (the port has no
-parallel layer yet) and ``--eval-chat-interval`` other than 0 (not ported
-yet). The JAX CLI's final export to the reference's
-safetensors layout is replaced by the final ``save_train_state``.
+Page images are ``.npy`` arrays of uint8 pixels (train/data.py). The base
+comes from ``--checkpoint`` (a reference-layout InternVL directory, through
+cli/common.build_engine) or, with ``--random-init``, from the seeded random
+init. The run ends as the JAX CLI's does: the final ``save_train_state``,
+then the merged params (LoRA folded in, an int8 QLoRA base dequantized first)
+exported to the reference's safetensors layout in ``<out>/export_official``.
+Not offered: ``--mesh`` (the port has no parallel layer yet) and
+``--eval-chat-interval`` other than 0 (not ported yet).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ def main(argv=None):
     parser.add_argument("--out", type=str, default="./work_dir")
     parser.add_argument("--preset", type=str, default="callireader-8b")
     parser.add_argument("--checkpoint", type=str, default=None,
-                        help="InternVL checkpoint directory (not loadable by the port yet)")
+                        help="InternVL checkpoint directory (reference layout)")
     parser.add_argument("--random-init", action="store_true")
     parser.add_argument("--resume", type=str, default=None)
     parser.add_argument("--batch-size", type=int, default=2)
@@ -89,23 +91,22 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.eval_chat_interval:
         parser.error("--eval-chat-interval is not ported yet (ROADMAP A10); pass 0")
-    if args.checkpoint:
-        parser.error("--checkpoint: the port cannot load an InternVL checkpoint yet; "
-                     "pass --random-init")
-    if not args.random_init:
-        parser.error("no checkpoint can be loaded yet; pass --random-init to run with "
-                     "random weights")
 
     import torch
 
-    from callireader_tpu_torch.runtime.engine import build_engine
+    from callireader_tpu_torch.cli.common import build_engine
     from callireader_tpu_torch.train import checkpoint as ckpt_mod
     from callireader_tpu_torch.train import data as data_mod
     from callireader_tpu_torch.train import e_it, lora
     from callireader_tpu_torch.utils.profiling import Spans, TrainThroughput
 
+    try:
+        engine = build_engine(preset=args.preset, checkpoint_dir=args.checkpoint,
+                              random_init_ok=args.random_init, device_tile_pages=False,
+                              device=args.device)
+    except FileNotFoundError as e:
+        parser.error(str(e))
     os.makedirs(args.out, exist_ok=True)
-    engine = build_engine(args.preset, device=args.device)
     cfg, tok, dev = engine.cfg, engine.tok, engine.device
     print(f"[train] device: {dev}", file=sys.stderr)
 
@@ -229,11 +230,21 @@ def main(argv=None):
                 shutil.rmtree(last_ckpt)  # keep one
             last_ckpt = path
 
+    # final save + deployable export
     final = os.path.join(args.out, "final")
     ckpt_mod.save_train_state(final, state, metadata={"iter": it // accum, "seed": args.seed})
-    print(f"[train] done: {it // accum} iters ({it} micro-batches); train state at {final} "
-          f"(the reference-format export is not ported: the final checkpoint replaces it)",
-          file=sys.stderr)
+    merged = e_it.merge_params(state.trainable, frozen)
+    # drop the optimizer moments before the export: the merged LLM and the
+    # fp32 staging of each tensor take their room
+    state = None
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        print(f"[train] device memory before export: {torch.cuda.memory_allocated() / 1e9:.2f} "
+              f"GB in use", file=sys.stderr)
+    export_dir = os.path.join(args.out, "export_official")
+    ckpt_mod.export_reference_format(merged, cfg, export_dir)
+    print(f"[train] done: {it // accum} iters ({it} micro-batches); train state at {final}, "
+          f"export at {export_dir}", file=sys.stderr)
     print(spans.report(), file=sys.stderr)
 
 

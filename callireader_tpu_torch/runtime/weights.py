@@ -1,5 +1,6 @@
-"""Parameters of the port: conversion from the JAX tree, seeded random init,
-and the committed trained assets.
+"""Parameters of the port: the reference checkpoint's loaders and
+converters, conversion from the JAX tree, seeded random init, and the
+committed trained assets.
 
 The port keeps the JAX package's parameter tree (same keys, layers stacked
 on axis 0, kernels (in, out), detector convolutions HWIO), so
@@ -7,6 +8,25 @@ on axis 0, kernels (in, out), detector convolutions HWIO), so
 draws every component at full width from one ``torch.Generator`` (the
 numbers differ from jax.random's; a torch seed is its own reference). The
 loaders read the npz assets under callireader_tpu/assets by path.
+
+The deployed reference checkpoint (InternVL/model.safetensors.index.json)
+holds
+  language_model.model.layers.N.attention.{wqkv,wo}.weight   (fused GQA qkv)
+  language_model.model.layers.N.feed_forward.{w1,w2,w3}.weight
+  language_model.model.{norm,tok_embeddings}.weight, language_model.output.weight
+  vision_model.embeddings.*, vision_model.encoder.layers.N.*
+  mlp1.{0,1,3}.*          (LayerNorm, Linear, GELU, Linear)
+  resampler.*             (perceiver layers, learns, final norm)
+  normed_emb.weight       (normalized token-embedding VQ table)
+beside the torch side files gauss_norm_mu_sigma.pth ({'weight': (V, 2)}),
+orderformer.pth (a TransformerEncoder state dict) and best.pt (ultralytics
+YOLOv8). ``convert_reference_checkpoint`` maps it onto the tree as the JAX
+package's runtime/weights.py does, leaf for leaf. The shards are memory
+mapped (runtime/safetensors_io.py) and each tensor goes to the device in its
+stored dtype, where it is transposed, stacked and cast: the host never holds
+more than the page cache of the files, and a BF16 file is never widened on
+the host. The fused-wqkv rows are laid out per kv head as
+[G query heads | k | v] x head_dim (modeling_internlm2.py:364-373).
 """
 
 from __future__ import annotations
@@ -14,8 +34,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import zipfile
 from pathlib import Path
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Collection, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +47,7 @@ from callireader_tpu_torch.core.config import (
     VLMConfig,
 )
 from callireader_tpu_torch.models import detector as detector_mod
-from callireader_tpu_torch.runtime import quantize
+from callireader_tpu_torch.runtime import detector_weights, quantize, safetensors_io
 
 ASSETS_DIR = Path(__file__).resolve().parents[2] / "callireader_tpu" / "assets"
 
@@ -48,6 +70,282 @@ def from_jax_params(tree, *, device):
     if isinstance(tree, (list, tuple)):
         return [from_jax_params(v, device=device) for v in tree]
     return _to_tensor(tree, device)
+
+
+# ------------------------------------------------------------ reference checkpoints
+
+
+def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a directory's shards (those its index names, else
+    every ``*.safetensors``), memory mapped in their stored dtype. A tensor
+    the index names that no shard holds raises."""
+    out: Dict[str, torch.Tensor] = {}
+    for shard in safetensors_io.shard_files(path):
+        out.update(safetensors_io.load_file(os.path.join(path, shard)))
+    index = os.path.join(path, safetensors_io.INDEX_FILE)
+    if os.path.exists(index):
+        with open(index) as f:
+            missing = sorted(set(json.load(f)["weight_map"]) - set(out))
+        if missing:
+            raise KeyError(f"{path}: the index names tensors no shard holds: {missing[:5]}")
+    return out
+
+
+def load_torch_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A torch side file's tensors (a ``model_state_dict`` or ``state_dict``
+    entry unwrapped, ``module.`` prefixes stripped, other values dropped),
+    on the CPU in their stored dtype; zip files are memory mapped."""
+    obj = torch.load(path, map_location="cpu", weights_only=False, mmap=zipfile.is_zipfile(path))
+    if isinstance(obj, dict) and "model_state_dict" in obj:
+        obj = obj["model_state_dict"]
+    if isinstance(obj, dict) and "state_dict" in obj and isinstance(obj["state_dict"], dict):
+        obj = obj["state_dict"]
+    out = {}
+    for k, v in obj.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(v)
+        if isinstance(v, torch.Tensor):
+            out[k] = v.detach()
+    return out
+
+
+def _put(t: torch.Tensor, dtype, device) -> torch.Tensor:
+    """``t`` (a view of a mapped tensor) to the device in its stored dtype,
+    then cast and laid out row-major there."""
+    return t.to(device).to(dtype).contiguous()
+
+
+def _T(t: torch.Tensor) -> torch.Tensor:
+    return t.T
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _stack(sd, pattern: str, num: int, *, dtype, device, fn=_same) -> torch.Tensor:
+    """(num, ...) on the device: ``fn(sd[pattern.format(i)])`` for each i,
+    moved one at a time and cast into its slot."""
+    first = fn(sd[pattern.format(0)])
+    out = torch.empty((num, *first.shape), dtype=dtype, device=device)
+    for i in range(num):
+        out[i].copy_(fn(sd[pattern.format(i)]).to(device))
+    return out
+
+
+def split_wqkv(wqkv: torch.Tensor, cfg: LLMConfig):
+    """(out=(Hq+2Hkv)*D, E) torch layout -> wq (E, Hq*D), wk, wv (E, Hkv*D)."""
+    Hkv, G, D = cfg.num_key_value_heads, cfg.num_query_groups, cfg.head_dim
+    E = wqkv.shape[1]
+    w = wqkv.reshape(Hkv, G + 2, D, E)
+    wq = w[:, :G].reshape(Hkv * G * D, E).T
+    wk = w[:, G].reshape(Hkv * D, E).T
+    wv = w[:, G + 1].reshape(Hkv * D, E).T
+    return wq, wk, wv
+
+
+def fuse_wqkv(wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
+    """Inverse of split_wqkv (for exporting back to the reference format)."""
+    Hkv, G, D = cfg.num_key_value_heads, cfg.num_query_groups, cfg.head_dim
+    E = wq.shape[0]
+    q = wq.T.reshape(Hkv, G, D, E)
+    k = wk.T.reshape(Hkv, 1, D, E)
+    v = wv.T.reshape(Hkv, 1, D, E)
+    return torch.cat([q, k, v], dim=1).reshape(-1, E)
+
+
+def convert_llm(sd, cfg: LLMConfig, prefix: str = "language_model.", *, dtype=torch.float32,
+                device="cuda") -> Dict[str, Any]:
+    L, p = cfg.num_hidden_layers, prefix
+    E, D = cfg.hidden_size, cfg.head_dim
+    qkv = {name: torch.empty((L, E, h * D), dtype=dtype, device=device) for name, h in
+           (("wq", cfg.num_attention_heads), ("wk", cfg.num_key_value_heads),
+            ("wv", cfg.num_key_value_heads))}
+    for i in range(L):
+        parts = split_wqkv(sd[f"{p}model.layers.{i}.attention.wqkv.weight"].to(device), cfg)
+        for out, part in zip(qkv.values(), parts):
+            out[i].copy_(part)
+    put = dict(dtype=dtype, device=device)
+    layer = p + "model.layers.{}."
+    return {
+        "tok_embeddings": _put(sd[f"{p}model.tok_embeddings.weight"], **put),
+        "layers": {
+            "attn_norm": _stack(sd, layer + "attention_norm.weight", L, **put),
+            "ffn_norm": _stack(sd, layer + "ffn_norm.weight", L, **put),
+            **qkv,
+            "wo": _stack(sd, layer + "attention.wo.weight", L, fn=_T, **put),
+            "w1": _stack(sd, layer + "feed_forward.w1.weight", L, fn=_T, **put),
+            "w3": _stack(sd, layer + "feed_forward.w3.weight", L, fn=_T, **put),
+            "w2": _stack(sd, layer + "feed_forward.w2.weight", L, fn=_T, **put),
+        },
+        "norm": _put(sd[f"{p}model.norm.weight"], **put),
+        "output": _put(sd[f"{p}output.weight"], **put),
+    }
+
+
+def _stack_layers(sd, pre: str, table, num: int, **put) -> Dict[str, torch.Tensor]:
+    """Every leaf of ``table`` (leaf -> (key under ``pre`` + "{layer}.",
+    transposed)) stacked over ``num`` layers."""
+    return {ours: _stack(sd, pre + "{}." + theirs, num, fn=_T if transposed else _same, **put)
+            for ours, (theirs, transposed) in table.items()}
+
+
+def convert_vit(sd, cfg: VisionConfig, prefix: str = "vision_model.", *, dtype=torch.float32,
+                device="cuda") -> Dict[str, Any]:
+    p, put = prefix, dict(dtype=dtype, device=device)
+    conv_w = sd[f"{p}embeddings.patch_embedding.weight"]  # (E, C, P, P)
+    return {
+        "patch_embed": {
+            "kernel": _put(conv_w.reshape(conv_w.shape[0], -1).T, **put),  # (C*P*P, E)
+            "bias": _put(sd[f"{p}embeddings.patch_embedding.bias"], **put),
+        },
+        "cls_token": _put(sd[f"{p}embeddings.class_embedding"], **put),
+        "pos_embed": _put(sd[f"{p}embeddings.position_embedding"], **put),
+        "layers": _stack_layers(sd, p + "encoder.layers.", VIT_LAYER, cfg.num_hidden_layers,
+                                **put),
+    }
+
+
+def convert_projector(sd, prefix: str = "mlp1.", *, dtype=torch.float32,
+                      device="cuda") -> Dict[str, Any]:
+    p, put = prefix, dict(dtype=dtype, device=device)
+    return {
+        "ln_scale": _put(sd[f"{p}0.weight"], **put),
+        "ln_bias": _put(sd[f"{p}0.bias"], **put),
+        "fc1_kernel": _put(sd[f"{p}1.weight"].T, **put),
+        "fc1_bias": _put(sd[f"{p}1.bias"], **put),
+        "fc2_kernel": _put(sd[f"{p}3.weight"].T, **put),
+        "fc2_bias": _put(sd[f"{p}3.bias"], **put),
+    }
+
+
+# a stacked leaf -> (its key in one layer of the reference's module,
+# transposed), in the order the export writes a layer (train/checkpoint.py:
+# the order decides where the shards split, as in the JAX exporter)
+VIT_LAYER = {
+    "norm1_scale": ("norm1.weight", False), "norm1_bias": ("norm1.bias", False),
+    "norm2_scale": ("norm2.weight", False), "norm2_bias": ("norm2.bias", False),
+    "qkv_bias": ("attn.qkv.bias", False), "proj_bias": ("attn.proj.bias", False),
+    "fc1_bias": ("mlp.fc1.bias", False), "fc2_bias": ("mlp.fc2.bias", False),
+    "ls1": ("ls1", False), "ls2": ("ls2", False),
+    "qkv_kernel": ("attn.qkv.weight", True), "proj_kernel": ("attn.proj.weight", True),
+    "fc1_kernel": ("mlp.fc1.weight", True), "fc2_kernel": ("mlp.fc2.weight", True),
+}
+RESAMPLER_LAYER = {
+    "norm_media_scale": ("0.norm_media.weight", False),
+    "norm_media_bias": ("0.norm_media.bias", False),
+    "norm_learns_scale": ("0.norm_learns.weight", False),
+    "norm_learns_bias": ("0.norm_learns.bias", False),
+    "ff_norm_scale": ("1.net.0.weight", False), "ff_norm_bias": ("1.net.0.bias", False),
+    "ff1_bias": ("1.net.1.bias", False), "ff2_bias": ("1.net.3.bias", False),
+    "to_q": ("0.to_q.weight", True), "to_kv": ("0.to_kv.weight", True),
+    "to_out": ("0.to_out.weight", True), "ff1": ("1.net.1.weight", True),
+    "ff2": ("1.net.3.weight", True),
+}
+ORDERFORMER_LAYER = {
+    "in_proj_kernel": ("self_attn.in_proj_weight", True),
+    "in_proj_bias": ("self_attn.in_proj_bias", False),
+    "out_proj_kernel": ("self_attn.out_proj.weight", True),
+    "out_proj_bias": ("self_attn.out_proj.bias", False),
+    "norm1_scale": ("norm1.weight", False), "norm1_bias": ("norm1.bias", False),
+    "norm2_scale": ("norm2.weight", False), "norm2_bias": ("norm2.bias", False),
+    "ff1_kernel": ("linear1.weight", True), "ff1_bias": ("linear1.bias", False),
+    "ff2_kernel": ("linear2.weight", True), "ff2_bias": ("linear2.bias", False),
+}
+
+
+def convert_resampler(sd, cfg: ResamplerConfig, prefix: str = "resampler.", *,
+                      dtype=torch.float32, device="cuda") -> Dict[str, Any]:
+    p, put = prefix, dict(dtype=dtype, device=device)
+    return {
+        "learns": _put(sd[f"{p}learns"], **put),
+        "layers": _stack_layers(sd, p + "layers.", RESAMPLER_LAYER, cfg.depth, **put),
+        "norm_scale": _put(sd[f"{p}norm.weight"], **put),
+        "norm_bias": _put(sd[f"{p}norm.bias"], **put),
+    }
+
+
+def convert_orderformer(sd, num_layers: int, *, dtype=torch.float32,
+                        device="cuda") -> Dict[str, Any]:
+    put = dict(dtype=dtype, device=device)
+    return {
+        "embed_kernel": _put(sd["embedding.weight"].T, **put),
+        "embed_bias": _put(sd["embedding.bias"], **put),
+        "layers": _stack_layers(sd, "transformer_encoder.layers.", ORDERFORMER_LAYER,
+                                num_layers, **put),
+        "decode_kernel": _put(sd["decoder.weight"].T, **put),
+        "decode_bias": _put(sd["decoder.bias"], **put),
+    }
+
+
+def discover_side_files(internvl_dir: str) -> Dict[str, str]:
+    """The reference's torch side files next to a checkpoint directory
+    (config/configu.py:7-13,61-62 keeps them under ./params): checks
+    ``<dir>/params/<name>`` then ``<dir>/<name>``."""
+    names = {"mu_sigma": "gauss_norm_mu_sigma.pth", "orderformer": "orderformer.pth",
+             "detector": "best.pt"}
+    out: Dict[str, str] = {}
+    for key, fname in names.items():
+        for cand in (os.path.join(internvl_dir, "params", fname),
+                     os.path.join(internvl_dir, fname)):
+            if os.path.exists(cand):
+                out[key] = cand
+                break
+    return out
+
+
+def tree_to(tree, dtype, device):
+    """A tree of numpy arrays or tensors -> tensors on ``device`` in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, dtype, device) for v in tree]
+    t = torch.from_numpy(tree) if isinstance(tree, np.ndarray) else tree
+    return _put(t, dtype, device)
+
+
+def convert_reference_checkpoint(
+    internvl_dir: str,
+    cfg: VLMConfig,
+    *,
+    mu_sigma_path: Optional[str] = None,
+    orderformer_path: Optional[str] = None,
+    detector_path: Optional[str] = None,
+    dtype=torch.float32,
+    device="cuda",
+) -> Dict[str, Any]:
+    """The engine tree from a deployed reference checkpoint, on ``device``
+    in ``dtype``; the detector and OrderFormer stay fp32 (casting those small
+    host-side priors to bf16 would shift box and order decisions). Side files
+    not passed are discovered under ``<dir>/params/`` or ``<dir>/``; a
+    component with no tensors in the checkpoint is left out of the tree."""
+    side = discover_side_files(internvl_dir)
+    mu_sigma_path = mu_sigma_path or side.get("mu_sigma")
+    orderformer_path = orderformer_path or side.get("orderformer")
+    detector_path = detector_path or side.get("detector")
+    sd = load_safetensors_dir(internvl_dir)
+    put = dict(dtype=dtype, device=device)
+    params: Dict[str, Any] = {
+        "llm": convert_llm(sd, cfg.llm, **put),
+        "vision": convert_vit(sd, cfg.vision, **put),
+        "projector": convert_projector(sd, **put),
+    }
+    if "resampler.learns" in sd:
+        params["resampler"] = convert_resampler(sd, cfg.resampler, **put)
+    if "normed_emb.weight" in sd:
+        params.setdefault("align", {})["normed_emb"] = _put(sd["normed_emb.weight"], **put)
+    if mu_sigma_path:
+        ms = load_torch_pth(mu_sigma_path)["weight"]  # (V, 2)
+        params.setdefault("align", {})["mu"] = _put(ms[:, 0], **put)
+        params["align"]["sigma"] = _put(ms[:, 1], **put)
+    f32 = dict(dtype=torch.float32, device=device)
+    if orderformer_path:
+        params["orderformer"] = convert_orderformer(load_torch_pth(orderformer_path),
+                                                    cfg.orderformer.num_layers, **f32)
+    if detector_path:
+        params["detector"] = tree_to(detector_weights.load_detector(detector_path), **f32)
+    return params
 
 
 # ------------------------------------------------------------ random init
@@ -288,14 +586,27 @@ def apply_v3_asset(cfg: VLMConfig, path, dtype, device):
 
 
 TRAINED_ASSETS = ("detector", "orderformer", "callialign")
+# the component each asset replaces: the CalliAlign tower was trained against
+# the seed-0 resampler, ViT and align table, so it goes only where the
+# resampler was drawn at random
+ASSET_REPLACES = {"detector": "detector", "orderformer": "orderformer", "callialign": "resampler"}
+# the components a random init may have replaced (JAX cli/common.build_engine)
+RANDOM_COMPONENTS = ("detector", "orderformer", "resampler")
 
 
 def overlay_trained_assets(params: Dict, cfg: VLMConfig, *, dtype, device,
-                           names: Sequence[str] = TRAINED_ASSETS) -> Tuple[VLMConfig, List[str]]:
+                           names: Sequence[str] = TRAINED_ASSETS,
+                           replaceable: Optional[Collection[str]] = None,
+                           ) -> Tuple[VLMConfig, List[str]]:
     """The committed detector, OrderFormer and compact CalliAlign tower (those
-    of them in ``names``) over a random init, where the preset's architecture
-    matches them (the JAX cli/common._overlay_trained_assets rule). Returns
-    (cfg, loaded names)."""
+    of them in ``names``) over the components drawn at random, where the
+    preset's architecture matches them (the JAX
+    cli/common._overlay_trained_assets rule). ``replaceable``: the
+    components drawn at random (None: every one an asset replaces); a
+    component loaded from a checkpoint is never replaced. Returns (cfg,
+    loaded names)."""
+    if replaceable is not None:
+        names = [n for n in names if ASSET_REPLACES[n] in replaceable]
     loaded = []
     det_d, of_d = DetectorConfig(), OrderFormerConfig()
     if "detector" in names and all(

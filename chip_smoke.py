@@ -25,6 +25,27 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      PyTorch library call (scaled_dot_product_attention, a yardstick the port
      never calls) timed with CUDA events; the least time the card could take
      (bound) computed from this run's inputs. The 2b engine is then freed;
+ 22. boot from a reference checkpoint, callireader-2b: the engine drawn with
+     no trained assets (seed 0) is written by
+     train/checkpoint.export_full_reference_checkpoint (fp32 shards of at
+     most 2 GiB, their index, the side files under params/) into a
+     temporary directory; cli.common.build_engine(checkpoint_dir=...,
+     trained_assets=False) boots from it: every leaf bit-equal to the
+     in-memory tree (mu and sigma compared in its fp32: the loader casts
+     them to bf16, as the JAX loader does), no component drawn at random,
+     batch_chat_ocr's token ids on the four pages at 64 tokens equal the
+     in-memory engine's, the launches counted on that run (the ViT through
+     the tile tower for the char crops too, prefill, decode, RMSNorm
+     forward); then ``cli.inference.main(["--tgt", page.npy, "--preset",
+     "callireader-2b", "--checkpoint", dir, "--quant", "int8",
+     "--no-trained-assets"])`` in-process: its int8 LLM leaves bit-equal to
+     the in-memory tree quantized, padded and fused, its token ids equal to
+     that tree's engine's through the same CLI, every kernel of the int8 path
+     launched. The attention kernels are held against their plain versions
+     at the boot run's shapes and flash_decode at the CLI's. The bytes and
+     shards, the export, sync and boot seconds and the boot's GB/s are
+     printed beside the card's name and power limit; the directory is
+     deleted;
   5. main path, flagship: build_engine("callireader-8b", quant="int8",
      device_tile_pages=True) (24-
      layer tile tower, 32-layer LLM with int8 weight-only fused projections
@@ -118,7 +139,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      micro-steps. Counts zeroed before, read after: the training forward,
      dq and dk/dv kernels 64 / 32 / 32 times a micro-step, the ViT kernel 24;
      every loss finite; every layer of every LoRA b leaf moved; frozen leaves
-     unchanged bit for bit; the final checkpoint restores to the live state.
+     unchanged bit for bit; the final checkpoint restores to the live state;
+     the CLI's closing export to the reference layout (<out>/export_official,
+     ~36 GB of fp32), read back with the port's reader: the vocab tables, the
+     final norm and every leaf of layers 0 and 31 equal
+     merge_lora(merge_params(final state)) bit for bit.
      ms per micro-step (the first apart), throughput, peak memory, and host
      against device ms of a micro-step from a profiler trace;
  15. reference: on two batches of 2 rows of at most 512 tokens, one
@@ -224,6 +249,10 @@ BENCH_SHORT_BATCHES = 4
 # rows of each int32 product held to an exact fp64 product
 W8A8_REL_TOL = 5e-2
 W8A8_EXACT_ROWS = 512
+# phase 22: the boot from a reference checkpoint (the preset's export in
+# shards of at most 2 GiB)
+BOOT_PRESET, BOOT_SHARD = "callireader-2b", 2 << 30
+BOOT_SIDE_READ = ("gauss_norm_mu_sigma.pth", "orderformer.pth", "best.pt")
 NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_fused", "rms_norm_bwd_fused")
 # H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor cores (data sheet)
 PEAK_BYTES_S = 3.35e12
@@ -570,6 +599,13 @@ def train_phases(h, data):
 
     steps, last = [], {}
     make_train_step = e_it.make_train_step
+    export_reference_format, exported = ckpt_mod.export_reference_format, {}
+
+    def timed_export(*a, **kw):
+        t0 = time.time()
+        out = export_reference_format(*a, **kw)
+        exported["s"] = time.time() - t0
+        return out
 
     def timed_train_step(*a, **kw):
         step = make_train_step(*a, **kw)
@@ -595,7 +631,8 @@ def train_phases(h, data):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with ShapeLog(h.kernels) as shapes, Swap(engine_mod, build_engine=build_and_checksum), \
-            Swap(e_it, make_train_step=timed_train_step):
+            Swap(e_it, make_train_step=timed_train_step), \
+            Swap(ckpt_mod, export_reference_format=timed_export):
         train_cli.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -649,6 +686,7 @@ def train_phases(h, data):
             or set(live) != set(back) or not all(torch.equal(live[k], back[k]) for k in live):
         fail("[train] the final checkpoint does not restore the trained state")
     del template, restored, live, back
+    export_readback(out_dir, state, frozen, cfg, exported["s"])
     with open(os.path.join(out_dir, "train_log.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     step_ms = [1e3 * st[0] for st in steps]
@@ -807,6 +845,53 @@ def train_phases(h, data):
     return os.path.join(out_dir, "final")
 
 
+def export_readback(out_dir, state, frozen, cfg, export_s):
+    """Phase 14's export_official read back with the port's reader: the
+    vocab tables, the final norm and every leaf of the first and last layers
+    equal, as fp32, merge_lora(merge_params(final state)) bit for bit."""
+    import torch
+
+    from callireader_tpu_torch.runtime import weights
+    from callireader_tpu_torch.train import e_it, lora
+
+    export_dir = os.path.join(out_dir, "export_official")
+    files = {f: os.path.getsize(os.path.join(export_dir, f)) for f in os.listdir(export_dir)}
+    t0 = time.time()
+    sd = weights.load_safetensors_dir(export_dir)
+    llm = lora.merge_lora(e_it.merge_params(state.trainable, frozen)["llm"])
+    layers, L = llm["layers"], cfg.llm.num_hidden_layers
+    pairs = [("language_model.model.tok_embeddings.weight", sd["language_model.model.tok_embeddings.weight"],
+              llm["tok_embeddings"]),
+             ("language_model.output.weight", sd["language_model.output.weight"], llm["output"]),
+             ("language_model.model.norm.weight", sd["language_model.model.norm.weight"],
+              llm["norm"])]
+    for i in (0, L - 1):
+        pre = f"language_model.model.layers.{i}."
+        qkv = weights.split_wqkv(sd[pre + "attention.wqkv.weight"], cfg.llm)
+        pairs += [(f"{pre}attention.wqkv.weight ({n})", t, layers[n][i])
+                  for n, t in zip(("wq", "wk", "wv"), qkv)]
+        pairs += [(pre + theirs, sd[pre + theirs].T if transposed else sd[pre + theirs], layers[ours][i])
+                  for ours, theirs, transposed in (
+                      ("wo", "attention.wo.weight", True), ("w1", "feed_forward.w1.weight", True),
+                      ("w3", "feed_forward.w3.weight", True), ("w2", "feed_forward.w2.weight", True),
+                      ("attn_norm", "attention_norm.weight", False),
+                      ("ffn_norm", "ffn_norm.weight", False))]
+    bad = [name for name, got, want in pairs
+           if got.dtype != torch.float32 or want.dtype != torch.bfloat16
+           or not torch.equal(bits(got.to(want.device)), bits(want.float()))]
+    read_s = time.time() - t0
+    moved = int((layers["wq"][L - 1] != frozen["llm"]["layers"]["wq"][L - 1]).sum())
+    log(f"[train] export_official: {sum(files.values()) / 1e9:.3f} GB in {len(files)} files, "
+        f"written in {export_s:.3f} s ({sum(files.values()) / export_s / 1e9:.3f} GB/s, the "
+        f"adapters merged first); read back with the port's reader: {len(pairs) - len(bad)} of "
+        f"{len(pairs)} tensors (the vocab tables, the final norm, layers 0 and {L - 1}) equal "
+        f"merge_lora(merge_params(final state)) bit for bit as fp32, in {read_s:.3f} s; "
+        f"{moved} elements of layer {L - 1}'s wq moved by the adapters")
+    if bad or not moved:
+        fail(f"[train] export_official disagrees with the merged final state: {bad}; "
+             f"{moved} elements moved")
+
+
 def train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F):
     """The forward, dq and dk/dv kernels against their plain versions at one
     shape (causal, the given segment ids), beside scaled_dot_product_attention
@@ -899,9 +984,9 @@ def cli_phases(h, final_dir, work):
     from callireader_tpu_torch.cli import common as cli_common
     from callireader_tpu_torch.cli import inference as inf_cli
     from callireader_tpu_torch.models import internlm2
-    from callireader_tpu_torch.runtime import engine as engine_mod
     from callireader_tpu_torch.runtime import generate as gen_mod
     from callireader_tpu_torch.runtime import quantize as quant_mod
+    from callireader_tpu_torch.runtime import weights
 
     page_path = os.path.join(work, "page.npy")
     np.save(page_path, make_page(0)[0])
@@ -915,13 +1000,13 @@ def cli_phases(h, final_dir, work):
     # ---------------------------------------------------------- 17. cli.inference, 8b int8 + adapter
     kept, gens = {}, []
     layer = 7  # a host check of one merged leaf: wq of this layer
-    build_base, build_cli = engine_mod.build_engine, cli_common.build_engine
+    draw_base, build_cli = weights.init_params, cli_common.build_engine
     quantize, generate = quant_mod.quantize_llm_int8, gen_mod.generate_from_embeds
 
-    def base_and_keep(*a, **kw):
-        eng = build_base(*a, **kw)
-        kept["base"] = eng.params["llm"]["layers"]["wq"][layer].cpu()
-        return eng
+    def base_and_keep(*a, **kw):  # the random base the adapter merges onto
+        params = draw_base(*a, **kw)
+        kept["base"] = params["llm"]["layers"]["wq"][layer].cpu()
+        return params
 
     def cli_and_keep(**kw):
         t0 = time.time()
@@ -990,7 +1075,7 @@ def cli_phases(h, final_dir, work):
 
     argv = ["--preset", "callireader-8b", "--random-init", "--quant", "int8",
             "--adapter", final_dir]
-    with Swap(engine_mod, build_engine=base_and_keep), \
+    with Swap(weights, init_params=base_and_keep), \
             Swap(cli_common, build_engine=cli_and_keep), \
             Swap(quant_mod, quantize_llm_int8=quantize_and_keep):
         shapes, launches = run_cli("cli page", ["--tgt", page_path, *argv])
@@ -1084,6 +1169,202 @@ def cli_phases(h, final_dir, work):
     if len(hist) != 1 or hist[0][1] != resp or not out.getvalue().endswith("\n"):
         fail("[stream] stream_generate did not stream a whole turn")
     log(f"[stream] stream_generate: {len(out.getvalue())} characters streamed")
+
+
+def bits(t):
+    """A tensor's bits as integers of its width (torch.equal on floats takes
+    -0.0 for 0.0 and fails on NaN)."""
+    import torch
+
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.contiguous().view(width[t.element_size()])
+
+
+def tree_diff(got, want, cast_ok=()):
+    """The leaves of two trees that differ in name, shape, dtype or bits;
+    a leaf under a prefix in ``cast_ok`` may differ in dtype and is compared
+    in ``want``'s."""
+    import torch
+
+    from callireader_tpu_torch.train.e_it import flatten
+
+    fg, fw = flatten(got), flatten(want)
+    bad = sorted(set(fg) ^ set(fw))
+    for k in set(fg) & set(fw):
+        g, w = fg[k], fw[k]
+        if g.dtype != w.dtype and k.startswith(cast_ok):
+            g = g.to(w.dtype)
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(bits(g), bits(w)):
+            bad.append(k)
+    return bad, len(fw)
+
+
+def boot_phase(h, run_main_path, path_2b):
+    """Phase 22: the reference-checkpoint boot at callireader-2b: the engine
+    drawn without trained assets, exported in the reference layout, booted
+    by cli.common.build_engine and by cli.inference (int8) from the
+    directory; leaves and token ids against the in-memory tree."""
+    import torch
+
+    from callireader_tpu_torch.cli import common as cli_common
+    from callireader_tpu_torch.cli import inference as inf_cli
+    from callireader_tpu_torch.models import internlm2
+    from callireader_tpu_torch.runtime import engine as engine_mod
+    from callireader_tpu_torch.runtime import generate as gen_mod
+    from callireader_tpu_torch.train import checkpoint as ckpt_mod
+    from callireader_tpu_torch.train import e_it
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_boot_")
+    try:
+        mem = engine_mod.build_engine(BOOT_PRESET, device=h.dev, assets=(), device_tile_pages=True)
+        ckpt = os.path.join(work, "InternVL")
+        free = shutil.disk_usage(work).free
+        shards_s = []
+        export_shards = ckpt_mod.export_reference_format
+
+        def timed_shards(*a, **kw):
+            t0 = time.time()
+            out = export_shards(*a, **kw)
+            shards_s.append(time.time() - t0)
+            return out
+
+        t0 = time.time()
+        with Swap(ckpt_mod, export_reference_format=timed_shards):
+            ckpt_mod.export_full_reference_checkpoint(mem.params, mem.cfg, ckpt,
+                                                      max_shard_bytes=BOOT_SHARD)
+        export_s = time.time() - t0
+        t0 = time.time()
+        os.sync()
+        sync_s = time.time() - t0
+        files = {os.path.relpath(os.path.join(r, f), ckpt): os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(ckpt) for f in fs}
+        shards = [f for f in files if f.endswith(".safetensors")]
+        shard_bytes = sum(files[f] for f in shards)
+        # the phase's own count: every exported float in fp32, and the headers
+        floats = sum(t.numel() for name in ("llm", "vision", "projector", "resampler")
+                     for t in e_it.flatten(mem.params[name]).values())
+        floats += mem.params["align"]["normed_emb"].numel()
+        if not 4 * floats <= shard_bytes <= 4 * floats + (1 << 20):
+            fail(f"[boot] {shard_bytes} bytes of shards for {floats} exported floats")
+        read_bytes = shard_bytes + sum(files[os.path.join("params", f)] for f in BOOT_SIDE_READ)
+        log(f"[boot] export_full_reference_checkpoint of the {BOOT_PRESET} engine (no trained "
+            f"assets): {sum(files.values()) / 1e9:.3f} GB in {len(files)} files "
+            f"({shard_bytes / 1e9:.3f} GB of fp32 in {len(shards)} shards of at most "
+            f"{BOOT_SHARD / 2**30:.0f} GiB, the tree's {floats} floats and the headers; "
+            f"{(sum(files.values()) - shard_bytes) / 1e9:.3f} GB of side files), "
+            f"{free / 1e9:.1f} GB free before; {export_s:.3f} s to return "
+            f"({sum(files.values()) / export_s / 1e9:.3f} GB/s: the shards {shards_s[0]:.3f} s, "
+            f"{shard_bytes / shards_s[0] / 1e9:.3f} GB/s; the side files' torch.save "
+            f"{export_s - shards_s[0]:.3f} s), then os.sync {sync_s:.3f} s")
+
+        # ------------------------------------------ build_engine(checkpoint_dir=...), bf16
+        t0 = time.time()
+        disk = cli_common.build_engine(preset=BOOT_PRESET, checkpoint_dir=ckpt,
+                                       trained_assets=False, device=h.dev)
+        torch.cuda.synchronize()
+        boot_s = time.time() - t0
+        # the loader casts every leaf but the detector's and the OrderFormer's
+        # to bf16, mu and sigma too (the JAX loader's rule): those two are
+        # compared in the in-memory fp32
+        bad, n_leaves = tree_diff(disk.params, mem.params, cast_ok=("align/mu", "align/sigma"))
+        log(f"[boot] cli.common.build_engine(checkpoint_dir=...) in {boot_s:.3f} s: "
+            f"{read_bytes / 1e9:.3f} GB read (the shards and the three side files it reads, "
+            f"partly from the page cache) at {read_bytes / boot_s / 1e9:.3f} GB/s; components "
+            f"drawn at random {disk.random_components}; {n_leaves - len(bad)} of {n_leaves} "
+            f"leaves bit-equal to the in-memory tree")
+        if bad or disk.random_components or disk.assets:
+            fail(f"[boot] leaves that differ from the in-memory tree: {bad[:8]}; random "
+                 f"{disk.random_components}, assets {disk.assets}")
+        run = run_main_path(disk, MAX_NEW_TOKENS, "boot", compact=False)
+        missing = [n for n in path_2b if run.launches[n] == 0]
+        if missing:
+            fail(f"[boot] kernels never launched on the booted engine's path: {missing}")
+        prep = mem.batch_prepare([make_page(seed)[0] for seed in range(N_PAGES)],
+                                 [QUESTION] * N_PAGES, max_new_tokens=MAX_NEW_TOKENS,
+                                 repetition_penalty=1.5, ordered_lists=run.ordered)
+        mem.batch_decode(prep)
+        if not (torch.equal(prep["tokens"], run.prepared["tokens"])
+                and torch.equal(prep["lengths"], run.prepared["lengths"])):
+            fail(f"[boot] the booted engine's token ids differ from the in-memory engine's "
+                 f"(lengths {run.prepared['lengths'].tolist()} against {prep['lengths'].tolist()})")
+        log(f"[boot] batch_chat_ocr of the booted engine = the in-memory engine's: {N_PAGES} rows "
+            f"x {MAX_NEW_TOKENS} token ids equal")
+        h.attention_rows("boot", run.shapes, run.launches)
+        del disk, run, prep
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------ cli.inference --checkpoint --quant int8
+        page_path = os.path.join(work, "page.npy")
+        np.save(page_path, make_page(0)[0])
+        kept, gens = {}, []
+        build_cli, generate = cli_common.build_engine, gen_mod.generate_from_embeds
+
+        def cli_and_keep(**kw):
+            t0 = time.time()
+            kept["engine"] = build_cli(**kw)
+            torch.cuda.synchronize()
+            kept["build_s"] = time.time() - t0
+            return kept["engine"]
+
+        def generate_and_keep(*a, **kw):
+            out = generate(*a, **kw)
+            gens.append((out[0].cpu(), out[1].cpu()))
+            return out
+
+        argv = ["--tgt", page_path, "--preset", BOOT_PRESET, "--checkpoint", ckpt, "--quant",
+                "int8", "--no-trained-assets", "--device", h.dev.type]
+        h.zero_counts()
+        out = io.StringIO()
+        t0 = time.time()
+        with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill",)) as steps, \
+                Swap(cli_common, build_engine=cli_and_keep), \
+                Swap(gen_mod, generate_from_embeds=generate_and_keep), \
+                contextlib.redirect_stdout(out):
+            inf_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = h.read_counts()
+        cli_engine, cli_gens = kept["engine"], list(gens)
+        L = cli_engine.cfg.llm.num_hidden_layers
+        n_pre, n_dec = steps.n["prefill"], h.decode_steps()
+        missing = [n for n in path_2b + ("int8_matmul", "int8_matmul_nt") if launches[n] == 0]
+        if missing or launches["flash_decode"] != L * n_dec \
+                or launches["int8_matmul"] != 4 * L * n_dec \
+                or launches["int8_matmul_nt"] != n_dec + n_pre:
+            fail(f"[boot cli] launches {launches} for {n_pre} prefills and {n_dec} decode steps; "
+                 f"never launched: {missing}")
+        h.check_norms("boot cli", launches, L, n_pre + n_dec)
+        # the in-memory tree through build_engine's int8 order: quantize, pad
+        # the vocab to 128, fuse
+        ref_params, ref_cfg = cli_common.quantize_params(dict(mem.params), mem.cfg, "int8")
+        bad, n_leaves = tree_diff(cli_engine.params["llm"], ref_params["llm"])
+        if bad or cli_engine.cfg != ref_cfg:
+            fail(f"[boot cli] int8 leaves that differ from the in-memory tree quantized, padded "
+                 f"and fused: {bad[:8]}; cfg equal {cli_engine.cfg == ref_cfg}")
+        ref = engine_mod.CalliReaderEngine(ref_cfg, ref_params, mem.tok, device=h.dev,
+                                           device_tile_pages=True)
+        gens.clear()
+        with Swap(cli_common, build_engine=lambda **kw: ref), \
+                Swap(gen_mod, generate_from_embeds=generate_and_keep), \
+                contextlib.redirect_stdout(io.StringIO()):
+            inf_cli.main(argv)
+        if len(gens) != len(cli_gens) or not all(
+                torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(gens, cli_gens)):
+            fail("[boot cli] the CLI's token ids differ from those of the in-memory tree's int8 "
+                 "engine")
+        log(f"[boot cli] cli.inference --checkpoint --quant int8 --no-trained-assets on one page: "
+            f"{wall:.3f} s wall, the engine (boot + int8) in {kept['build_s']:.3f} s; "
+            f"{n_leaves} int8 LLM leaves bit-equal to the in-memory tree quantized, padded and "
+            f"fused; {n_pre} prompt(s), {[int(n[0]) for _, n in cli_gens]} new tokens, token ids "
+            f"equal to that engine's; launches {launches}; printed "
+            f"{[ln[:40] for ln in out.getvalue().splitlines()[:2]]}")
+        h.flash_decode_row("boot cli", shapes, launches)
+        log(f"[boot] card: {h.smi}; export {export_s:.3f} s + sync {sync_s:.3f} s for "
+            f"{sum(files.values())} bytes in {len(files)} files ({len(shards)} shards); boot "
+            f"{boot_s:.3f} s for {read_bytes} bytes read, {read_bytes / boot_s / 1e9:.3f} GB/s "
+            f"(host and disk times of the card's machine, not kernel times)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def bench_phase(h, engine, batch_path):
@@ -1362,7 +1643,7 @@ def main() -> int:
         from callireader_tpu_torch.runtime import generate as gen_mod
         from callireader_tpu_torch.runtime import http_server, paged_cache, serving
         from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
-        from callireader_tpu_torch.runtime.engine import ALIGNED, build_engine
+        from callireader_tpu_torch.runtime.engine import ALIGNED, CalliReaderEngine, build_engine
         from callireader_tpu_torch.runtime.quantize import param_bytes
         from callireader_tpu_torch.vision import preprocess
     except ImportError as e:
@@ -1536,9 +1817,10 @@ def main() -> int:
     pages_boxes = [make_page(seed) for seed in range(N_PAGES)]
     pages = [p for p, _ in pages_boxes]
 
-    def run_main_path(engine, max_new_tokens, label):
+    def run_main_path(engine, max_new_tokens, label, compact=True):
         """Warm-up of the box stage, then batch_chat_ocr with every count
-        zeroed just before and read just after."""
+        zeroed just before and read just after; the char path must run
+        through the compact char tower (``compact``) or the tile tower."""
         dets = engine.batch_sort_boxes(pages)  # warm-up of the box stage, and its count
         ordered = None
         if min(len(d) for d in dets) == 0:
@@ -1552,7 +1834,8 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         with ShapeLog(kernels) as shapes, CallCount(internlm2, ("prefill",), timed=("prefill",),
-                                                    torch=torch) as steps:
+                                                    torch=torch) as steps, \
+                CallCount(CalliReaderEngine, ("_char_encode",)) as chars:
             prepared = engine.batch_prepare(
                 pages, [QUESTION] * N_PAGES, max_new_tokens=max_new_tokens,
                 repetition_penalty=1.5, ordered_lists=ordered)
@@ -1569,8 +1852,10 @@ def main() -> int:
         log(f"[{label}] launches: {launches}")
         char_calls = [a for a in shapes.calls["vit_attention"]
                       if a[0][-1] // 3 // a[1] != engine.cfg.vision.head_dim]
-        if engine.cfg.char_vision is None or not char_calls:
-            fail(f"[{label}] the char path did not run through the compact char tower")
+        if not chars.n["_char_encode"] or compact != (engine.cfg.char_vision is not None) \
+                or compact != bool(char_calls):
+            fail(f"[{label}] the char path did not run through the "
+                 f"{'compact char' if compact else 'tile'} tower")
         embeds, tokens, lengths = prepared["embeds"], prepared["tokens"], prepared["lengths"]
         if not torch.isfinite(embeds.float()).all():
             fail(f"[{label}] non-finite prompt embeddings")
@@ -1586,7 +1871,7 @@ def main() -> int:
             f"steps enqueued, {prepared['pad_steps']} of them after every row was done (pad steps)")
         check_norms(label, launches, engine.cfg.llm.num_hidden_layers, steps.n["prefill"] + n_dec)
         return types.SimpleNamespace(prepared=prepared, shapes=shapes, launches=launches, wall=wall,
-                                     peak=peak, steps=steps, n_dec=n_dec,
+                                     peak=peak, steps=steps, n_dec=n_dec, ordered=ordered,
                                      spans=dict(engine.timings.spans))
 
     # ---------------------------------------------------------- 2. main path, 2b
@@ -1788,6 +2073,7 @@ def main() -> int:
             calls={n: list(shapes.calls[n]) for n in NORM_KERNELS}), launches)
 
     h.keep_norms = keep_norms
+    h.smi = smi
     ATTENTION_ROWS = {"vit_attention": vit_rows, "flash_attention": flash_attention_rows,
                       "flash_decode": flash_decode_row, "paged_flash_decode": paged_row}
 
@@ -1801,6 +2087,12 @@ def main() -> int:
 
     attention_rows("2b", shapes, launches_2b)
     del shapes
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 22. boot from a reference checkpoint
+    h.attention_rows = attention_rows
+    boot_phase(h, run_main_path, path_2b)
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 5. main path, 8b int8

@@ -269,8 +269,7 @@ def test_inference_cli_matches_jax(engines, tmp_path, monkeypatch, capsys):
     assert [r["response"] for r in recs] == ["ERROR!"] * 3
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "tensor=4"], ["--checkpoint", "ckpt"],
-                                  ["--no-trained-assets"], []])
+@pytest.mark.parametrize("flag", [["--mesh", "tensor=4"], []])
 def test_inference_cli_refuses_what_is_not_ported(tmp_path, capsys, flag):
     argv = ["--tgt", str(tmp_path), "--preset", "callireader-tiny", "--device", "cpu", *flag]
     if flag:

@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "kernels.paged_decode", "kernels.attention_bwd", "train.lora", "train.e_it",
                  "train.data", "train.checkpoint", "utils.profiling", "configs", "configs.e_it",
                  "cli.train", "kernels.rmsnorm", "cli.common", "cli.inference", "cli.chat",
-                 "cli.get_embeddings", "apis", "__main__", "bench"):
+                 "cli.get_embeddings", "apis", "__main__", "bench", "runtime.safetensors_io",
+                 "runtime.detector_weights", "cli.convert"):
         assert f"callireader_tpu_torch.{name}" in res["modules"]
     assert res["jax"] == []
     assert res["jax_package"] == []

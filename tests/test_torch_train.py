@@ -503,8 +503,7 @@ def test_train_cli_qlora_cpu(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ("--eval-chat-interval", "1", "--random-init"),  # single-image chat is not ported
-    ("--checkpoint", "ckpt", "--random-init"),  # nor is checkpoint loading
-    (),  # so --random-init is required
+    (),  # without a checkpoint, --random-init is required
 ])
 def test_train_cli_refuses_what_is_not_ported(extra):
     argv = ["--data", "x.jsonl", "--preset", "callireader-tiny", "--device", "cpu", *extra]
