@@ -8,11 +8,10 @@ from __future__ import annotations
 
 import sys
 
-MODES = ("list-cfg", "train", "check-custom-dataset", "chat", "serve", "inference",
-         "get-embeddings", "convert")
+MODES = ("list-cfg", "train", "check-custom-dataset", "test", "evaluate", "chat", "serve",
+         "inference", "get-embeddings", "convert", "judge", "mmbench")
 # the JAX package's other modes, which wait for their modules: mode -> ROADMAP item
-NOT_PORTED = {"copy-cfg": "A9", "test": "A8", "evaluate": "A8", "preprocess": "A9",
-              "mmbench": "A8", "judge": "A8", "log-dataset": "A9"}
+NOT_PORTED = {"copy-cfg": "A9", "preprocess": "A9", "log-dataset": "A9"}
 
 HELP = f"""callireader-tpu (PyTorch/CUDA port) command line
 
@@ -31,6 +30,9 @@ Where MODE is one of {MODES}
   python -m callireader_tpu_torch chat --image page.npy --random-init
   python -m callireader_tpu_torch serve --input req.jsonl --output out.jsonl --paged --random-init
   python -m callireader_tpu_torch get-embeddings --data DIR --out OUT --random-init
+  python -m callireader_tpu_torch evaluate --type full_page --data ./CalliBench --save_name exp --random-init
+  python -m callireader_tpu_torch mmbench --data-path mmbench_dev.tsv --save_name exp --random-init
+  python -m callireader_tpu_torch judge --type bilingual --input outputs/exp/bilingual.json
 
 Not ported yet: {tuple(NOT_PORTED)}
 """
@@ -53,6 +55,13 @@ def main(argv=None) -> int:
 
         if mode == "check-custom-dataset":
             rest = ["--check-data", *rest]
+    elif mode in ("test", "evaluate", "mmbench"):
+        from callireader_tpu_torch.cli import evaluate as m
+
+        if mode == "mmbench":
+            rest = ["--type", "mmbench", *rest]
+    elif mode == "judge":
+        from callireader_tpu_torch.cli import judge as m
     elif mode == "chat":
         from callireader_tpu_torch.cli import chat as m
     elif mode == "serve":

@@ -6,10 +6,10 @@
     text = apis.recognize(engine, "page.npy")
     answer, history = apis.ask(engine, "page.npy", "作者是谁？")
     out_dir = apis.finetune("ann.jsonl", image_root="pages/", max_iters=100)
+    result = apis.evaluate_full_page(engine, "CalliBench/full_page_ocr/easy/easy.parquet")
 
 ``checkpoint`` is a reference-layout directory (cli/common.py); without one,
-``random_init`` must be set. Not ported yet: ``evaluate_full_page`` (it waits
-for evalx/callibench).
+``random_init`` must be set.
 """
 
 from __future__ import annotations
@@ -68,5 +68,8 @@ def finetune(
 
 
 def evaluate_full_page(engine, parquet_path: str, save_json_path: Optional[str] = None, **kw):
-    raise NotImplementedError("evaluate_full_page is not ported yet: it waits for "
-                              "evalx/callibench (ROADMAP A8)")
+    """CalliBench full-page OCR on one parquet split -> the result dict
+    (written to ``save_json_path`` when given)."""
+    from callireader_tpu_torch.evalx import callibench
+
+    return callibench.test_full_page(engine, parquet_path, save_json_path, **kw)

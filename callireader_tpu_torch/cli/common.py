@@ -18,8 +18,10 @@ the trainable subtree (LoRA + projector) is restored from the checkpoint and
 the adapters are merged into the dense weights. ``quant="int8"`` then
 quantizes the LLM (weight-only int8, vocab padded to 128, fused wqkv / w13),
 in the JAX CLI's order; ``"int8-all"`` adds the W8A8 tile tower. A random
-base without an adapter is drawn as int8 directly. ``device_tile_pages``
-(default on, as in the JAX build_engine) and ``char_canvas`` go to the engine.
+base without an adapter is drawn as int8 directly. ``gray_chars`` and
+``device_resize_chars`` (default on: luma crops resized on the device),
+``device_tile_pages`` (default on) and ``char_canvas`` go to the engine, with
+the JAX build_engine's defaults.
 
 Not ported yet: meshes (``mesh_spec`` raises).
 """
@@ -86,6 +88,8 @@ def build_engine(
     adapter_path: Optional[str] = None,
     lora_rank: int = 128,
     lora_alpha: float = 256.0,
+    gray_chars: bool = True,
+    device_resize_chars: bool = True,
     device_tile_pages: bool = True,
     char_canvas: Optional[int] = None,
     mesh_spec: Optional[str] = None,
@@ -106,7 +110,8 @@ def build_engine(
 
     dev = require_device(device)
     cfg = get_config(preset)
-    options = dict(device_tile_pages=device_tile_pages, char_canvas=char_canvas)
+    options = dict(gray_chars=gray_chars, device_resize_chars=device_resize_chars,
+                   device_tile_pages=device_tile_pages, char_canvas=char_canvas)
     assets = weights.TRAINED_ASSETS if trained_assets else ()
     if checkpoint_dir and os.path.isdir(checkpoint_dir):
         print(f"[engine] loading checkpoint from {checkpoint_dir}", file=sys.stderr)

@@ -15,8 +15,10 @@ rides the slot scheduler (runtime/serving.py, or runtime/paged_cache.py with
 
 ``--device-tile-pages`` (the default) / ``--host-tile-pages`` select the
 engine's batch-API tiling route, as in the JAX CLI; the serve front half
-tiles on the host either way, as the JAX server's does. ``--quant int8-all``
-adds the W8A8 tile tower, ``--char-canvas`` the shared tower's canvas lever.
+tiles on the host either way, as the JAX server's does. ``--rgb-chars``
+ships full-RGB char crops (the reference's; the luma default ships 3x fewer
+bytes), ``--gray-chars`` names the default. ``--quant int8-all`` adds the
+W8A8 tile tower, ``--char-canvas`` the shared tower's canvas lever.
 
 Runs on the GPU unless ``--device cpu`` is given. ``--checkpoint`` (default
 ``$CALLIREADER_CKPT``) is a reference-layout InternVL directory, its side
@@ -72,6 +74,12 @@ def main(argv=None):
     parser.add_argument("--host-tile-pages", dest="device_tile_pages", action="store_false",
                         help="the engine's batch API tiles pages on the host (bit-equal to the "
                         "reference's preprocessing)")
+    chars = parser.add_mutually_exclusive_group()
+    chars.add_argument("--rgb-chars", action="store_true",
+                       help="full-RGB char canvases (the reference's crops; 3x the bytes of the "
+                       "luma default)")
+    chars.add_argument("--gray-chars", action="store_true",
+                       help="(default) luma char canvases, broadcast to RGB on the device")
     parser.add_argument("--char-canvas", type=int, default=None,
                         help="char-ViT canvas of the shared tower (default: the model's 448)")
     parser.add_argument("--prefix-cache", action="store_true",
@@ -98,6 +106,7 @@ def main(argv=None):
 
     engine = build_engine(preset=args.preset, checkpoint_dir=args.checkpoint,
                           random_init_ok=args.random_init, quant=args.quant,
+                          gray_chars=not args.rgb_chars,
                           device_tile_pages=args.device_tile_pages, char_canvas=args.char_canvas,
                           trained_assets=not args.no_trained_assets, device=args.device)
     cfg = engine.cfg

@@ -16,14 +16,17 @@ the JAX engine's do.
           -> double splice into the token embeddings
           -> one prefill + greedy decode (repetition penalty) for all rows
 
-The engine options of the JAX package ported here: ``device_tile_pages``
-(the batch API's tiling route; host by default, as in JAX), ``char_canvas``
-(the shared tower's canvas lever) and ``char_window`` (crops per fused char
-dispatch). Not ported: RGB char crops (``gray_chars=False``), the host-only
-char route (``device_resize_chars=False``) and meshes. Every path ships luma
-crops and resizes them on the device, except crops that would be downscaled,
-which take the host path (PIL-compatible antialiased bicubic in numpy), as in
-the JAX engine.
+The engine options of the JAX package, with its defaults:
+``device_tile_pages`` (the batch API's tiling route; host by default),
+``char_canvas`` (the shared tower's canvas lever), ``char_window`` (crops per
+fused char dispatch), ``gray_chars`` (default on: char crops ship as luma,
+broadcast to RGB on the device; off: full RGB, the reference's crops) and
+``device_resize_chars`` (default on: raw crops are resized on the device,
+except crops that would be downscaled, which take the host path; off: every
+crop takes the host path, the PIL-compatible antialiased bicubic in numpy).
+Every entry point that builds char canvases (``batch_calli_align``,
+``calli_align``, ``batch_build_rows``, ``chat_ocr``) follows both. Not
+ported: meshes.
 """
 
 from __future__ import annotations
@@ -74,7 +77,10 @@ def _drop_zero_rows(pseudo: torch.Tensor, indices: torch.Tensor) -> torch.Tensor
 
 
 def _luma(c: np.ndarray) -> np.ndarray:
-    """PIL convert("L") weights on uint8 RGB."""
+    """PIL convert("L")'s weights on uint8 RGB, summed in uint16 as the JAX
+    package sums them: the sum wraps past 65535 (white gives 58), and the
+    committed CalliAlign tower was trained through the same sum (ROADMAP
+    queue C)."""
     if c.ndim == 2:
         return c
     c16 = c.astype(np.uint16)
@@ -90,6 +96,8 @@ class CalliReaderEngine:
         *,
         device="cuda",
         policy: DTypePolicy = DEFAULT_POLICY,
+        gray_chars: bool = True,
+        device_resize_chars: bool = True,
         device_tile_pages: bool = False,
         char_canvas: Optional[int] = None,
         char_window: Optional[int] = None,
@@ -99,6 +107,12 @@ class CalliReaderEngine:
         self.params = params
         self.tok = tokenizer
         self.policy = policy
+        # char crops as luma (3x fewer bytes to the device; _luma's sum
+        # wraps, as the JAX package's) or, off, full RGB: the reference's crops
+        self.gray_chars = gray_chars
+        # raw crops resized on the device (crops that would downscale take the
+        # host path), or, off, every crop resized on the host
+        self.device_resize_chars = device_resize_chars
         # the batch API's page tiling: raw pages tiled on the device, or host
         # load_image (the default, bit-equal to the JAX host tiles)
         self.device_tile_pages = device_tile_pages
@@ -176,9 +190,11 @@ class CalliReaderEngine:
                                         hard_vq=hard_vq)
 
     def _char_pipeline_raw(self, raw, src_hw, tgt_hw, hard_vq: bool = False):
-        """Raw luma crops -> device bicubic canvas -> tower -> resampler -> VQ."""
+        """Raw (N, R, R) luma or (N, R, R, 3) RGB crops -> device bicubic
+        canvas -> tower -> resampler -> VQ."""
         canvas = bicubic_canvas(raw, src_hw, tgt_hw, self.char_canvas)
-        canvas = canvas[..., None].expand(*canvas.shape, 3)
+        if canvas.ndim == 3:
+            canvas = canvas[..., None].expand(*canvas.shape, 3)
         return self._resample_vq(self._char_encode(canvas), hard_vq)
 
     def _char_pipeline(self, content: torch.Tensor, hard_vq: bool = False):
@@ -256,9 +272,13 @@ class CalliReaderEngine:
 
     # ------------------------------------------------------------ char path
 
+    def _luma_if_gray(self, c: np.ndarray) -> np.ndarray:
+        return _luma(c) if self.gray_chars else c
+
     def _prep_char_raw_groups(self, raw_crops: List[np.ndarray]):
         """Group crops by raw square bucket with (src, tgt) dims for the
-        device resize; crops that would downscale go to the host path."""
+        device resize, (n, bucket, bucket) luma or (n, bucket, bucket, 3)
+        RGB; crops that would downscale go to the host path."""
         size = self.char_content_size
         hi = preprocess.char_content_canvas(size)
         by_bucket: Dict[int, List[int]] = {}
@@ -272,11 +292,12 @@ class CalliReaderEngine:
         groups = []
         for bucket, idxs in by_bucket.items():
             n = len(idxs)
-            raw = np.full((n, bucket, bucket), 255, np.uint8)
+            raw = np.full((n, bucket, bucket) if self.gray_chars else (n, bucket, bucket, 3), 255,
+                          np.uint8)
             src = np.ones((n, 2), np.int32)
             tgt = np.ones((n, 2), np.int32)
             for j, i in enumerate(idxs):
-                c = _luma(raw_crops[i])
+                c = self._luma_if_gray(raw_crops[i])
                 h, w = c.shape[:2]
                 raw[j, :h, :w] = c
                 nw, nh = preprocess.char_content_dims(w, h, size)
@@ -287,7 +308,8 @@ class CalliReaderEngine:
 
     def _prep_char_crop_groups(self, raw_crops: List[np.ndarray]):
         """Host path: PIL-compatible bicubic to the [200, 350] rule, white pad
-        to the smallest content-canvas bucket that holds it, luma."""
+        to the smallest content-canvas bucket that holds it -> [(indices,
+        (n, c, c) luma or (n, c, c, 3) RGB)], one entry a bucket."""
         size = self.char_content_size
         buckets = preprocess.char_canvas_buckets(size)
         by_bucket: Dict[int, List[int]] = {}
@@ -297,17 +319,22 @@ class CalliReaderEngine:
             by_bucket.setdefault(next((b for b in buckets if b >= m), buckets[-1]), []).append(i)
         out = []
         for bucket, idxs in by_bucket.items():
-            stack = np.stack([_luma(preprocess.load_char_content(raw_crops[i], size, canvas=bucket))
+            stack = np.stack([self._luma_if_gray(preprocess.load_char_content(raw_crops[i], size,
+                                                                              canvas=bucket))
                               for i in idxs])
             out.append((np.asarray(idxs, np.int64), stack))
         return out
 
     def _char_parts(self, raw_crops: List[np.ndarray], hard_vq: bool = False):
         """One char pipeline per bucket group -> (parts_ps, parts_ix, counts,
-        original-index arrays)."""
+        original-index arrays). Without ``device_resize_chars`` every crop
+        takes the host path."""
         parts_ps, parts_ix, ns, idx_order = [], [], [], []
         t0 = time.perf_counter()
-        raw_groups, host_idx = self._prep_char_raw_groups(raw_crops)
+        if self.device_resize_chars:
+            raw_groups, host_idx = self._prep_char_raw_groups(raw_crops)
+        else:
+            raw_groups, host_idx = [], list(range(len(raw_crops)))
         host_groups = []
         if host_idx:
             host_map = np.asarray(host_idx, np.int64)
@@ -978,8 +1005,8 @@ def build_engine(
     preset's architecture matches, the committed trained assets named in
     ``assets`` (detector, OrderFormer, compact CalliAlign tower); the names
     loaded are kept in ``engine.assets``. ``engine_options`` go to
-    CalliReaderEngine (``device_tile_pages``, ``char_canvas``,
-    ``char_window``).
+    CalliReaderEngine (``gray_chars``, ``device_resize_chars``,
+    ``device_tile_pages``, ``char_canvas``, ``char_window``).
 
     ``quant="int8"``: the JAX bench's flagship build. The LLM is drawn as
     int8 weight-only in the fused wqkv / w13 layout, its vocab tables are

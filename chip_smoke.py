@@ -129,25 +129,27 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      sums of the first layer's four products (torch._int_mm) equal an exact
      fp64 product over W8A8_EXACT_ROWS rows; the ViT kernel against its
      plain version at the char tower's shape;
- 14. train, e-IT, callireader-8b bf16: four synthetic pages become e-IT data
-     the way a user prepares it (uint8 .npy pages, pseudo embeddings from the
-     int8 engine's batch_calli_align as .npy, a JSONL of question and text),
-     the int8 engine is freed, then ``cli.train.main([... "--preset",
-     "callireader-8b", "--random-init", "--config", "e_it", "--max-iters",
-     "2"])`` runs in-process: the full 24-layer ViT and 32-layer LLM, LoRA
-     r128 on all seven projections, batch 2 x accumulation 2, remat on, so 4
-     micro-steps. Counts zeroed before, read after: the training forward,
-     dq and dk/dv kernels 64 / 32 / 32 times a micro-step, the ViT kernel 24;
-     every loss finite; every layer of every LoRA b leaf moved; frozen leaves
+ 14. train, e-IT, callireader-2b bf16 (TRAIN_PRESET: the 8b's widths, so the
+     training kernels run at the 8b's shapes, at 12 ViT / 8 LLM layers):
+     four synthetic pages become e-IT data the way a user prepares it
+     (uint8 .npy pages, pseudo embeddings from the 8b int8 engine's
+     batch_calli_align as .npy, a JSONL of question and text), the int8
+     engine is freed, then ``cli.train.main([... "--preset",
+     "callireader-2b", "--random-init", "--config", "e_it", "--max-iters",
+     "2"])`` runs in-process: LoRA r128 on all seven projections, batch 2 x
+     accumulation 2, remat on, so 4 micro-steps. Counts zeroed before, read
+     after: the training forward, dq and dk/dv kernels 2L / L / L times a
+     micro-step (16 / 8 / 8), the ViT kernel once a ViT layer (12); every
+     loss finite; every layer of every LoRA b leaf moved; frozen leaves
      unchanged bit for bit; the final checkpoint restores to the live state;
-     the CLI's closing export to the reference layout (<out>/export_official,
-     ~36 GB of fp32), read back with the port's reader: the vocab tables, the
-     final norm and every leaf of layers 0 and 31 equal
-     merge_lora(merge_params(final state)) bit for bit.
+     the CLI's closing export to the reference layout
+     (<out>/export_official, fp32), read back with the port's reader: the
+     vocab tables, the final norm and every leaf of the first and last
+     layers equal merge_lora(merge_params(final state)) bit for bit.
      ms per micro-step (the first apart), throughput, peak memory, and host
      against device ms of a micro-step from a profiler trace;
  15. reference: on two batches of 2 rows of at most 512 tokens, one
-     micro-step through the trained 32-layer model, through the kernels
+     micro-step through the trained model, through the kernels
      against the same model with the three training kernels swapped for
      their plain versions; loss and the LoRA / projector grads (relative L2
      per leaf group), beside two witnesses of the comparison's bf16 noise:
@@ -160,8 +162,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      them with and at the recipe's ceiling B=1, S=8192, beside
      scaled_dot_product_attention and its autograd backward; each row's
      device ms is printed beside its bound;
- 17. inference CLI, flagship with an adapter: ``cli.inference.main(["--tgt",
-     page.npy, "--preset", "callireader-8b", "--random-init", "--quant",
+ 17. inference CLI, int8 with an adapter: ``cli.inference.main(["--tgt",
+     page.npy, "--preset", "callireader-2b", "--random-init", "--quant",
      "int8", "--adapter", <phase 14's final checkpoint>])`` in-process at
      the CLI's defaults (1024 new tokens), then in folder mode on two .npy
      pages (on the engine the first call built). Counts zeroed before, read
@@ -173,12 +175,37 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      the int8 kernels against their plain versions at the CLI's one row
      (M = 1), every launch of the run at that shape;
  18. beams and chat on that engine: chat_ocr with num_beams=4 (flash_decode
-     at B=4, 32 launches a step, the best beam within 128 tokens), chat
+     at B=4, L launches a step, the best beam within 128 tokens), chat
      without CalliAlign and cli.chat's stream_generate for 64 tokens;
      flash_decode is held against its plain version, as in phase 4, at the
      CLI page's shape (batch 1 over its 4,608 slots) and the beams' shape;
+ 23. evaluate, the CalliBench harness (evalx, cli.evaluate) on
+     callireader-2b int8 at full width: ``cli.evaluate.main(["--type",
+     "full_page", "--splits", "easy", "--preset", "callireader-2b",
+     "--random-init", "--quant", "int8", ...])`` in-process at the
+     harness's defaults (RGB char crops resized on the host, host tiling,
+     batch 8, 1024 new tokens, repetition penalty 1.0), its parquet reader
+     swapped for in-memory synthetic tasks (EVAL_PAGES of the seeded
+     788x2000 pages with ground-truth strings: two pipelined batches, batch
+     i built while decode i-1 runs). Counts zeroed before the full_page run,
+     read after: the tile and char towers, prefill, flash_decode, both int8
+     kernels and the RMSNorm forward launched, once a layer and step; every
+     char crop took the host route as an RGB (n, c, c, 3) stack, no raw
+     device group was built; the pipelined responses equal batch_chat_ocr
+     on the same 8 pages. On the engine the CLI built: region_wise on
+     EVAL_REGIONS regions, choice, bilingual and intent on EVAL_TWO_TURN
+     788x896 works each (the top of a page; two turns, the second over the
+     first's history), mmbench
+     on EVAL_MMBENCH rows (16 tokens) and refcoco on EVAL_REFCOCO samples.
+     Every result file has the JAX layout and sample counts, every response
+     is a string. The ViT kernel is held against its plain version at the
+     full_page run's tile and char tower batches (the char tower on the RGB
+     host canvases), the prefill kernel at the choice task's longest
+     (second-turn) prompt, flash_decode at that task's batch. Printed: seconds per task, full_page pages/s pipelined
+     and batch_chat_ocr's, and the share of VQ indices on which the RGB host
+     route agrees with the default luma device route on one page's crops;
  19. the RMSNorm kernels against their plain versions at every path's shapes
-     (E = 4096; 8b batch, serve, CLI, beams: decode and prefill rows; train:
+     (E = 4096; 8b batch, serve, 2b CLI, beams: decode and prefill rows; train:
      2 x 2048 rows, forward and backward with dw on and off), both roundings:
      the one-rounding form (rms_norm_pallas's) within kernels/tolerance.py's
      rule, the model's two-rounding form within one bf16 ulp elementwise and
@@ -199,13 +226,15 @@ spills (``-Xptxas -v``); phase 8 and 13 hold each row of the LM head's
 launch, and of the (K, N) kernel's at the w13 projection, to the same row
 launched alone, bit for bit, and the log compares the int8 kernels' and the
 paged kernel's device ms with their bounds across the paths' row counts.
-Prints the ``kernels`` JSON line, then the last line
+Prints the wall seconds of each phase, the card's name and power limit, the
+``kernels`` JSON line (it fails if a kernel has no entry), then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
 port's sources next to it.
 """
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -249,10 +278,23 @@ BENCH_SHORT_BATCHES = 4
 # rows of each int32 product held to an exact fp64 product
 W8A8_REL_TOL = 5e-2
 W8A8_EXACT_ROWS = 512
+# phases 14-18: e-IT training and the CLI on its adapter run at the 2b's
+# depth (the 8b's widths: the training kernels' shapes are the 8b's)
+TRAIN_PRESET = "callireader-2b"
 # phase 22: the boot from a reference checkpoint (the preset's export in
 # shards of at most 2 GiB)
 BOOT_PRESET, BOOT_SHARD = "callireader-2b", 2 << 30
 BOOT_SIDE_READ = ("gauss_norm_mu_sigma.pth", "orderformer.pth", "best.pt")
+# phase 23: the evaluation harness's synthetic CalliBench (in memory, under
+# this parquet root), its pages and samples a task
+EVAL_DATA = "CalliBench"
+EVAL_PAGES = 16  # full_page: two pipelined batches of 8
+EVAL_REGIONS = 8
+EVAL_REGION = ((0, 500), (788, 1300))  # [[x1, y1], [x2, y2]] of a page
+EVAL_TWO_TURN = 3  # choice, bilingual and intent samples each
+EVAL_WORK_ROWS = 896  # their works: the top of a page, 788x896 (6 columns, 42 chars)
+EVAL_MMBENCH = 8
+EVAL_REFCOCO = 2
 NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_fused", "rms_norm_bwd_fused")
 # H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor cores (data sheet)
 PEAK_BYTES_S = 3.35e12
@@ -274,8 +316,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+START = time.time()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A line of the run's log, stamped with the seconds since the start."""
+    print(f"[chip_smoke {time.time() - START:6.1f}s] {msg}", flush=True)
 
 
 def time_ms(fn, torch, min_total_ms: float = 50.0, max_iters: int = 50) -> float:
@@ -581,7 +627,7 @@ def train_phases(h, data):
     dev = h.dev
     train_kernels = ("attn_train_fwd", "attn_train_dq", "attn_train_dkv")
 
-    # ---------------------------------------------------------- 14. train, e-IT, 8b bf16
+    # ---------------------------------------------------------- 14. train, e-IT, 2b bf16
     def leaf(tree, path):
         return functools.reduce(lambda t, k: t[k], path, tree)
 
@@ -625,7 +671,7 @@ def train_phases(h, data):
 
     out_dir = os.path.join(data.work, "out")
     argv = ["--data", data.train, "--image-root", data.work, "--out", out_dir,
-            "--preset", "callireader-8b", "--random-init", "--config", "e_it", "--max-iters", "2",
+            "--preset", TRAIN_PRESET, "--random-init", "--config", "e_it", "--max-iters", "2",
             "--log-interval", "1"]
     h.zero_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -807,7 +853,8 @@ def train_phases(h, data):
         del grads, grads_p
         (loss_rel, rel_k), noise = rel["kernels"], [r for name, (_, r) in rel.items() if name != "kernels"]
         log(f"[reference] batch {b + 1}: one micro-step on 2 rows of {batch['input_ids'].shape[1]} "
-            f"tokens through the 32-layer 8b model against the plain attention, loss {loss_p:.6f}; "
+            f"tokens through the {L}-layer trained model against the plain attention, loss "
+            f"{loss_p:.6f}; "
             f"loss rel err " + ", ".join(f"{name} {r[0]:.3e}" for name, r in rel.items())
             + "; grads rel L2 err by leaf group, " + " / ".join(rel) + ": "
             + ", ".join(f"{k} " + " / ".join(f"{r[1][k]:.3e}" for r in rel.values()) for k in rel_k)
@@ -975,7 +1022,7 @@ def train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F):
 
 
 def cli_phases(h, final_dir, work):
-    """Phases 17-18: cli.inference on the int8 flagship with phase 14's e-IT
+    """Phases 17-18: cli.inference on the int8 LLM with phase 14's e-IT
     adapter (one page, then a folder of two), then beam search, plain chat
     and stream_generate on the engine it built."""
     import torch
@@ -997,7 +1044,7 @@ def cli_phases(h, final_dir, work):
     cli_path = ("vit_attention", "flash_attention", "flash_decode", "int8_matmul",
                 "int8_matmul_nt", "rms_norm_fwd")
 
-    # ---------------------------------------------------------- 17. cli.inference, 8b int8 + adapter
+    # ---------------------------------------------------------- 17. cli.inference, int8 + adapter
     kept, gens = {}, []
     layer = 7  # a host check of one merged leaf: wq of this layer
     draw_base, build_cli = weights.init_params, cli_common.build_engine
@@ -1073,7 +1120,7 @@ def cli_phases(h, final_dir, work):
             f"printed {len(lines)} lines, first {[ln[:60] for ln in lines[:3]]}")
         return shapes, launches
 
-    argv = ["--preset", "callireader-8b", "--random-init", "--quant", "int8",
+    argv = ["--preset", TRAIN_PRESET, "--random-init", "--quant", "int8",
             "--adapter", final_dir]
     with Swap(weights, init_params=base_and_keep), \
             Swap(cli_common, build_engine=cli_and_keep), \
@@ -1169,6 +1216,292 @@ def cli_phases(h, final_dir, work):
     if len(hist) != 1 or hist[0][1] != resp or not out.getvalue().endswith("\n"):
         fail("[stream] stream_generate did not stream a whole turn")
     log(f"[stream] stream_generate: {len(out.getvalue())} characters streamed")
+
+
+def eval_tasks():
+    """Phase 23's synthetic CalliBench tasks in memory, in the layout the
+    harness reads: {path under EVAL_DATA: (images, annotations)}, the mmbench
+    rows and the refcoco samples. Pages are the bench's seeded 788x2000 pages,
+    their "text" a char of TRAIN_TEXT a box."""
+    rng = np.random.RandomState(23)
+    pages_boxes = [make_page(seed) for seed in range(EVAL_PAGES)]
+    pages = [p for p, _ in pages_boxes]
+    texts = ["".join(rng.choice(list(TRAIN_TEXT), len(b))) for _, b in pages_boxes]
+    at = functools.partial(os.path.join, EVAL_DATA)
+    (x1, y1), (x2, y2) = EVAL_REGION
+    region_text = ["".join(ch for ch, b in zip(t, pb[1])
+                           if x1 <= (b[0] + b[2]) / 2 < x2 and y1 <= (b[1] + b[3]) / 2 < y2)
+                   for t, pb in zip(texts, pages_boxes)]
+    options = "\nA: 王羲之\nB: 颜真卿\nC: 柳公权"
+    n = EVAL_TWO_TURN
+    works = [np.ascontiguousarray(p[:EVAL_WORK_ROWS]) for p in pages[:3 * n]]
+
+    def conv(question, answer):
+        return [{"from": "human", "value": question}, {"from": "gpt", "value": answer}]
+
+    tasks = {
+        at("full_page_ocr/easy/easy.parquet"): (pages, [
+            {"imagePath": f"page{i}.jpg", "reference": t} for i, t in enumerate(texts)]),
+        at("region-wise/region.parquet"): (pages[:EVAL_REGIONS], [
+            {"imagePath": f"page{i}.jpg", "answer": region_text[i], "region": [list(EVAL_REGION[0]),
+                                                                                list(EVAL_REGION[1])]}
+            for i in range(EVAL_REGIONS)]),
+        at("choice/author/author.parquet"): (works[:n], [
+            {"image": f"page{i}.jpg", "conversations": conv(
+                "<image>\n这幅书法作品的作者是谁？" + options, "ABC"[i % 3])} for i in range(n)]),
+        at("reasoning/bilingual/medium/bilingual_medium.parquet"): (works[n:2 * n], [
+            {"image": f"page{i}.jpg", "conversations": conv(
+                "请将这幅书法作品的内容译成英文。\nA: 是\nB: 否", f"The text reads {texts[i][:8]}.")}
+            for i in range(n, 2 * n)]),
+        at("reasoning/intent/intent.parquet"): (works[2 * n:3 * n], [
+            {"image": f"page{i}.jpg", "content": texts[i], "conversations": conv(
+                "请分析这幅书法作品的创作意图。", "借物抒怀，寄托思乡之情。")}
+            for i in range(2 * n, 3 * n)]),
+    }
+    mm_rows = [{"index": str(i), "question": "图中是什么？", "hint": "nan", "A": "书法", "B": "山水画",
+                "C": "花鸟画", "D": "人物画", "answer": "A",
+                "_image": np.ascontiguousarray(pages[i][400:848, 170:618])}
+               for i in range(EVAL_MMBENCH)]
+    ref_samples = [{"image": np.ascontiguousarray(pages[i][:480, 148:788]), "sents": "右上角的字",
+                    "bbox": [500, 40, 80, 80], "height": 480, "width": 640}
+                   for i in range(EVAL_REFCOCO)]
+    return tasks, mm_rows, ref_samples
+
+
+def evaluate_phase(h):
+    """Phase 23: the evaluation harness. cli.evaluate.main runs full_page at
+    its defaults (RGB chars resized on the host, host tiling, batch 8) on
+    ``--preset callireader-2b --random-init --quant int8``, its parquet reader
+    swapped for the in-memory tasks; the engine it built then runs
+    region_wise, choice, bilingual, intent, mmbench and refcoco."""
+    import torch
+
+    from callireader_tpu_torch.cli import common as cli_common
+    from callireader_tpu_torch.cli import evaluate as eval_cli
+    from callireader_tpu_torch.evalx import callibench, mmbench, refcoco
+    from callireader_tpu_torch.evalx.metrics import t2s
+    from callireader_tpu_torch.models import internlm2
+    from callireader_tpu_torch.runtime.engine import CalliReaderEngine
+
+    tasks, mm_rows, ref_samples = eval_tasks()
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    save = os.path.join(work, "outputs", "eval")
+    built, seconds, run = [], {}, {}
+    build = cli_common.build_engine
+
+    def keep(**kw):
+        built.append(build(**kw))
+        return built[-1]
+
+    routes = {"raw_groups": 0, "raw": 0, "host": []}
+    raw_groups, raw, host = (CalliReaderEngine._prep_char_raw_groups,
+                             CalliReaderEngine._char_pipeline_raw, CalliReaderEngine._char_pipeline)
+
+    def count_raw_groups(self, *a, **kw):
+        routes["raw_groups"] += 1
+        return raw_groups(self, *a, **kw)
+
+    def count_raw(self, *a, **kw):
+        routes["raw"] += 1
+        return raw(self, *a, **kw)
+
+    def record_host(self, content, *a, **kw):
+        routes["host"].append(tuple(content.shape))
+        return host(self, content, *a, **kw)
+
+    test_full_page = callibench.test_full_page
+
+    def counted_full_page(*a, **kw):
+        """The CLI's full_page run, the counts zeroed just before, read just
+        after."""
+        run["kw"] = kw
+        h.zero_counts()
+        t0 = time.time()
+        with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill",)) as pre:
+            out = test_full_page(*a, **kw)
+        torch.cuda.synchronize()
+        seconds["full_page"] = time.time() - t0
+        run.update(shapes=shapes, launches=h.read_counts(), n_pre=pre.n["prefill"],
+                   n_dec=h.decode_steps())
+        return out
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.time()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.time() - t0
+        return out
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        argv = ["--type", "full_page", "--splits", "easy", "--data", EVAL_DATA, "--preset",
+                "callireader-2b", "--random-init", "--quant", "int8", "--save_name", "eval"]
+        t0 = time.time()
+        with Swap(cli_common, build_engine=keep), \
+                Swap(callibench, get_parquet=lambda path: tasks[path],
+                     test_full_page=counted_full_page), \
+                Swap(CalliReaderEngine, _prep_char_raw_groups=count_raw_groups,
+                     _char_pipeline_raw=count_raw, _char_pipeline=record_host):
+            eval_cli.main(argv)
+        seconds["cli"] = time.time() - t0
+        (engine,) = built
+        cfg = engine.cfg
+        L = cfg.llm.num_hidden_layers
+        launches, shapes, n_pre, n_dec = run["launches"], run["shapes"], run["n_pre"], run["n_dec"]
+        log(f"[evaluate] cli.evaluate full_page: {EVAL_PAGES} pages in {seconds['full_page']:.3f} s "
+            f"({EVAL_PAGES / seconds['full_page']:.4f} pages/s pipelined, batch "
+            f"{run['kw']['batch_size']}), {seconds['cli']:.3f} s with the engine build; engine "
+            f"options gray_chars={engine.gray_chars} device_resize_chars={engine.device_resize_chars} "
+            f"device_tile_pages={engine.device_tile_pages}; {n_pre} prefills, {n_dec} decode steps "
+            f"({engine.pad_steps} pad steps); spans (s) "
+            + json.dumps({k: round(v, 4) for k, v in engine.timings.spans.items()})
+            + f"; launches {launches}")
+        if (engine.gray_chars, engine.device_resize_chars, engine.device_tile_pages) != \
+                (False, False, False) or run["kw"]["batch_size"] != 8:
+            fail("[evaluate] the CLI's engine left the harness's defaults (RGB chars, host char "
+                 "resize, host tiling, batch 8)")
+        path = ("vit_attention", "flash_attention", "flash_decode", "int8_matmul", "int8_matmul_nt",
+                "rms_norm_fwd")
+        char_calls = [a for a in shapes.calls["vit_attention"]
+                      if a[0][-1] // 3 // a[1] != cfg.vision.head_dim]
+        tile_calls = len(shapes.calls["vit_attention"]) - len(char_calls)
+        missing = [n for n in path if launches[n] == 0]
+        if missing or not char_calls or not tile_calls:
+            fail(f"[evaluate] kernels never launched: {missing}; char tower calls {len(char_calls)}, "
+                 f"tile tower calls {tile_calls}")
+        if n_pre != 2 or launches["flash_decode"] != L * n_dec \
+                or launches["int8_matmul"] != 4 * L * n_dec \
+                or launches["int8_matmul_nt"] != n_dec + n_pre:
+            fail(f"[evaluate] launches {launches} for {n_pre} prefills (want 2) and {n_dec} decode "
+                 f"steps")
+        h.check_norms("evaluate", launches, L, n_pre + n_dec)
+        if routes["raw_groups"] or routes["raw"] or not routes["host"] \
+                or any(len(s) != 4 or s[-1] != 3 for s in routes["host"]):
+            fail(f"[evaluate] the char crops left the RGB host route: {routes['raw_groups']} raw "
+                 f"group preps, {routes['raw']} raw dispatches, host canvases {routes['host']}")
+        log(f"[evaluate] char crops: {len(routes['host'])} RGB host canvas stacks "
+            f"{sorted(set(routes['host']))}, no raw device group; tile tower calls {tile_calls}, "
+            f"char tower calls {len(char_calls)}")
+
+        with open(os.path.join(save, "full_page_easy.json"), encoding="utf-8") as f:
+            full = json.load(f)
+        responses = [d["output"] for d in full["detailed"]]
+        opts = {k: run["kw"][k] for k in ("use_p", "hard_vq", "drop_zero", "repetition_penalty")}
+        pages = tasks[os.path.join(EVAL_DATA, "full_page_ocr/easy/easy.parquet")][0]
+        direct = timed("batch_chat_ocr", engine.batch_chat_ocr, pages[:8],
+                       [callibench.FULL_PAGE_PROMPT] * 8, **opts)
+        if [t2s(r) for r in direct] != responses[:8]:
+            fail("[evaluate] the pipelined responses differ from batch_chat_ocr on the same 8 pages")
+        log(f"[evaluate] pipelined responses = batch_chat_ocr on the same 8 pages; pages/s: "
+            f"pipelined {EVAL_PAGES / seconds['full_page']:.4f} ({EVAL_PAGES} pages, 2 batches), "
+            f"batch_chat_ocr {8 / seconds['batch_chat_ocr']:.4f} (8 pages, one batch, after)")
+
+        # ---------------------------------------------------------- the other tasks, same engine
+        kw = dict(run["kw"])
+        with Swap(callibench, get_parquet=lambda path: tasks[path]):
+            at = functools.partial(os.path.join, EVAL_DATA)
+            region = timed("region_wise", callibench.test_region_wise, engine,
+                           at("region-wise/region.parquet"), os.path.join(save, "region_wise.json"),
+                           **kw)
+            h.zero_counts()
+            with ShapeLog(h.kernels) as choice_shapes:
+                _, choice = timed("choice", callibench.test_choice, engine,
+                                  at("choice/author/author.parquet"),
+                                  os.path.join(save, "author.json"), limit=EVAL_TWO_TURN, **kw)
+            choice_launches = h.read_counts()
+            bil = timed("bilingual", callibench.test_bilingual, engine,
+                        at("reasoning/bilingual/medium/bilingual_medium.parquet"),
+                        os.path.join(save, "bilingual.json"), **kw)
+            intent = timed("intent", callibench.test_intent, engine,
+                           at("reasoning/intent/intent.parquet"), os.path.join(save, "intent.json"),
+                           **kw)
+        with Swap(mmbench, load_tsv=lambda path: mm_rows):
+            mm = timed("mmbench", mmbench.evaluate_mmbench, engine, "mmbench.tsv",
+                       os.path.join(save, "mmbench.xlsx"))
+        ref = timed("refcoco", refcoco.evaluate_refcoco, engine, ref_samples)
+        with open(os.path.join(save, "refcoco.json"), "w") as f:
+            json.dump({"accuracy": ref["accuracy"]}, f)
+
+        layout = {
+            "full_page_easy.json": (EVAL_PAGES, {"imgPath", "prompt", "output", "gt", "precision",
+                                                 "recall", "f1", "ned"}),
+            "region_wise.json": (EVAL_REGIONS, {"imgPath", "prompt", "output", "gt", "precision",
+                                                "recall", "f1", "ned"}),
+            "author.json": (EVAL_TWO_TURN, {"imgPath", "output", "reference"}),
+            "bilingual.json": (EVAL_TWO_TURN, {"imgPath", "chinese", "answer", "gt"}),
+            "intent.json": (EVAL_TWO_TURN, {"imgPath", "chinese", "answer", "gt",
+                                            "calligraphy_content"}),
+            "mmbench.xlsx": (EVAL_MMBENCH, {"index", "question", "prediction", "pred_option",
+                                            "answer"}),
+        }
+        tops = {"full_page_easy.json": {"detailed", "average"}, "region_wise.json": {"detailed", "average"},
+                "author.json": {"detailed", "summary"}, "bilingual.json": {"detailed"},
+                "intent.json": {"detailed"}, "mmbench.xlsx": {"detailed", "accuracy", "scored", "total"}}
+        text_keys = ("output", "chinese", "answer", "prediction")
+        for name, (count, keys) in layout.items():
+            with open(os.path.join(save, name), encoding="utf-8") as f:
+                res = json.load(f)
+            recs = res["detailed"]
+            if set(res) != tops[name] or len(recs) != count or any(set(r) != keys for r in recs) \
+                    or not all(isinstance(r[k], str) for r in recs for k in text_keys if k in r):
+                fail(f"[evaluate] {name}: keys {sorted(res)}, {len(recs)} records (want {count}), "
+                     f"record keys {sorted(recs[0]) if recs else None}")
+        with open(os.path.join(save, "refcoco.json")) as f:
+            if set(json.load(f)) != {"accuracy"} or len(ref["detailed"]) != EVAL_REFCOCO \
+                    or not all(isinstance(a["ans"], str) for a in ref["detailed"]):
+                fail("[evaluate] refcoco.json or its answers")
+        if choice["summary"]["total_samples"] != EVAL_TWO_TURN or mm["total"] != EVAL_MMBENCH:
+            fail("[evaluate] the choice or mmbench counts")
+        log(f"[evaluate] seconds per task: " + json.dumps({k: round(v, 3) for k, v in seconds.items()})
+            + f"; F1 full page {full['average']['avg_f1']:.4f}, region {region['average']['avg_f1']:.4f}; "
+            f"choice accuracy {choice['summary']['accuracy']}; mmbench {mm['accuracy']}; refcoco "
+            f"{ref['accuracy']}; bilingual / intent answers of {[len(d['answer']) for d in bil['detailed']]}"
+            f" / {[len(d['answer']) for d in intent['detailed']]} chars; files "
+            f"{sorted(os.listdir(save))} (random weights: the scores are noise)")
+
+        # the towers at the full_page run's batches (the char tower on the RGB
+        # host canvases), the two-turn prefill at the choice task's longest
+        # prompt, flash_decode at its batch
+        h.vit_rows("evaluate", shapes, launches)
+        calls = choice_shapes.calls["flash_attention"]
+        longest = max(calls, key=lambda c: c[0][2])
+        at_longest = [c for c in calls if c[:2] == longest[:2]]
+        log(f"[evaluate] choice: prefill shapes {sorted({c[0] for c in calls})}, decode at "
+            f"B={choice_shapes.calls['flash_decode'][-1][0][0]}")
+        h.flash_attention_rows("evaluate choice, turn 2",
+                               types.SimpleNamespace(calls={"flash_attention": at_longest}),
+                               {"flash_attention": len(at_longest)})
+        h.flash_decode_row("evaluate choice", choice_shapes, choice_launches)
+
+        # the harness's RGB host route against the default luma device route,
+        # and each of the two differences alone (printed, not checked: JAX
+        # calls the routes near- but not bit-identical)
+        page = pages[0]
+        ordered = engine.batch_sort_boxes([page])
+        by_route = {}
+        try:
+            for gray in (False, True):
+                for device_resize in (False, True):
+                    engine.gray_chars, engine.device_resize_chars = gray, device_resize
+                    by_route[("luma" if gray else "RGB") + (" device" if device_resize else " host")] = \
+                        engine.batch_calli_align([page], ordered_lists=ordered)[0]
+        finally:
+            engine.gray_chars = engine.device_resize_chars = False
+
+        def agree(a, b):
+            (pa, ia), (pb, ib) = by_route[a], by_route[b]
+            cos = torch.nn.functional.cosine_similarity(pa.float(), pb.float(), dim=-1)
+            return (f"{a} / {b}: {(ia == ib).float().mean().item():.4f} of the VQ indices equal, "
+                    f"pseudo rows' cosine min {cos.min().item():.6f} mean {cos.mean().item():.6f}")
+
+        log(f"[evaluate] page 0's {by_route['RGB host'][1].shape[0]} crops by char route: "
+            + "; ".join(agree(a, b) for a, b in (("RGB host", "luma device"), ("RGB host", "RGB device"),
+                                                  ("RGB host", "luma host"),
+                                                  ("luma host", "luma device"))))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def bits(t):
@@ -1729,8 +2062,19 @@ def main() -> int:
         return internlm2.DECODE_STEPS.launches
 
     ShapeLog.install(kernels, torch, decode_graph)
+    marks = []
+
+    def phase(name):
+        """Starts the wall clock of phase ``name``; None ends the last and
+        prints every phase's seconds."""
+        marks.append((name, time.time()))
+        if name is None:
+            log("seconds by phase: " + json.dumps(
+                {a: round(t1 - t0, 1) for (a, t0), (_, t1) in zip(marks, marks[1:])})
+                + f"; {marks[-1][1] - marks[0][1]:.1f} s in all")
 
     # ---------------------------------------------------------- 1. build
+    phase("1 build")
     t0 = time.time()
     logs = _build.build_all(sorted({k.counter.source for k in kernels.values()}), force=True)
     log(f"built {len(logs)} kernel libraries in {time.time() - t0:.1f} s")
@@ -1790,6 +2134,9 @@ def main() -> int:
     results = {}
 
     def emit():
+        unlisted = [n for n in kernels if n not in results]
+        if unlisted:
+            fail(f"kernels without an entry in the kernels line: {unlisted}")
         line = []
         for name, entries in results.items():
             for label, n_launch, (err, ms, plain_ms, lib_ms, b_ms, b_by, dev_ms) in entries:
@@ -1875,6 +2222,7 @@ def main() -> int:
                                      spans=dict(engine.timings.spans))
 
     # ---------------------------------------------------------- 2. main path, 2b
+    phase("2-4 2b")
     t0 = time.time()
     engine = build_engine("callireader-2b", device="cuda", device_tile_pages=True)
     torch.cuda.synchronize()
@@ -2065,6 +2413,7 @@ def main() -> int:
                               read_counts=read_counts, rnd=rnd, bound=bound, row_for=row_for,
                               results=results, plain_rms=plain_rms, check_norms=check_norms,
                               flash_decode_row=flash_decode_row, vit_rows=vit_rows,
+                              flash_attention_rows=flash_attention_rows,
                               decode_steps=decode_steps, norm_shapes={})
 
     def keep_norms(path, shapes, launches):
@@ -2090,12 +2439,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 22. boot from a reference checkpoint
+    phase("22 boot")
     h.attention_rows = attention_rows
     boot_phase(h, run_main_path, path_2b)
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 5. main path, 8b int8
+    phase("5-8 8b")
     t0 = time.time()
     engine = build_engine("callireader-8b", device="cuda", quant="int8", device_tile_pages=True)
     torch.cuda.synchronize()
@@ -2163,8 +2514,10 @@ def main() -> int:
     def chunk_profile(mode, measure=False):
         """Host clock against device time of a decode step at the main path's
         shape, its chunks replayed as graphs or run uncaptured: 10 chunks
-        timed with a sync at the end, then 4 under torch.profiler.
-        ``measure``: the memory of the (new) graph entry."""
+        timed with a sync at the end, then 4 replayed (1 uncaptured: its
+        trace holds the host ops of every launch, ~25 s to process for 4)
+        under torch.profiler. ``measure``: the memory of the (new) graph
+        entry."""
         gcfg = gen_mod.GenerateConfig(max_new_tokens=8 * 18, eos_token_ids=(-1,),
                                       repetition_penalty=1.5)
         torch.cuda.synchronize()
@@ -2189,14 +2542,17 @@ def main() -> int:
             run.step()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) / 80 * 1e3
-        kern, idle = device_kernels(run.step, torch, 4)
+        n_prof = 1 if mode == "eager" else 4
+        kern, idle = device_kernels(run.step, torch, n_prof)
         if not kern:
             log(f"[8b] decode chunks, {mode}: {host_ms:.3f} ms a step on the host clock; the "
                 f"profiler trace holds no device events (device ms not measured)")
             return
-        busy_ms = sum(us for us, _ in kern.values()) / 32 / 1e3
+        steps = 8 * n_prof
+        busy_ms = sum(us for us, _ in kern.values()) / steps / 1e3
         log(f"[8b] decode chunks, {mode}: {host_ms:.3f} ms a step on the host clock (no profiler), "
-            f"{busy_ms:.3f} ms of device kernels a step ({sum(k for _, k in kern.values()) / 32:.0f} "
+            f"{busy_ms:.3f} ms of device kernels a step over {steps} steps "
+            f"({sum(k for _, k in kern.values()) / steps:.0f} "
             f"kernels); device idle in the trace {100 * idle:.1f}% (profiler on), 1 - device / host "
             f"ms {100 * (1 - busy_ms / host_ms):.1f}% (two runs)")
 
@@ -2376,6 +2732,7 @@ def main() -> int:
     log("fused wqkv / w13 outputs, split, equal the separate products bit for bit")
 
     # ---------------------------------------------------------- 9. serve, paged
+    phase("9-13 serve")
     del x, fused
     torch.cuda.empty_cache()
     vcfg = engine.cfg
@@ -2509,7 +2866,9 @@ def main() -> int:
     def step_profile(k, eager=False):
         """Host clock against device kernel time of a decode step, all 8
         slots live, its ticks replayed as graphs or run uncaptured: 16 steps
-        timed with a sync at the end, then 16 under torch.profiler."""
+        timed with a sync at the end, then 16 replayed (4, or one tick of 8,
+        uncaptured: that trace holds the host ops of every launch) under
+        torch.profiler."""
         batcher = paged_batcher(k, eager=eager)
         for r in requests_for(rows, 100_000):
             batcher.submit(r)
@@ -2522,13 +2881,14 @@ def main() -> int:
             batcher.step()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) / (n_calls * k) * 1e3
-        kern, idle = device_kernels(batcher.step, torch, n_calls)
+        n_prof = max(1, 4 // k) if eager else n_calls
+        kern, idle = device_kernels(batcher.step, torch, n_prof)
         mode = "eager" if eager else "graph"
         if not kern:
             log(f"[serve k={k}] step profile, {mode}: {host_ms:.3f} ms a step on the host clock; "
                 f"the profiler trace holds no device events (device ms not measured)")
             return
-        steps = n_calls * k
+        steps = n_prof * k
         busy_ms = sum(us for us, _ in kern.values()) / steps / 1e3
         top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
         log(f"[serve k={k}] step profile, {mode}: {host_ms:.3f} ms a step on the host clock (no "
@@ -2726,10 +3086,12 @@ def main() -> int:
                 fail(f"[serve] int8 launches by projection and rows {counts}, expected {want}")
 
     # ---------------------------------------------------------- 20-21. bench, W8A8
+    phase("20-21 bench, W8A8")
     bench_phase(h, engine, batch_path)
     w8a8_phase(h, engine)
 
     # ---------------------------------------------------------- 14-16. training
+    phase("14-16 train")
     work = tempfile.mkdtemp(prefix="chip_smoke_eit_")
     try:
         data = write_eit_data(engine, work)
@@ -2741,13 +3103,21 @@ def main() -> int:
         final_dir = train_phases(h, data)
         gc.collect()
         torch.cuda.empty_cache()
+        phase("17-18 CLI")
         cli_phases(h, final_dir, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    # ---------------------------------------------------------- 23. the evaluation harness
+    phase("23 evaluate")
+    evaluate_phase(h)
+    gc.collect()
+    torch.cuda.empty_cache()
     # ---------------------------------------------------------- 19. RMSNorm at every path's shapes
+    phase("19 norms")
     norm_rows(h)
+    phase(None)
     emit()
     return 0
 

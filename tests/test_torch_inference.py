@@ -385,9 +385,9 @@ def test_apis_and_mode_table(tmp_path, capsys):
     assert isinstance(apis.recognize(eng, _page(12), max_new_tokens=2), str)
     answer, hist = apis.ask(eng, _page(12), "作者是谁？", max_new_tokens=2)
     assert isinstance(answer, str) and len(hist) == 1
-    with pytest.raises(NotImplementedError):
-        apis.evaluate_full_page(eng, "bench.parquet")
+    with pytest.raises(FileNotFoundError):
+        apis.evaluate_full_page(eng, str(tmp_path / "missing.parquet"))
     assert tmain.main(["list-cfg"]) == 0 and "e_it" in capsys.readouterr().out
-    assert tmain.main(["evaluate"]) == 2 and "not ported" in capsys.readouterr().err
+    assert tmain.main(["preprocess"]) == 2 and "not ported" in capsys.readouterr().err
     assert tmain.main(["nonsense"]) == 1
     assert tmain.main([]) == 0

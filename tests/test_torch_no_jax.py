@@ -27,7 +27,8 @@ print(json.dumps({
     "jax_package": sorted(m for m in sys.modules if m == "callireader_tpu" or m.startswith("callireader_tpu.")),
     "banned": sorted(m for m in ("PIL", "tokenizers", "transformers", "google.protobuf",
                                  "sentencepiece", "cv2", "sklearn", "optax", "safetensors",
-                                 "orbax") if m in sys.modules),
+                                 "orbax", "pandas", "pyarrow", "opencc", "sentence_transformers",
+                                 "openai") if m in sys.modules),
 }))
 """
 
@@ -47,11 +48,14 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "train.data", "train.checkpoint", "utils.profiling", "configs", "configs.e_it",
                  "cli.train", "kernels.rmsnorm", "cli.common", "cli.inference", "cli.chat",
                  "cli.get_embeddings", "apis", "__main__", "bench", "runtime.safetensors_io",
-                 "runtime.detector_weights", "cli.convert"):
+                 "runtime.detector_weights", "cli.convert", "evalx.metrics", "evalx.callibench",
+                 "evalx.mmbench", "evalx.refcoco", "evalx.judges", "cli.evaluate", "cli.judge"):
         assert f"callireader_tpu_torch.{name}" in res["modules"]
     assert res["jax"] == []
     assert res["jax_package"] == []
-    assert res["banned"] == []  # PIL among them: the servers import it per request only
+    # PIL among them: the servers import it per request only, the evaluation
+    # harness's readers (pandas, PIL) only where they read a file
+    assert res["banned"] == []
 
 
 def test_entry_points_default_to_cuda():
