@@ -1,5 +1,5 @@
-"""Command line entry with the JAX package's mode table, for the modes the
-port has (PyTorch port of callireader_tpu/__main__.py).
+"""Command line entry with the JAX package's mode table (PyTorch port of
+callireader_tpu/__main__.py).
 
   python -m callireader_tpu_torch MODE [ARGS...]
 """
@@ -8,10 +8,11 @@ from __future__ import annotations
 
 import sys
 
-MODES = ("list-cfg", "train", "check-custom-dataset", "test", "evaluate", "chat", "serve",
-         "inference", "get-embeddings", "convert", "judge", "mmbench")
-# the JAX package's other modes, which wait for their modules: mode -> ROADMAP item
-NOT_PORTED = {"copy-cfg": "A9", "preprocess": "A9", "log-dataset": "A9"}
+MODES = (
+    "list-cfg", "copy-cfg", "train", "test", "chat", "serve", "inference",
+    "evaluate", "convert", "preprocess", "mmbench", "judge", "get-embeddings",
+    "check-custom-dataset", "log-dataset",
+)
 
 HELP = f"""callireader-tpu (PyTorch/CUDA port) command line
 
@@ -20,6 +21,7 @@ HELP = f"""callireader-tpu (PyTorch/CUDA port) command line
 Where MODE is one of {MODES}
 
   python -m callireader_tpu_torch list-cfg
+  python -m callireader_tpu_torch copy-cfg e_it ./my_e_it.py
   python -m callireader_tpu_torch train --config e_it --data ann.jsonl --image-root DIR --random-init
   python -m callireader_tpu_torch convert export --checkpoint ... --out ...
   python -m callireader_tpu_torch convert merge --checkpoint ... --adapter ... --out ...
@@ -28,13 +30,16 @@ Where MODE is one of {MODES}
   python -m callireader_tpu_torch inference --tgt page.npy --random-init --quant int8
   python -m callireader_tpu_torch inference --tgt page.npy --checkpoint InternVL/ --quant int8
   python -m callireader_tpu_torch chat --image page.npy --random-init
+  python -m callireader_tpu_torch chat --agent --random-init
   python -m callireader_tpu_torch serve --input req.jsonl --output out.jsonl --paged --random-init
   python -m callireader_tpu_torch get-embeddings --data DIR --out OUT --random-init
   python -m callireader_tpu_torch evaluate --type full_page --data ./CalliBench --save_name exp --random-init
   python -m callireader_tpu_torch mmbench --data-path mmbench_dev.tsv --save_name exp --random-init
   python -m callireader_tpu_torch judge --type bilingual --input outputs/exp/bilingual.json
-
-Not ported yet: {tuple(NOT_PORTED)}
+  python -m callireader_tpu_torch preprocess arxiv SRC DST --categories cs.CL
+  python -m callireader_tpu_torch preprocess refcoco --ann-path refs.json --save-path out.json
+  python -m callireader_tpu_torch check-custom-dataset --config e_it --data ann.jsonl --random-init
+  python -m callireader_tpu_torch log-dataset --data ann.jsonl --random-init
 """
 
 
@@ -50,7 +55,13 @@ def main(argv=None) -> int:
         for name in list_configs():
             print(name)
         return 0
-    if mode in ("train", "check-custom-dataset"):
+    if mode == "copy-cfg":
+        from callireader_tpu_torch.configs import copy_config
+
+        dst = copy_config(rest[0], rest[1] if len(rest) > 1 else ".")
+        print(f"copied to {dst}")
+        return 0
+    if mode in ("train", "check-custom-dataset", "log-dataset"):
         from callireader_tpu_torch.cli import train as m
 
         if mode == "check-custom-dataset":
@@ -72,10 +83,8 @@ def main(argv=None) -> int:
         from callireader_tpu_torch.cli import get_embeddings as m
     elif mode == "convert":
         from callireader_tpu_torch.cli import convert as m
-    elif mode in NOT_PORTED:
-        print(f"mode {mode!r} is not ported to the PyTorch package yet "
-              f"(ROADMAP {NOT_PORTED[mode]})", file=sys.stderr)
-        return 2
+    elif mode == "preprocess":
+        from callireader_tpu_torch.cli import preprocess as m
     else:
         print(f"unknown mode {mode!r}\n{HELP}", file=sys.stderr)
         return 1

@@ -8,9 +8,11 @@ callireader_tpu/cli/chat.py).
 ``internlm2.decode_step``, printing the text as it grows and stopping at the
 template's separator, the tokenizer's eos, or a stop word. The REPL keeps
 the history; ``RESET`` clears it, ``EXIT`` quits. ``--quant int8-all`` adds
-the W8A8 tile tower to the int8 LLM. Runs on the GPU unless ``--device cpu``
-is given. Not ported yet: ``--agent`` (the ReAct agent of
-runtime/agent.py) and what cli/common.py refuses.
+the W8A8 tile tower to the int8 LLM. ``--agent`` routes each line through
+the ReAct agent (runtime/agent.py: calculate / solve / search tools), whose
+turns are ``stream_generate`` calls that stop at "Response:". Runs on the
+GPU unless ``--device cpu`` is given. Not offered: what cli/common.py
+refuses.
 """
 
 from __future__ import annotations
@@ -107,11 +109,10 @@ def main(argv=None):
     parser.add_argument("--system", type=str, default=None)
     parser.add_argument("--stop-words", type=str, nargs="*", default=[])
     parser.add_argument("--agent", action="store_true",
-                        help="ReAct agent mode (not ported yet: waits for runtime/agent.py)")
+                        help="ReAct agent mode with calculate/solve/search tools (the reference "
+                        "chat tool's --lagent mode, tools/chat.py:172-213)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
-    if args.agent:
-        parser.error("--agent is not ported yet: it waits for runtime/agent.py (ROADMAP A9)")
 
     from callireader_tpu_torch.cli import common
 
@@ -122,6 +123,16 @@ def main(argv=None):
     except (NotImplementedError, FileNotFoundError, ValueError) as e:
         parser.error(str(e))
     history = None
+    agent = None
+    if args.agent:
+        from callireader_tpu_torch.runtime.agent import ReActAgent
+
+        def _chat_fn(question, hist):
+            return stream_generate(engine, question, hist, max_new_tokens=args.max_new_tokens,
+                                   repetition_penalty=args.repetition_penalty,
+                                   stop_words=("Response:",))
+
+        agent = ReActAgent(_chat_fn)
     print("double enter to end input; 'RESET' clears history, 'EXIT' quits", file=sys.stderr)
     while True:
         try:
@@ -134,9 +145,14 @@ def main(argv=None):
             break
         if text == "RESET":
             history = None
+            if agent is not None:
+                agent.reset()
             print("history cleared", file=sys.stderr)
             continue
         print("assistant> ", end="", flush=True)
+        if agent is not None:
+            print(agent.chat(text))
+            continue
         _, history = stream_generate(
             engine, text, history, image=args.image if history is None else None,
             max_new_tokens=args.max_new_tokens, repetition_penalty=args.repetition_penalty,

@@ -3,14 +3,18 @@
   python -m callireader_tpu_torch.cli.train --data ann.jsonl --image-root DIR \
       --preset callireader-8b --random-init --config e_it --max-iters 2 --out OUT
 
-Runs on the GPU unless ``--device cpu`` is given. The recipe (``--config
-e_it``, or a .py file defining ``config()``) sets the flag defaults: LoRA
+Runs on the GPU unless ``--device cpu`` is given. The recipe (``--config``:
+a name of the config zoo, or a .py file defining ``config()``) sets the flag
+defaults from its hyperparameters, as the JAX CLI does; ``e_it``'s: LoRA
 r=128 alpha=256 on the LLM's seven projections as fp32 masters (bf16 over an
 int8 base with ``--qlora``), the projector trainable, the ViT and the LLM
 frozen, AdamW at lr 5e-5 with 3% warmup and cosine decay, gradient clip 1,
 batch 2 x accumulation 2, remat on. An iteration (logs, checkpoints, the
 schedule) is one update of ``--grad-accum`` micro-batches; ``--resume``
-continues from a checkpoint at its step and data position.
+continues from a checkpoint at its step and data position;
+``--eval-chat-interval N`` answers ``--eval-chat-prompt`` (32 tokens,
+text only) with the live adapters after every N-th update and prints it
+(the reference's EvaluateChatHook).
 
 Page images are ``.npy`` arrays of uint8 pixels (train/data.py). The base
 comes from ``--checkpoint`` (a reference-layout InternVL directory, through
@@ -18,8 +22,7 @@ cli/common.build_engine) or, with ``--random-init``, from the seeded random
 init. The run ends as the JAX CLI's does: the final ``save_train_state``,
 then the merged params (LoRA folded in, an int8 QLoRA base dequantized first)
 exported to the reference's safetensors layout in ``<out>/export_official``.
-Not offered: ``--mesh`` (the port has no parallel layer yet) and
-``--eval-chat-interval`` other than 0 (not ported yet).
+Not offered: ``--mesh`` (the port has no parallel layer yet).
 """
 
 from __future__ import annotations
@@ -67,15 +70,14 @@ def main(argv=None):
     parser.add_argument("--log-interval", type=int, default=10)
     parser.add_argument("--ckpt-interval", type=int, default=1500)
     parser.add_argument("--eval-chat-interval", type=int, default=0,
-                        help="generate a sample completion every N iters (0=off; the port "
-                        "has only 0)")
+                        help="generate a sample completion every N iters (0=off)")
     parser.add_argument("--eval-chat-prompt", type=str, default="读出图中所有文字。")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--check-data", action="store_true",
                         help="print a decoded dataset sample and exit")
     parser.add_argument("--config", type=str, default=None,
-                        help="recipe name (e_it) or a .py file defining config(); sets flag "
-                        "defaults")
+                        help="recipe name from the config zoo (list-cfg) or a .py file defining "
+                        "config(); sets flag defaults")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     pre, _ = parser.parse_known_args(argv)
     if pre.config:
@@ -89,8 +91,6 @@ def main(argv=None):
         }
         parser.set_defaults(**{key_map[k]: v for k, v in recipe.items() if k in key_map})
     args = parser.parse_args(argv)
-    if args.eval_chat_interval:
-        parser.error("--eval-chat-interval is not ported yet (ROADMAP A10); pass 0")
 
     import torch
 
@@ -229,6 +229,13 @@ def main(argv=None):
             if last_ckpt and os.path.exists(last_ckpt):
                 shutil.rmtree(last_ckpt)  # keep one
             last_ckpt = path
+        if args.eval_chat_interval and upd % args.eval_chat_interval == 0:
+            # the live tree: the decode reads the adapters the optimizer
+            # updates in place (a decode graph of the first chat replays
+            # with the later values)
+            engine.params = e_it.merge_params(state.trainable, frozen)
+            resp = engine.chat(None, args.eval_chat_prompt, max_new_tokens=32)
+            print(f"[eval-chat @{upd}] {resp!r}", file=sys.stderr)
 
     # final save + deployable export
     final = os.path.join(args.out, "final")

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -95,13 +96,15 @@ def _fixed_inv_freq(head_dim: int, theta: float, device: torch.device) -> torch.
 
 
 def cos_sin_for(cfg: LLMConfig, positions: torch.Tensor, kv_seq_len: int):
-    """RoPE tables (B, S, D) for integer positions (B, S). Dynamic NTK
-    rescales the base once the run's sequence (max position + 1) exceeds
-    max_position_embeddings, which can only happen when the cache capacity
-    ``kv_seq_len`` does. (Linear scaling, set only by the JAX package's
-    long-context training recipe, is not ported.)"""
+    """RoPE tables (B, S, D) for integer positions (B, S). "linear" divides
+    the positions by the factor (the long-context training recipe,
+    ``prepare_long_context``); "dynamic" NTK rescales the base once the
+    run's sequence (max position + 1) exceeds max_position_embeddings, which
+    can only happen when the cache capacity ``kv_seq_len`` does."""
     pos = positions.float()
     dev = positions.device
+    if cfg.rope_scaling_type == "linear":
+        pos = pos / cfg.rope_scaling_factor
     if cfg.rope_scaling_type == "dynamic" and kv_seq_len > cfg.max_position_embeddings:
         f = cfg.rope_scaling_factor
         mpe = float(cfg.max_position_embeddings)
@@ -114,6 +117,18 @@ def cos_sin_for(cfg: LLMConfig, positions: torch.Tensor, kv_seq_len: int):
     freqs = pos[..., None] * inv
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
+
+
+def prepare_long_context(cfg: LLMConfig, max_length: int) -> LLMConfig:
+    """Enlarge the usable context with linear RoPE scaling, the
+    `_prepare_for_long_context_training` recipe (train/xtuner/model/sft.py:
+    161-184, reward.py:186): factor = ceil(max_length / max_position_embeddings),
+    applied only when the target exceeds the native window."""
+    if max_length <= cfg.max_position_embeddings:
+        return cfg
+    factor = float(math.ceil(max_length / cfg.max_position_embeddings))
+    return dataclasses.replace(cfg, rope_scaling_type="linear", rope_scaling_factor=factor,
+                               max_position_embeddings=max_length)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

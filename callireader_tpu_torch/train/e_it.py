@@ -265,22 +265,17 @@ def create_train_state(params, train_cfg: TrainConfig):
     return TrainState(trainable, tx.init(flat), 0), frozen, tx
 
 
-def make_train_step(
-    cfg: VLMConfig,
-    train_cfg: TrainConfig,
-    tx: Optimizer,
-    *,
-    policy: DTypePolicy = DEFAULT_POLICY,
-) -> Callable:
+def make_step(loss_fn: Callable, tx: Optimizer) -> Callable:
     """``train_step(state, frozen, batch) -> (state, metrics)`` for one
-    micro-batch: loss, the trainable leaves' gradients, the (accumulating)
-    update in place. ``metrics["grad_norm"]`` is the global norm of this
-    micro-batch's gradients before clipping."""
+    micro-batch of ``loss_fn(params, batch) -> (loss, metrics)`` on the
+    merged tree: the loss, the trainable leaves' gradients, the
+    (accumulating) update in place. ``metrics["grad_norm"]`` is the global
+    norm of this micro-batch's gradients before clipping. The e-IT, DPO /
+    ORPO and reward steps are this step over their losses."""
 
     def train_step(state: TrainState, frozen, batch: Dict[str, torch.Tensor]):
         flat = flatten(state.trainable)
-        loss, metrics = eit_loss(merge_params(state.trainable, frozen), cfg, batch, policy=policy,
-                                 remat=train_cfg.remat)
+        loss, metrics = loss_fn(merge_params(state.trainable, frozen), batch)
         grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True,
                                     materialize_grads=True)
         grads = dict(zip(flat, grads))
@@ -291,3 +286,15 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def make_train_step(
+    cfg: VLMConfig,
+    train_cfg: TrainConfig,
+    tx: Optimizer,
+    *,
+    policy: DTypePolicy = DEFAULT_POLICY,
+) -> Callable:
+    """The e-IT step: ``make_step`` over ``eit_loss``."""
+    return make_step(lambda params, batch: eit_loss(params, cfg, batch, policy=policy,
+                                                    remat=train_cfg.remat), tx)

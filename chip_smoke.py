@@ -28,8 +28,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
  22. boot from a reference checkpoint, callireader-2b: the engine drawn with
      no trained assets (seed 0) is written by
      train/checkpoint.export_full_reference_checkpoint (fp32 shards of at
-     most 2 GiB, their index, the side files under params/) into a
-     temporary directory; cli.common.build_engine(checkpoint_dir=...,
+     most 2 GiB, their index, and under params/ the three side files the
+     boot reads: the others are not written) into a temporary directory; cli.common.build_engine(checkpoint_dir=...,
      trained_assets=False) boots from it: every leaf bit-equal to the
      in-memory tree (mu and sigma compared in its fp32: the loader casts
      them to bf16, as the JAX loader does), no component drawn at random,
@@ -136,8 +136,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      batch_calli_align as .npy, a JSONL of question and text), the int8
      engine is freed, then ``cli.train.main([... "--preset",
      "callireader-2b", "--random-init", "--config", "e_it", "--max-iters",
-     "2"])`` runs in-process: LoRA r128 on all seven projections, batch 2 x
-     accumulation 2, remat on, so 4 micro-steps. Counts zeroed before, read
+     "2", "--eval-chat-interval", "1"])`` runs in-process: LoRA r128 on all
+     seven projections, batch 2 x accumulation 2, remat on, so 4
+     micro-steps, and an eval chat (32 new tokens, text only) after each of
+     the two updates, on the live adapters. Counts zeroed before, read
      after: the training forward, dq and dk/dv kernels 2L / L / L times a
      micro-step (16 / 8 / 8), the ViT kernel once a ViT layer (12); every
      loss finite; every layer of every LoRA b leaf moved; frozen leaves
@@ -147,7 +149,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      vocab tables, the final norm and every leaf of the first and last
      layers equal merge_lora(merge_params(final state)) bit for bit.
      ms per micro-step (the first apart), throughput, peak memory, and host
-     against device ms of a micro-step from a profiler trace;
+     against device ms of a micro-step from a profiler trace. Each eval chat
+     is counted apart (zeroed before, read after, the training run's counts
+     put back): the prefill, flash_decode L times a decode step and the
+     RMSNorm forward launched and nothing else, a string answer of token ids
+     below the real vocabulary; the second chat replays the first chat's
+     decode graphs on the adapters the optimizer moved in place, and its
+     token ids equal the same chat run uncaptured;
  15. reference: on two batches of 2 rows of at most 512 tokens, one
      micro-step through the trained model, through the kernels
      against the same model with the three training kernels swapped for
@@ -162,6 +170,33 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      them with and at the recipe's ceiling B=1, S=8192, beside
      scaled_dot_product_attention and its autograd backward; each row's
      device ms is printed beside its bound;
+ 24. post-training at full width, on phase 14's LLM and final adapters:
+     one step each of (a) SFT: a synthetic JSONL corpus (documents of
+     153-1462 tokens of TRAIN_TEXT) packed by sft_data.PackedTextDataset
+     into 2048-token rows (3-4 documents a row, positions restarting at
+     each), packed_loader's batch of 2 through e_it.make_train_step;
+     (b) DPO from fresh adapters (b = 0, as a DPO run starts: its loss is
+     log 2 within 1e-6, the policy being the reference) and (c) ORPO on
+     phase 14's: dpo.make_dpo_train_step on preference_collate of 2 pairs
+     (4 rows in the 2048 bucket); (d) the reward model:
+     reward.make_reward_train_step with a value head, at
+     long_context_config(2 x max_position_embeddings) (linear RoPE, factor
+     2). Counts zeroed before each step, read after: the training forward
+     2L a step (the forward and its remat recompute; DPO 3L: and the
+     reference's forward, under no_grad), dq and dk/dv L, the RMSNorm
+     forward 4L+1 (DPO 6L+2) and backward 2L (the first layer's attention
+     norm reads the frozen embedding rows, which need no gradient; e-IT's
+     splice of the trainable projector's rows needs 2L+1), nothing else.
+     Each loss finite; its ms, peak memory and the kernels' device ms
+     printed; each step's loss and LoRA grads held as phase 15 holds the
+     e-IT micro-step, against the same step on the plain versions of the
+     training and RMSNorm kernels beside that step's own two noise
+     witnesses: the loss within 1e-3 relative, each grad group within twice
+     the smaller witness and under REF_GRAD_CAP (a group whose plain grads
+     are zero, the fresh adapters' a leaves, must be zero). The three
+     training kernels are held against
+     their plain versions at the SFT step's shape and packed segment ids and
+     at the DPO step's;
  17. inference CLI, int8 with an adapter: ``cli.inference.main(["--tgt",
      page.npy, "--preset", "callireader-2b", "--random-init", "--quant",
      "int8", "--adapter", <phase 14's final checkpoint>])`` in-process at
@@ -179,6 +214,14 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      without CalliAlign and cli.chat's stream_generate for 64 tokens;
      flash_decode is held against its plain version, as in phase 4, at the
      CLI page's shape (batch 1 over its 4,608 slots) and the beams' shape;
+     then the agent: ``cli.chat.main(["--agent", "--preset",
+     "callireader-2b", "--random-init", "--quant", "int8",
+     "--max-new-tokens", "64"])`` in-process with a scripted stdin (an
+     arithmetic question, then EXIT) on this engine in place of the CLI's
+     own build: at least one stream_generate turn stopping at "Response:",
+     a string answer printed; the prefill, flash_decode, both int8 kernels
+     and the RMSNorm forward launched; flash_decode held against its plain
+     version at the agent's shape;
  23. evaluate, the CalliBench harness (evalx, cli.evaluate) on
      callireader-2b int8 at full width: ``cli.evaluate.main(["--type",
      "full_page", "--splits", "easy", "--preset", "callireader-2b",
@@ -217,8 +260,10 @@ taken off and added back at each replay), and the shape log records a
 graph's captured launches again at each of its replays.
 Every phase that drives a path asserts the RMSNorm counts: the model forward
 2L+1 times per prefill and per decode step (2b, 8b, serve, pressure, HTTP,
-contiguous, CLI, beams, chat, stream); in a training micro-step under remat 4L+1 forward
-and 2L+1 backward (no dw: the norm weights are frozen). Phases 3, 6, 12 and
+contiguous, CLI, beams, chat, stream, eval chat, agent); in a training
+micro-step under remat 4L+1 forward and 2L+1 backward (no dw: the norm
+weights are frozen). Phase 19 takes the eval chat's and the agent's shapes
+too. Phases 3, 6, 12 and
 15 swap the RMSNorm kernels for their plain versions as well.
 Each ``kernels`` entry carries the device ms a call (torch.profiler) and its
 ratio to the bound. The build log names each kernel beside its registers and
@@ -226,6 +271,7 @@ spills (``-Xptxas -v``); phase 8 and 13 hold each row of the LM head's
 launch, and of the (K, N) kernel's at the w13 projection, to the same row
 launched alone, bit for bit, and the log compares the int8 kernels' and the
 paged kernel's device ms with their bounds across the paths' row counts.
+Phases run in the order 1-4, 22, 5-13, 20-21, 14-16, 24, 17-18, 23, 19.
 Prints the wall seconds of each phase, the card's name and power limit, the
 ``kernels`` JSON line (it fails if a kernel has no entry), then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
@@ -236,6 +282,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import io
 import json
 import os
@@ -261,6 +308,18 @@ QUESTION = "读出图中所有文字。"
 TRAIN_TEXT = ("天地玄黄宇宙洪荒日月盈昃辰宿列张寒来暑往秋收冬藏闰余成岁律吕调阳云腾致雨露结为霜金生丽水玉出昆冈"
               "剑号巨阙珠称夜光果珍李柰菜重芥姜海咸河淡鳞潜羽翔龙师火帝鸟官人皇始制文字乃服衣裳推位让国有虞陶唐")
 TRAIN_CEILING = 8192  # the recipe's max_length
+# phase 24: post-training at full width on phase 14's LLM and adapters. The
+# SFT corpus: documents of these many characters of TRAIN_TEXT (153-1462
+# tokens), packed into rows of POST_PACKED tokens as the zoo's standard 2k
+# recipes pack them (3-4 documents a row). The preference pairs of the DPO,
+# ORPO and reward steps: characters of prompt, chosen and rejected (the
+# longest row falls in the 2048 bucket)
+POST_SFT_DOCS = (150, 1400, 700, 333, 1200, 480, 900, 620, 1000, 275, 800, 555)
+POST_PACKED = 2048
+POST_PAIRS = ((60, 1700, 1200), (40, 900, 1500))
+# phase 14's eval chats and phase 18's agent: new tokens a turn
+EVAL_CHAT_TOKENS, AGENT_TOKENS = 32, 64
+AGENT_STDIN = "12乘以34等于多少？\nEXIT\n"
 # phase 15: the largest grads rel L2 error a leaf group may show. On an H100
 # the library witness reads at most 6.46e-2 in any group of either batch (the
 # +-1 ulp witness 8.42e-2, the kernels 5.92e-2): an error above what the
@@ -397,6 +456,24 @@ def device_ms(fn, torch, n: int = 16, tries: int = 3):
         if best[1] >= n // 2:
             break
     return best
+
+
+def profiled(fn, torch):
+    """``fn()`` once under torch.profiler -> (its result, {kernel name:
+    (total device us, launches)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kern = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, k = kern.get(e.name, (0.0, 0))
+            kern[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    return out, kern
 
 
 class ShapeLog:
@@ -599,20 +676,162 @@ def write_eit_data(engine, work):
     return types.SimpleNamespace(work=work, **paths)
 
 
+def plain_training_attention(k_bwd):
+    """The training attention's plain versions in the kernels' place (fp32
+    math, outputs in the inputs' dtype): (_fwd, _bwd) for a Swap of
+    kernels/attention_bwd.py."""
+    def fwd(q, k, v, qs, ks, causal, scale):
+        o, lse = k_bwd.attention_fwd_lse_reference(q, k, v, qs, ks, causal, scale)
+        return o.to(q.dtype), lse
+
+    def bwd(*args):
+        dq, dk, dv = k_bwd.attention_bwd_reference(*args)
+        return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+    return fwd, bwd
+
+
+def grads_rel_l2(grads, grads_p):
+    """The relative L2 error of ``grads`` against ``grads_p`` ({path: grad})
+    by leaf group: a LoRA leaf's name over all layers, else the tree's first
+    key (the projector)."""
+    groups = {}
+    for path in grads_p:
+        key = path.split("/")[-1] if "_lora_" in path else path.split("/")[0]
+        d, n = groups.get(key, (0.0, 0.0))
+        g, gp = grads[path].float(), grads_p[path].float()
+        groups[key] = (d + (g - gp).square().sum().item(), n + gp.square().sum().item())
+    # a group whose grads are zero in the plain step (the a leaves of fresh
+    # adapters) must be exactly zero here too
+    return {k: (d / n) ** 0.5 if n else (0.0 if d == 0 else float("inf"))
+            for k, (d, n) in sorted(groups.items())}
+
+
+class CountsApart:
+    """Inside a run with a ShapeLog open (the train CLI's), runs a block with
+    every launch count zeroed at its start and the block's launches recorded
+    in a ShapeLog of its own in place of the open ones, then puts back the
+    counts and the logs of the enclosing run: the eval chats are counted
+    alone."""
+
+    def __init__(self, h, counts):
+        self.h, self.counts = h, counts
+
+    def __enter__(self):
+        self.saved = [c.launches for c in self.counts]
+        self.outer = ShapeLog.OPEN[:]
+        self.shapes = ShapeLog(self.h.kernels)
+        ShapeLog.OPEN[:] = [self.shapes]  # the launch functions stay wrapped
+        self.h.zero_counts()
+        return self
+
+    def __exit__(self, *exc):
+        self.launches, self.decode_steps = self.h.read_counts(), self.h.decode_steps()
+        ShapeLog.OPEN[:] = self.outer
+        for c, n in zip(self.counts, self.saved):
+            c.launches = n
+
+
+class TrainingReferences:
+    """A training step's loss and grads through the kernels against the same
+    step on the plain versions of the training attention and RMSNorm
+    kernels, beside two witnesses of the comparison's bf16 noise: the step
+    through the library's attention (scaled_dot_product_attention, a
+    yardstick the port never calls), and the plain step with every attention
+    output and gradient moved one bf16 ulp up or down (a fixed random
+    pattern a shape, so the remat recompute repeats it)."""
+
+    def __init__(self, h, torch, F, k_bwd, k_rms, internlm2):
+        self.h, self.torch = h, torch
+        plain_fwd, plain_bwd = plain_training_attention(k_bwd)
+        gen, steps = torch.Generator(device=h.dev).manual_seed(2), {}
+
+        def one_ulp(t):  # t (bf16) with each non-zero element one ulp up or down
+            if t.shape not in steps:
+                steps[t.shape] = (2 * torch.randint(0, 2, t.shape, generator=gen, device=h.dev)
+                                  - 1).to(torch.int16)
+            bits = t.contiguous().view(torch.int16)
+            return torch.where(t != 0, bits + steps[t.shape], bits).view(torch.bfloat16)
+
+        def ulp_fwd(*args):
+            o, lse = plain_fwd(*args)
+            return one_ulp(o), lse
+
+        def ulp_bwd(*args):
+            return tuple(one_ulp(g) for g in plain_bwd(*args))
+
+        def sdpa_attention(q, k, v, q_seg, kv_seg, causal, scale):
+            S = q.shape[2]
+            allowed = (q_seg[:, :, None] == kv_seg[:, None, :]) & torch.ones(
+                (S, S), dtype=torch.bool, device=q.device).tril()
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=allowed[:, None], scale=scale,
+                                                  enable_gqa=True)
+
+        self.plain = lambda: [Swap(k_bwd, _fwd=plain_fwd, _bwd=plain_bwd), Swap(k_rms, **h.plain_rms)]
+        self.witnesses = {
+            "library": lambda: [Swap(internlm2, flash_attention_trainable=sdpa_attention)],
+            "plain +-1 ulp": lambda: [Swap(k_bwd, _fwd=ulp_fwd, _bwd=ulp_bwd),
+                                      Swap(k_rms, **h.plain_rms)]}
+
+    @staticmethod
+    def _under(swaps, fn):
+        with contextlib.ExitStack() as stack:
+            for swap in swaps:
+                stack.enter_context(swap)
+            return fn()
+
+    def hold(self, tag, what, loss_and_grads, loss_tol, first=None):
+        """``loss_and_grads() -> (loss, {path: grad})`` through the kernels
+        (``first``: its result, already taken), on the plain versions and
+        under each witness. Fails unless the loss is within ``loss_tol``
+        relative, each leaf group's grads within twice the smaller witness
+        and all under REF_GRAD_CAP -> the grads' errors by group."""
+        h = self.h
+        loss_k, grads = first if first is not None else loss_and_grads()
+        h.zero_counts()
+        loss_p, grads_p = self._under(self.plain(), loss_and_grads)
+        if any(h.read_counts()[n] for n in ("attn_train_fwd", "attn_train_dq", "attn_train_dkv")
+               + NORM_KERNELS):
+            fail(f"[{tag}] the plain-version step launched a kernel: {h.read_counts()}")
+        rel = {"kernels": (abs(loss_k - loss_p) / abs(loss_p), grads_rel_l2(grads, grads_p))}
+        del grads
+        for name, swaps in self.witnesses.items():
+            loss_w, grads = self._under(swaps(), loss_and_grads)
+            rel[name] = (abs(loss_w - loss_p) / abs(loss_p), grads_rel_l2(grads, grads_p))
+            del grads
+        del grads_p
+        (loss_rel, rel_k), noise = rel["kernels"], [r for name, (_, r) in rel.items() if name != "kernels"]
+        log(f"[{tag}] {what} against the plain versions, loss {loss_p:.6f}; loss rel err "
+            + ", ".join(f"{name} {r[0]:.3e}" for name, r in rel.items())
+            + f" (tol {loss_tol:g}); grads rel L2 err by leaf group, " + " / ".join(rel) + ": "
+            + ", ".join(f"{k} " + " / ".join(f"{r[1][k]:.3e}" for r in rel.values()) for k in rel_k)
+            + "; max " + " / ".join(f"{max(r[1].values()):.3e}" for r in rel.values()))
+        over = [k for k in rel_k if rel_k[k] > 2 * min(r[k] for r in noise)]
+        if not (loss_rel <= loss_tol and max(rel_k.values()) <= REF_GRAD_CAP and not over):
+            fail(f"[{tag}] {what}: the training step through the kernels disagrees with the plain "
+                 f"versions (loss rel err {loss_rel:.3e}, groups beyond twice the noise {over}, "
+                 f"max {max(rel_k.values()):.3e} against {REF_GRAD_CAP})")
+        self.torch.cuda.empty_cache()
+        return rel_k
+
+
 def train_phases(h, data):
-    """Phases 14-16: e-IT training through the CLI, the reference step, and
-    the training attention kernels at the run's shapes and the ceiling ->
-    the final checkpoint's directory."""
+    """Phases 14-16: e-IT training through the CLI (with its eval chats),
+    the reference step, and the training attention kernels at the run's
+    shapes and the ceiling -> (the final checkpoint's directory, phase 14's
+    trained LLM for phase 24)."""
     import functools
 
     import torch
     import torch.nn.functional as F
 
     from callireader_tpu_torch.cli import train as train_cli
+    from callireader_tpu_torch.kernels import _build
     from callireader_tpu_torch.kernels import attention_bwd as k_bwd
     from callireader_tpu_torch.kernels import rmsnorm as k_rms
     from callireader_tpu_torch.models import internlm2
     from callireader_tpu_torch.runtime import engine as engine_mod
+    from callireader_tpu_torch.runtime import generate as gen_mod
     from callireader_tpu_torch.train import checkpoint as ckpt_mod
     from callireader_tpu_torch.train import data as data_mod
     from callireader_tpu_torch.train import e_it
@@ -625,7 +844,6 @@ def train_phases(h, data):
                                llm.head_dim, seq_len, causal=True, backward=True)
 
     dev = h.dev
-    train_kernels = ("attn_train_fwd", "attn_train_dq", "attn_train_dkv")
 
     # ---------------------------------------------------------- 14. train, e-IT, 2b bf16
     def leaf(tree, path):
@@ -669,16 +887,46 @@ def train_phases(h, data):
 
         return timed
 
+    # the eval chats (--eval-chat-interval 1: one after each update), each
+    # counted apart from the training run; the second is run again uncaptured
+    chats = []
+    engine_chat, generate = engine_mod.CalliReaderEngine.chat, gen_mod.generate_from_embeds
+
+    def counted_chat(engine, *a, **kw):
+        gens = []
+
+        def keep(*ga, **gkw):
+            out = generate(*ga, **gkw)
+            gens.append((out[0][0, :int(out[1][0])].cpu(), out[0].requires_grad))
+            return out
+
+        t0 = time.perf_counter()
+        with CountsApart(h, _build.COUNTS) as apart, CallCount(internlm2, ("prefill",)) as st, \
+                Swap(gen_mod, generate_from_embeds=keep):
+            resp = engine_chat(engine, *a, **kw)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eager = None
+        if chats:  # the second chat: the first chat's graphs replayed on the moved adapters
+            with CountsApart(h, _build.COUNTS), \
+                    Swap(gen_mod, generate_from_embeds=lambda *ga, **gkw: keep(*ga, eager=True, **gkw)):
+                eager = engine_chat(engine, *a, **kw)
+        chats.append(types.SimpleNamespace(resp=resp, eager=eager, gens=gens, wall=wall,
+                                           n_pre=st.n["prefill"], shapes=apart.shapes,
+                                           launches=apart.launches, n_dec=apart.decode_steps))
+        return resp
+
     out_dir = os.path.join(data.work, "out")
     argv = ["--data", data.train, "--image-root", data.work, "--out", out_dir,
             "--preset", TRAIN_PRESET, "--random-init", "--config", "e_it", "--max-iters", "2",
-            "--log-interval", "1"]
+            "--log-interval", "1", "--eval-chat-interval", "1"]
     h.zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with ShapeLog(h.kernels) as shapes, Swap(engine_mod, build_engine=build_and_checksum), \
             Swap(e_it, make_train_step=timed_train_step), \
-            Swap(ckpt_mod, export_reference_format=timed_export):
+            Swap(ckpt_mod, export_reference_format=timed_export), \
+            Swap(engine_mod.CalliReaderEngine, chat=counted_chat):
         train_cli.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -703,6 +951,7 @@ def train_phases(h, data):
     if any(want_dw for *_, want_dw in shapes.calls["rms_norm_bwd"]):
         fail("[train] an RMSNorm backward computed dw for a frozen norm weight")
     h.keep_norms("train", shapes, launches)
+    eval_chat_checks(h, chats, cfg, L)
     lora_b = {n: v for n, v in state.trainable["llm"]["layers"].items() if n.endswith("_lora_b")}
     unmoved = [n for n, b in lora_b.items() if not bool((b.detach().abs().amax(dim=(1, 2)) > 0).all())]
     if len(lora_b) != 7 or unmoved:
@@ -790,83 +1039,18 @@ def train_phases(h, data):
                                     materialize_grads=True)
         return loss.item(), dict(zip(flat, grads))
 
-    def plain_fwd(q, k, v, qs, ks, causal, scale):
-        o, lse = k_bwd.attention_fwd_lse_reference(q, k, v, qs, ks, causal, scale)
-        return o.to(q.dtype), lse
-
-    def plain_bwd(*args):
-        dq, dk, dv = k_bwd.attention_bwd_reference(*args)
-        return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
-
-    ulp_gen, ulp_steps = torch.Generator(device=dev).manual_seed(2), {}
-
-    def one_ulp(t):  # t (bf16) with each non-zero element one ulp up or down
-        if t.shape not in ulp_steps:
-            ulp_steps[t.shape] = (2 * torch.randint(0, 2, t.shape, generator=ulp_gen, device=dev)
-                                  - 1).to(torch.int16)
-        bits = t.contiguous().view(torch.int16)
-        return torch.where(t != 0, bits + ulp_steps[t.shape], bits).view(torch.bfloat16)
-
-    def ulp_fwd(*args):
-        o, lse = plain_fwd(*args)
-        return one_ulp(o), lse
-
-    def ulp_bwd(*args):
-        return tuple(one_ulp(g) for g in plain_bwd(*args))
-
-    def sdpa_attention(q, k, v, q_seg, kv_seg, causal, scale):
-        S = q.shape[2]
-        allowed = (q_seg[:, :, None] == kv_seg[:, None, :]) & torch.ones(
-            (S, S), dtype=torch.bool, device=q.device).tril()
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=allowed[:, None], scale=scale,
-                                              enable_gqa=True)
-
-    def rel_l2(grads, grads_p):
-        groups = {}
-        for path in flat:
-            key = path.split("/")[-1] if "_lora_" in path else path.split("/")[0]
-            d, n = groups.get(key, (0.0, 0.0))
-            g, gp = grads[path].float(), grads_p[path].float()
-            groups[key] = (d + (g - gp).square().sum().item(), n + gp.square().sum().item())
-        return {k: (d / n) ** 0.5 if n else 0.0 for k, (d, n) in sorted(groups.items())}
-
-    witnesses = {"library": [Swap(internlm2, flash_attention_trainable=sdpa_attention)],
-                 "plain +-1 ulp": [Swap(k_bwd, _fwd=ulp_fwd, _bwd=ulp_bwd),
-                                   Swap(k_rms, **h.plain_rms)]}
+    refs = TrainingReferences(h, torch, F, k_bwd, k_rms, internlm2)
     for b in range(len(ref_ds) // 2):
         batch = data_mod.to_device(data_mod.collate([ref_ds[2 * b], ref_ds[2 * b + 1]]), dev)
         if batch["input_ids"].shape[1] > 512:
             fail(f"[reference] rows of {batch['input_ids'].shape[1]} tokens, want <= 512")
-        loss_k, grads = loss_and_grads(batch)
-        h.zero_counts()
-        with Swap(k_bwd, _fwd=plain_fwd, _bwd=plain_bwd), Swap(k_rms, **h.plain_rms):
-            loss_p, grads_p = loss_and_grads(batch)
-        if any(h.read_counts()[n] for n in train_kernels + NORM_KERNELS):
-            fail(f"[reference] the plain-version step launched a training kernel: {h.read_counts()}")
-        rel = {"kernels": (abs(loss_k - loss_p) / abs(loss_p), rel_l2(grads, grads_p))}
-        for name, swaps in witnesses.items():
-            with contextlib.ExitStack() as stack:
-                for swap in swaps:
-                    stack.enter_context(swap)
-                loss_w, grads = loss_and_grads(batch)
-            rel[name] = (abs(loss_w - loss_p) / abs(loss_p), rel_l2(grads, grads_p))
-        del grads, grads_p
-        (loss_rel, rel_k), noise = rel["kernels"], [r for name, (_, r) in rel.items() if name != "kernels"]
-        log(f"[reference] batch {b + 1}: one micro-step on 2 rows of {batch['input_ids'].shape[1]} "
-            f"tokens through the {L}-layer trained model against the plain attention, loss "
-            f"{loss_p:.6f}; "
-            f"loss rel err " + ", ".join(f"{name} {r[0]:.3e}" for name, r in rel.items())
-            + "; grads rel L2 err by leaf group, " + " / ".join(rel) + ": "
-            + ", ".join(f"{k} " + " / ".join(f"{r[1][k]:.3e}" for r in rel.values()) for k in rel_k)
-            + "; max " + " / ".join(f"{max(r[1].values()):.3e}" for r in rel.values()))
-        # the bar: the loss as the serving references; each group's grads
-        # within twice the smaller witness, and all under REF_GRAD_CAP
-        over = [k for k in rel_k if rel_k[k] > 2 * min(r[k] for r in noise)]
-        if not (loss_rel <= 5e-2 and max(rel_k.values()) <= REF_GRAD_CAP and not over):
-            fail(f"[reference] batch {b + 1}: the training step through the kernels disagrees with "
-                 f"the plain-version attention (loss rel err {loss_rel:.3e}, groups beyond twice "
-                 f"the noise {over}, max {max(rel_k.values()):.3e} against {REF_GRAD_CAP})")
-    del engine, built, state, frozen, params, flat, last, batch, fn, lora_b
+        # the loss bar as the serving references'
+        refs.hold("reference", f"batch {b + 1}: one micro-step on 2 rows of "
+                  f"{batch['input_ids'].shape[1]} tokens through the {L}-layer trained model",
+                  functools.partial(loss_and_grads, batch), loss_tol=5e-2)
+    # phase 24 trains on with this LLM: the base and phase 14's final adapters
+    post = types.SimpleNamespace(llm=params["llm"], cfg=cfg, tok=engine.tok, policy=engine.policy)
+    del engine, built, state, frozen, params, flat, last, batch, fn, lora_b, chats
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -889,7 +1073,194 @@ def train_phases(h, data):
     for label, q_shape, k_shape, seg in cases:
         train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F)
         torch.cuda.empty_cache()
-    return os.path.join(out_dir, "final")
+    return os.path.join(out_dir, "final"), post
+
+
+def eval_chat_checks(h, chats, cfg, L):
+    """Phase 14's two eval chats (the train CLI's --eval-chat-interval 1 on
+    the live adapters): each prefilled and decoded through the kernels (the
+    prefill, flash_decode L times a decode step, the RMSNorm forward) and
+    nothing else, a string answer of token ids below the real vocabulary,
+    its tokens not tracked by autograd; the second chat, whose decode
+    replays the first chat's CUDA graphs after the optimizer moved the
+    adapters in place, gives the token ids of the same chat run uncaptured.
+    Then flash_decode against its plain version at the chat's shape."""
+    import torch
+
+    vocab = cfg.llm.real_vocab_size or cfg.llm.vocab_size
+    others = ("vit_attention", "int8_matmul", "int8_matmul_nt", "paged_flash_decode",
+              "attn_train_fwd", "attn_train_dq", "attn_train_dkv")
+    if len(chats) != 2:
+        fail(f"[eval-chat] {len(chats)} eval chats in two updates, want 2")
+    for i, c in enumerate(chats, 1):
+        label = f"eval-chat @{i}"
+        toks, tracked = c.gens[0]
+        lz = c.launches
+        if not isinstance(c.resp, str) or tracked or not ((toks >= 0) & (toks < vocab)).all() \
+                or not 1 <= toks.numel() <= EVAL_CHAT_TOKENS:
+            fail(f"[{label}] response {c.resp!r}: {toks.numel()} token ids (vocabulary {vocab}), "
+                 f"tracked by autograd {tracked}")
+        if not lz["flash_attention"] or not c.n_dec or lz["flash_decode"] != L * c.n_dec \
+                or any(lz[n] for n in others):
+            fail(f"[{label}] launches {lz} for {c.n_pre} prefill(s) and {c.n_dec} decode steps")
+        h.check_norms(label, lz, L, c.n_pre + c.n_dec)
+        log(f"[{label}] {c.wall * 1e3:.1f} ms (host clock, a device sync at the end; the first "
+            f"captures its decode graphs), {c.n_pre} prefill, {c.n_dec} decode steps, "
+            f"{toks.numel()} new tokens, response {c.resp[:30]!r}; launches {lz}")
+    second = chats[1]
+    if len(second.gens) != 2 or not torch.equal(second.gens[0][0], second.gens[1][0]) \
+            or second.eager != second.resp:
+        fail("[eval-chat @2] the replayed decode's token ids differ from the same chat run "
+             "uncaptured")
+    log(f"[eval-chat @2] token ids of the replayed graphs = the same chat uncaptured "
+        f"({second.gens[0][0].numel()} tokens)")
+    h.keep_norms("eval-chat", second.shapes, second.launches)
+    h.flash_decode_row("eval-chat", second.shapes, second.launches)
+
+
+def post_training_phase(h, post, work):
+    """Phase 24: post-training at full width on phase 14's LLM (the 2b: the
+    8b's widths, 8 layers), one step each of SFT on packed rows, ORPO and the
+    reward model on its final adapters and DPO from fresh ones, through the
+    train modules' own steps, each counted, timed and held against the same
+    step on the plain versions of the training and RMSNorm kernels; then the
+    training kernels at the SFT and DPO steps' shapes and segment ids."""
+    import torch
+    import torch.nn.functional as F
+
+    from callireader_tpu_torch.kernels import attention_bwd as k_bwd
+    from callireader_tpu_torch.kernels import rmsnorm as k_rms
+    from callireader_tpu_torch.models import internlm2
+    from callireader_tpu_torch.train import data as data_mod
+    from callireader_tpu_torch.train import dpo, e_it, lora, reward, sft_data
+
+    dev, cfg, tok, policy = h.dev, post.cfg, post.tok, post.policy
+    L = cfg.llm.num_hidden_layers
+    rng = np.random.RandomState(24)
+
+    def text(n):
+        return "".join(rng.choice(list(TRAIN_TEXT), n))
+
+    # the data: a JSONL corpus packed into 2048-token rows; two preference pairs
+    t0 = time.time()
+    corpus = os.path.join(work, "sft.jsonl")
+    with open(corpus, "w") as f:
+        f.writelines(json.dumps({"content": text(n)}, ensure_ascii=False) + "\n"
+                     for n in POST_SFT_DOCS)
+    docs = sft_data.JsonlTextDataset(corpus)
+    packed = sft_data.PackedTextDataset(docs, tok, packed_length=POST_PACKED)
+    sft_np = next(sft_data.packed_loader(packed, 2))
+    n_segs = [len(set(r[r >= 0].tolist())) for r in sft_np["segment_ids"]]
+    pairs = [{"prompt": QUESTION + text(p), "chosen": text(c), "rejected": text(r)}
+             for p, c, r in POST_PAIRS]
+    pref_np = dpo.preference_collate(pairs, tok)
+    prep_s = time.time() - t0
+    doc_tokens = [len(tok.encode(docs[i])) for i in range(len(docs))]
+    if sft_np["input_ids"].shape != (2, POST_PACKED) or min(n_segs) < 3 \
+            or pref_np["input_ids"].shape != (4, 2048):
+        fail(f"[post] SFT batch {sft_np['input_ids'].shape} with {n_segs} segments a row, "
+             f"preference batch {pref_np['input_ids'].shape}")
+    log(f"[post] data in {prep_s:.3f} s: {len(docs)} documents of {min(doc_tokens)}-"
+        f"{max(doc_tokens)} tokens packed into {len(packed)} rows of {POST_PACKED}; the SFT "
+        f"batch's rows hold {n_segs} segments, "
+        f"{[int((r >= 0).sum()) for r in sft_np['segment_ids']]} real tokens; preference rows "
+        f"of {[int((r >= 0).sum()) for r in pref_np['segment_ids']]} tokens in the 2048 bucket")
+    sft_batch = data_mod.to_device(sft_np, dev)
+    pref = data_mod.to_device(pref_np, dev)
+
+    llm = post.llm
+    # DPO from fresh adapters (b = 0), as a DPO run starts: the policy is the
+    # reference, so the loss is log 2 in every route and the grads carry no
+    # noise of a log-likelihood difference (the a leaves' grads are zero)
+    fresh = lora.add_lora(dpo._strip_lora(llm), cfg.llm, torch.Generator(device=dev).manual_seed(5),
+                          rank=llm["layers"]["wq_lora_a"].shape[-1])
+    r_cfg = dataclasses.replace(cfg, llm=reward.long_context_config(
+        cfg.llm, 2 * cfg.llm.max_position_embeddings))
+    if r_cfg.llm.rope_scaling_type != "linear" or r_cfg.llm.rope_scaling_factor != 2.0:
+        fail(f"[post] long_context_config gave {r_cfg.llm.rope_scaling_type} x "
+             f"{r_cfg.llm.rope_scaling_factor}")
+    # first update at lr 0 (the warm-up's start), so every step reads phase 14's adapters
+    tc = e_it.TrainConfig(learning_rate=1e-5, total_steps=10, warmup_ratio=0.0)
+    dpo_cfg, orpo_cfg = dpo.DPOConfig(), dpo.DPOConfig(loss_type="orpo")
+    # the norms under remat; no backward for the first layer's attention
+    # norm, whose input (the frozen embedding table's rows) needs no gradient
+    norms_remat = {"rms_norm_fwd": 4 * L + 1, "rms_norm_bwd": 2 * L}
+    train3 = {"attn_train_dq": L, "attn_train_dkv": L}
+    steps = {
+        # name: (params tree, batch, loss(params, batch), make the step(tx), launches)
+        "sft": ({"llm": llm}, sft_batch,
+                lambda p, b: e_it.eit_loss(p, cfg, b, policy=policy, remat=True),
+                lambda tx: e_it.make_train_step(cfg, tc, tx, policy=policy),
+                {"attn_train_fwd": 2 * L, **train3, **norms_remat}),
+        # the policy's forward (and its recompute), the reference's under no_grad
+        "dpo": ({"llm": fresh}, pref,
+                lambda p, b: dpo.dpo_loss(p, cfg, b, dpo_cfg, policy=policy, remat=True),
+                lambda tx: dpo.make_dpo_train_step(cfg, dpo_cfg, tx, policy=policy),
+                {"attn_train_fwd": 3 * L, **train3, "rms_norm_fwd": 6 * L + 2,
+                 "rms_norm_bwd": 2 * L}),
+        "orpo": ({"llm": llm}, pref,
+                 lambda p, b: dpo.dpo_loss(p, cfg, b, orpo_cfg, policy=policy, remat=True),
+                 lambda tx: dpo.make_dpo_train_step(cfg, orpo_cfg, tx, policy=policy),
+                 {"attn_train_fwd": 2 * L, **train3, **norms_remat}),
+        "reward": ({"llm": reward.add_value_head(llm, cfg.llm,
+                                                 torch.Generator(device=dev).manual_seed(24))},
+                   pref, lambda p, b: reward.reward_loss(p, r_cfg, b, policy=policy, remat=True),
+                   lambda tx: reward.make_reward_train_step(r_cfg, tx, policy=policy),
+                   {"attn_train_fwd": 2 * L, **train3, **norms_remat}),
+    }
+    refs = TrainingReferences(h, torch, F, k_bwd, k_rms, internlm2)
+    kept = {}
+    for name, (params, batch, loss_fn, make_step, want) in steps.items():
+        state, frozen, tx = e_it.create_train_state(params, tc)
+        step = make_step(tx)
+        flat = e_it.flatten(state.trainable)
+        h.zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with ShapeLog(h.kernels) as shapes:
+            t0 = time.perf_counter()
+            state, metrics = step(state, frozen, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        launches = h.read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not np.isfinite(loss) or any(launches[n] != want.get(n, 0) for n in launches):
+            fail(f"[post {name}] loss {loss}; launches {launches}, want {want} and 0 elsewhere")
+        if name == "dpo" and abs(loss - float(np.log(2.0))) > 1e-6:
+            fail(f"[post dpo] the fresh adapters' DPO loss is {loss!r}, not log 2 within 1e-6")
+        kept[name] = (shapes, launches)
+        merged = e_it.merge_params(state.trainable, frozen)
+
+        def loss_and_grads():
+            loss_t, _ = loss_fn(merged, batch)
+            grads = torch.autograd.grad(loss_t, list(flat.values()), allow_unused=True,
+                                        materialize_grads=True)
+            return loss_t.item(), dict(zip(flat, grads))
+
+        # the same loss and grads through the kernels, under the profiler
+        first, kern = profiled(loss_and_grads, torch)
+        dev_ms = sum(us for us, _ in kern.values()) / 1e3
+        attn_ms = sum(us for n, (us, _) in kern.items()
+                      if "flash_fwd_kernel" in n or "dq_kernel" in n or "dkv_kernel" in n) / 1e3
+        log(f"[post {name}] one step ({', '.join(f'{k} {float(v):.5g}' for k, v in metrics.items())})"
+            f" in {step_ms:.1f} ms (host clock, a device sync at each end), peak memory "
+            f"{peak:.2f} GiB; launches {launches}; its loss and grads again under the profiler: "
+            f"{dev_ms:.1f} ms of device kernels, {attn_ms:.1f} ms of them the training attention")
+        refs.hold(f"post {name}", "one step's loss and grads", loss_and_grads, loss_tol=1e-3,
+                  first=first)
+        del state, frozen, tx, step, flat, merged, metrics, first
+        torch.cuda.empty_cache()
+
+    del fresh, steps
+
+    # the training kernels at the SFT (packed) and DPO steps' shapes and segment ids
+    for name, label in (("sft", "SFT, packed rows"), ("dpo", "DPO, [chosen; rejected]")):
+        shapes, launches = kept[name]
+        q_shape, k_shape, _causal, seg = shapes.calls["attn_train_fwd"][0]
+        train_attention_rows(h, f"{label} B={q_shape[0]} S={q_shape[2]}", q_shape, k_shape, seg,
+                             launches, k_bwd, F)
+        torch.cuda.empty_cache()
 
 
 def export_readback(out_dir, state, frozen, cfg, export_s):
@@ -1031,6 +1402,7 @@ def cli_phases(h, final_dir, work):
     from callireader_tpu_torch.cli import common as cli_common
     from callireader_tpu_torch.cli import inference as inf_cli
     from callireader_tpu_torch.models import internlm2
+    from callireader_tpu_torch.runtime import agent as agent_mod
     from callireader_tpu_torch.runtime import generate as gen_mod
     from callireader_tpu_torch.runtime import quantize as quant_mod
     from callireader_tpu_torch.runtime import weights
@@ -1217,6 +1589,52 @@ def cli_phases(h, final_dir, work):
         fail("[stream] stream_generate did not stream a whole turn")
     log(f"[stream] stream_generate: {len(out.getvalue())} characters streamed")
 
+    # ---------------------------------------------------------- 18. the agent: chat --agent
+    # the CLI in-process with its arguments and a scripted stdin (a question,
+    # then EXIT), on this engine (the same preset and int8 LLM, phase 17's
+    # adapter merged) in place of its own build
+    turns, answers = [], []
+    stream, agent_chat = chat_cli.stream_generate, agent_mod.ReActAgent.chat
+
+    def counted_turn(*a, **kw):
+        turns.append(kw.get("stop_words"))
+        return stream(*a, **kw)
+
+    def kept_answer(agent, question):
+        answers.append(agent_chat(agent, question))
+        return answers[-1]
+
+    argv = ["--agent", "--preset", TRAIN_PRESET, "--random-init", "--quant", "int8",
+            "--max-new-tokens", str(AGENT_TOKENS)]
+    out = io.StringIO()
+    h.zero_counts()
+    t0 = time.time()
+    with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill",)) as st, \
+            Swap(cli_common, build_engine=lambda **kw: engine), \
+            Swap(chat_cli, stream_generate=counted_turn), \
+            Swap(agent_mod.ReActAgent, chat=kept_answer), \
+            Swap(sys, stdin=io.StringIO(AGENT_STDIN)), contextlib.redirect_stdout(out):
+        chat_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = h.read_counts()
+    n_pre, n_dec = st.n["prefill"], h.decode_steps()
+    answer = answers[0] if len(answers) == 1 else None
+    missing = [n for n in ("flash_attention", "flash_decode", "int8_matmul", "int8_matmul_nt",
+                           "rms_norm_fwd") if not launches[n]]
+    if not turns or any(w != ("Response:",) for w in turns) or n_pre != len(turns) or missing \
+            or launches["flash_decode"] != L * n_dec or launches["int8_matmul"] != 4 * L * n_dec \
+            or launches["int8_matmul_nt"] != n_pre + n_dec or not isinstance(answer, str) \
+            or answer + "\n" not in out.getvalue():
+        fail(f"[agent] {len(turns)} turns (stop words {turns}), {n_pre} prefills, {n_dec} decode "
+             f"steps; launches {launches}; never launched {missing}; answers {answers}")
+    h.check_norms("agent", launches, L, n_pre + n_dec)
+    log(f"[agent] chat --agent: {len(turns)} stream_generate turn(s) stopping at 'Response:', "
+        f"{n_dec} decode steps in {wall:.3f} s ({wall / max(n_dec, 1) * 1e3:.3f} ms a step, "
+        f"prefills included); answer {answer[:40]!r}; launches {launches}")
+    h.keep_norms("agent", shapes, launches)
+    h.flash_decode_row("agent", shapes, launches)
+
 
 def eval_tasks():
     """Phase 23's synthetic CalliBench tasks in memory, in the layout the
@@ -1268,6 +1686,24 @@ def eval_tasks():
     return tasks, mm_rows, ref_samples
 
 
+class TileMemo:
+    """preprocess.load_image keeping each page's tiles (keyed by its bytes
+    and the arguments): a page tiled again takes a copy of its first tiling
+    (the host tiling is deterministic numpy, ~1.1 s a 788x2000 page)."""
+
+    def __init__(self, load_image):
+        self.load_image, self.cache, self.hits = load_image, {}, 0
+
+    def __call__(self, img, *a, **kw):
+        img = np.ascontiguousarray(img)
+        key = (img.shape, img.dtype.str, hashlib.sha1(img).hexdigest(), a, tuple(sorted(kw.items())))
+        if key in self.cache:
+            self.hits += 1
+        else:
+            self.cache[key] = self.load_image(img, *a, **kw)
+        return self.cache[key].copy()
+
+
 def evaluate_phase(h):
     """Phase 23: the evaluation harness. cli.evaluate.main runs full_page at
     its defaults (RGB chars resized on the host, host tiling, batch 8) on
@@ -1282,6 +1718,7 @@ def evaluate_phase(h):
     from callireader_tpu_torch.evalx.metrics import t2s
     from callireader_tpu_torch.models import internlm2
     from callireader_tpu_torch.runtime.engine import CalliReaderEngine
+    from callireader_tpu_torch.vision import preprocess
 
     tasks, mm_rows, ref_samples = eval_tasks()
     work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
@@ -1334,6 +1771,11 @@ def evaluate_phase(h):
 
     cwd = os.getcwd()
     os.chdir(work)
+    # a page the phase tiles again (batch_chat_ocr after the full_page run, a
+    # two-turn task's second turn) takes the tiles of its first tiling
+    tiles = TileMemo(preprocess.load_image)
+    memo = Swap(preprocess, load_image=tiles)
+    memo.__enter__()
     try:
         argv = ["--type", "full_page", "--splits", "easy", "--data", EVAL_DATA, "--preset",
                 "callireader-2b", "--random-init", "--quant", "int8", "--save_name", "eval"]
@@ -1395,7 +1837,8 @@ def evaluate_phase(h):
             fail("[evaluate] the pipelined responses differ from batch_chat_ocr on the same 8 pages")
         log(f"[evaluate] pipelined responses = batch_chat_ocr on the same 8 pages; pages/s: "
             f"pipelined {EVAL_PAGES / seconds['full_page']:.4f} ({EVAL_PAGES} pages, 2 batches), "
-            f"batch_chat_ocr {8 / seconds['batch_chat_ocr']:.4f} (8 pages, one batch, after)")
+            f"batch_chat_ocr {8 / seconds['batch_chat_ocr']:.4f} (8 pages, one batch, after, on "
+            f"the full_page run's host tiles: {tiles.hits} pages not tiled again)")
 
         # ---------------------------------------------------------- the other tasks, same engine
         kw = dict(run["kw"])
@@ -1499,7 +1942,10 @@ def evaluate_phase(h):
             + "; ".join(agree(a, b) for a, b in (("RGB host", "luma device"), ("RGB host", "RGB device"),
                                                   ("RGB host", "luma host"),
                                                   ("luma host", "luma device"))))
+        log(f"[evaluate] host tiling: {len(tiles.cache)} pages tiled, {tiles.hits} tilings taken "
+            f"from the first")
     finally:
+        memo.__exit__()
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1532,6 +1978,27 @@ def tree_diff(got, want, cast_ok=()):
     return bad, len(fw)
 
 
+class SideFilesRead:
+    """``torch`` for train/checkpoint.py's export, whose ``save`` writes only
+    the side files a boot reads (converted to host fp32 there, as the export
+    converts them) and skips the others, which nothing of the boot opens."""
+
+    def __init__(self, torch, host32, names):
+        self._torch, self._host32, self._names = torch, host32, names
+        self.written, self.skipped = [], []
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def save(self, obj, path, *a, **kw):
+        name = os.path.basename(path)
+        if name not in self._names:
+            self.skipped.append(name)
+            return None
+        self.written.append(name)
+        return self._torch.save(self._host32(obj), path, *a, **kw)
+
+
 def boot_phase(h, run_main_path, path_2b):
     """Phase 22: the reference-checkpoint boot at callireader-2b: the engine
     drawn without trained assets, exported in the reference layout, booted
@@ -1562,10 +2029,14 @@ def boot_phase(h, run_main_path, path_2b):
             return out
 
         t0 = time.time()
-        with Swap(ckpt_mod, export_reference_format=timed_shards):
+        side = SideFilesRead(torch, ckpt_mod._host32, BOOT_SIDE_READ)
+        with Swap(ckpt_mod, export_reference_format=timed_shards, torch=side,
+                  _host32=lambda tree: tree):
             ckpt_mod.export_full_reference_checkpoint(mem.params, mem.cfg, ckpt,
                                                       max_shard_bytes=BOOT_SHARD)
         export_s = time.time() - t0
+        if sorted(side.written) != sorted(BOOT_SIDE_READ):
+            fail(f"[boot] side files written {side.written}, want {BOOT_SIDE_READ}")
         t0 = time.time()
         os.sync()
         sync_s = time.time() - t0
@@ -1584,7 +2055,8 @@ def boot_phase(h, run_main_path, path_2b):
             f"assets): {sum(files.values()) / 1e9:.3f} GB in {len(files)} files "
             f"({shard_bytes / 1e9:.3f} GB of fp32 in {len(shards)} shards of at most "
             f"{BOOT_SHARD / 2**30:.0f} GiB, the tree's {floats} floats and the headers; "
-            f"{(sum(files.values()) - shard_bytes) / 1e9:.3f} GB of side files), "
+            f"{(sum(files.values()) - shard_bytes) / 1e9:.3f} GB of side files: the ones the boot "
+            f"reads, {side.skipped} not written), "
             f"{free / 1e9:.1f} GB free before; {export_s:.3f} s to return "
             f"({sum(files.values()) / export_s / 1e9:.3f} GB/s: the shards {shards_s[0]:.3f} s, "
             f"{shard_bytes / shards_s[0] / 1e9:.3f} GB/s; the side files' torch.save "
@@ -3100,7 +3572,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"int8 engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated")
-        final_dir = train_phases(h, data)
+        final_dir, post = train_phases(h, data)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ------------------------------------------------------ 24. post-training
+        phase("24 post-train")
+        post_training_phase(h, post, work)
+        del post
         gc.collect()
         torch.cuda.empty_cache()
         phase("17-18 CLI")

@@ -19,7 +19,8 @@ Card (marked ``cuda``): each kernel against its plain version on the same
 bf16 inputs (lengths around the 64-row tiles, right padding, packed
 segments), elementwise within the output's bf16 rounding plus the kernel's
 ATOL; lse (fp32 output) within 1e-4; rows that attend to nothing; rows of
-many short segments (tiles skipped); equal bits run to run; HGMMA and UTMALDG
+many short segments (tiles skipped); packed SFT rows at B=2 S=2048 with the
+8b's heads; equal bits run to run; HGMMA and UTMALDG
 in the three kernels' SASS; launch counts of the LLM forward and backward with
 and without remat.
 """
@@ -377,6 +378,40 @@ def test_cuda_trainable_kernels_match_plain(cuda, causal, pads, S):
     else:
         seg = torch.from_numpy(_right_pad_segments(B, S, pads)).to(cuda) if any(pads) else None
     got, want = _kernels_vs_plain(q, k, v, do, seg, causal)
+    assert tolerance.excess_error(got[0], want[0]) <= tolerance.ATOL["attn_train_fwd"]
+    assert tolerance.max_abs_error(got[1], want[1]) <= 1e-4
+    assert tolerance.excess_error(got[2], want[2]) <= tolerance.ATOL["attn_train_dq"]
+    for i in (3, 4):
+        assert tolerance.excess_error(got[i], want[i]) <= tolerance.ATOL["attn_train_dkv"]
+
+
+def _sft_rows(S):
+    """Two rows packed as train/sft_data.PackedTextDataset packs documents:
+    seven and five documents of uneven length (1 to 1000 tokens), whose
+    edges fall inside 64-key tiles, then a -1 padded tail."""
+    seg = np.full((2, S), -1, np.int32)
+    for b, lengths in enumerate(((150, 1, 333, 64, 700, 511, 200), (1000, 63, 65, 129, 700))):
+        edges = np.cumsum((0,) + lengths)
+        for i in range(len(lengths)):
+            seg[b, edges[i]:edges[i + 1]] = i
+    return seg
+
+
+@pytest.mark.cuda
+def test_cuda_trainable_kernels_on_packed_sft_rows(cuda):
+    """The three training kernels at the 8b's heads (Hq 32, Hkv 8) on packed
+    SFT rows at the zoo's 2k packing, B=2 S=2048: a tile that straddles two
+    documents is masked (not skipped, not taken whole), a tile of one
+    document that no query of the block shares is skipped."""
+    S = 2048
+    seg_np = _sft_rows(S)
+    tiles = seg_np.reshape(2, S // 64, 64)
+    assert sum(len(set(t.tolist())) > 1 for row in tiles for t in row) >= 8  # straddling tiles
+    rng = np.random.default_rng(S)
+    B, Hkv, G, D = 2, 8, 4, 128
+    q, do = _bf16(rng, (B, Hkv * G, S, D), cuda), _bf16(rng, (B, Hkv * G, S, D), cuda)
+    k, v = _bf16(rng, (B, Hkv, S, D), cuda), _bf16(rng, (B, Hkv, S, D), cuda)
+    got, want = _kernels_vs_plain(q, k, v, do, torch.from_numpy(seg_np).to(cuda), True)
     assert tolerance.excess_error(got[0], want[0]) <= tolerance.ATOL["attn_train_fwd"]
     assert tolerance.max_abs_error(got[1], want[1]) <= 1e-4
     assert tolerance.excess_error(got[2], want[2]) <= tolerance.ATOL["attn_train_dq"]

@@ -292,8 +292,14 @@ def test_stream_generate_matches_jax(engines, monkeypatch):
         printed[name] = (buf.getvalue(), r1, r2, h)
         monkeypatch.undo()
     assert printed["port"] == printed["jax"]
-    with pytest.raises(SystemExit):
-        tchat.main(["--agent", "--random-init", "--device", "cpu"])
+    # --agent runs (tests/test_torch_agent_modes.py holds it against JAX's)
+    monkeypatch.setattr(tcommon, "build_engine", lambda **kw: teng)
+    monkeypatch.setattr("sys.stdin", io.StringIO("1+1等于几？\nEXIT\n"))
+    buf = io.StringIO()
+    monkeypatch.setattr("sys.stdout", buf)
+    tchat.main(["--agent", "--random-init", "--device", "cpu", "--max-new-tokens", "2"])
+    monkeypatch.undo()
+    assert buf.getvalue().count("assistant> ") == 1
 
 
 def test_get_embeddings_matches_jax(engines, tmp_path, monkeypatch):
@@ -388,6 +394,8 @@ def test_apis_and_mode_table(tmp_path, capsys):
     with pytest.raises(FileNotFoundError):
         apis.evaluate_full_page(eng, str(tmp_path / "missing.parquet"))
     assert tmain.main(["list-cfg"]) == 0 and "e_it" in capsys.readouterr().out
-    assert tmain.main(["preprocess"]) == 2 and "not ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:  # the mode runs; its subcommand is required
+        tmain.main(["preprocess"])
+    assert e.value.code == 2 and "arxiv" in capsys.readouterr().err
     assert tmain.main(["nonsense"]) == 1
     assert tmain.main([]) == 0

@@ -28,7 +28,7 @@ print(json.dumps({
     "banned": sorted(m for m in ("PIL", "tokenizers", "transformers", "google.protobuf",
                                  "sentencepiece", "cv2", "sklearn", "optax", "safetensors",
                                  "orbax", "pandas", "pyarrow", "opencc", "sentence_transformers",
-                                 "openai") if m in sys.modules),
+                                 "openai", "sympy") if m in sys.modules),
 }))
 """
 
@@ -49,12 +49,18 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "cli.train", "kernels.rmsnorm", "cli.common", "cli.inference", "cli.chat",
                  "cli.get_embeddings", "apis", "__main__", "bench", "runtime.safetensors_io",
                  "runtime.detector_weights", "cli.convert", "evalx.metrics", "evalx.callibench",
-                 "evalx.mmbench", "evalx.refcoco", "evalx.judges", "cli.evaluate", "cli.judge"):
+                 "evalx.mmbench", "evalx.refcoco", "evalx.judges", "cli.evaluate", "cli.judge",
+                 "runtime.plugins", "runtime.agent", "cli.preprocess", "configs.zoo",
+                 "train.templates", "train.sft_data", "train.dpo", "train.reward",
+                 "configs.dpo_internlm2_7b", "configs.llava_finetune", "configs.llava_pretrain",
+                 "configs.long_context_sp4", "configs.orderformer_train", "configs.orpo_internlm2",
+                 "configs.reward_internlm2", "configs.sft_internlm2_7b"):
         assert f"callireader_tpu_torch.{name}" in res["modules"]
     assert res["jax"] == []
     assert res["jax_package"] == []
     # PIL among them: the servers import it per request only, the evaluation
-    # harness's readers (pandas, PIL) only where they read a file
+    # harness's readers (pandas, PIL) only where they read a file; sympy: the
+    # solve plugin is pure Python
     assert res["banned"] == []
 
 

@@ -427,8 +427,9 @@ def test_recipe_and_throughput_match_jax():
     from callireader_tpu.configs import get_config as j_get_recipe
 
     assert t_get_recipe("e_it") == j_get_recipe("e_it")
+    assert t_get_recipe("dpo_internlm2_7b") == j_get_recipe("dpo_internlm2_7b")
     with pytest.raises(ValueError):
-        t_get_recipe("dpo_internlm2_7b")  # not ported
+        t_get_recipe("no_such_recipe")
     llm = JCFG.llm
     args = (llm.hidden_size, llm.intermediate_size, llm.num_hidden_layers, llm.vocab_size,
             llm.num_attention_heads, llm.num_key_value_heads, llm.head_dim, 2048)
@@ -501,8 +502,18 @@ def test_train_cli_qlora_cpu(tmp_path):
     assert lora and all(v.dtype == torch.bfloat16 for v in lora)
 
 
+def test_train_cli_eval_chat(tmp_path, capsys):
+    """--eval-chat-interval 1: a sample answer after each update
+    (tests/test_torch_agent_modes.py holds the answers against JAX's)."""
+    _cli_data(tmp_path)
+    capsys.readouterr()
+    _cli(tmp_path, tmp_path / "c", "--max-iters", "2", "--grad-accum", "1",
+         "--eval-chat-interval", "1")
+    lines = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("[eval-chat")]
+    assert [ln.split("]")[0] for ln in lines] == ["[eval-chat @1", "[eval-chat @2"]
+
+
 @pytest.mark.parametrize("extra", [
-    ("--eval-chat-interval", "1", "--random-init"),  # single-image chat is not ported
     (),  # without a checkpoint, --random-init is required
 ])
 def test_train_cli_refuses_what_is_not_ported(extra):
