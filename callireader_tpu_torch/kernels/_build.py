@@ -4,7 +4,9 @@ Each source under ``callireader_tpu_torch/csrc/*.cu`` compiles on its own
 into ``callireader_tpu_torch/_build/<name>.so`` for ``sm_90a`` with a plain C
 interface, at first use (or all at once through ``build_all``, which starts
 one nvcc per source in parallel). Nothing builds at import time: the CPU
-tests import every module of the port.
+tests import every module of the port. A C++ source (``csrc/<name>.cpp``,
+the host char-prep library) builds the same way with the host's g++ into
+``_build/lib<name>.so``; it needs no CUDA and builds on the CPU too.
 
 A ``CudaKernel`` owns one C entry point. Calling it launches on the current
 CUDA stream, raises if the C function returns a non-zero
@@ -38,6 +40,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -51,20 +55,37 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def _is_host(name: str) -> bool:
+    return (CSRC_DIR / f"{name}.cpp").exists()
+
+
+def so_path(name: str) -> Path:
+    return BUILD_DIR / (f"lib{name}.so" if _is_host(name) else f"{name}.so")
+
+
 def _stale(name: str) -> bool:
-    so = BUILD_DIR / f"{name}.so"
+    so = so_path(name)
     if not so.exists():
         return True
-    deps = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    deps = ([CSRC_DIR / f"{name}.cpp"] if _is_host(name)
+            else [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")])
     return any(d.stat().st_mtime > so.stat().st_mtime for d in deps)
+
+
+def _compiler(name: str, out: str) -> List[str]:
+    if _is_host(name):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found: {name}.cpp builds with the host's C++ compiler")
+        return [gxx, *GXX_FLAGS, str(CSRC_DIR / f"{name}.cpp"), "-o", out]
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", out, str(CSRC_DIR / f"{name}.cu")]
 
 
 def _start(name: str) -> subprocess.Popen:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=f"{name}.", suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
-           str(CSRC_DIR / f"{name}.cu")]
+    cmd = _compiler(name, tmp)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.tmp_path = tmp  # type: ignore[attr-defined]
     proc.kernel_name = name  # type: ignore[attr-defined]
@@ -72,9 +93,9 @@ def _start(name: str) -> subprocess.Popen:
 
 
 def build_all(names: Iterable[str], *, force: bool = False) -> Dict[str, str]:
-    """Compile the named sources in parallel (one nvcc each); returns the
-    compiler output per source (register and shared-memory use from
-    ``-Xptxas -v``). Raises if any build fails."""
+    """Compile the named sources in parallel (one compiler each); returns
+    the compiler output per source (register and shared-memory use from
+    nvcc's ``-Xptxas -v``). Raises with the output if any build fails."""
     procs: List[subprocess.Popen] = [
         _start(n) for n in names if force or _stale(n)
     ]
@@ -88,7 +109,7 @@ def build_all(names: Iterable[str], *, force: bool = False) -> Dict[str, str]:
                 failed.append(p.kernel_name)
                 os.unlink(p.tmp_path)
             else:
-                os.replace(p.tmp_path, BUILD_DIR / f"{p.kernel_name}.so")
+                os.replace(p.tmp_path, so_path(p.kernel_name))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -96,7 +117,7 @@ def build_all(names: Iterable[str], *, force: bool = False) -> Dict[str, str]:
                 p.wait()
     if failed:
         raise RuntimeError(
-            "nvcc failed for " + ", ".join(failed) + "\n"
+            "the build failed for " + ", ".join(failed) + "\n"
             + "\n".join(logs[n] for n in failed)
         )
     return logs
@@ -153,7 +174,7 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         if _stale(name):
             build_all([name])
-        lib = ctypes.CDLL(str(BUILD_DIR / f"{name}.so"))
+        lib = ctypes.CDLL(str(so_path(name)))
         _LIBS[name] = lib
     return lib
 

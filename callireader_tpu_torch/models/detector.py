@@ -6,11 +6,14 @@ TF32 off (core.dtypes.exact_fp32). Convolutions go to ``F.conv2d`` (the JAX
 package left them to XLA, outside Pallas); weights keep the JAX HWIO layout
 and JAX's "SAME" padding, which is asymmetric for stride 2 (0 before, 1
 after), so it is padded explicitly. Letterboxing is the PIL-compatible
-bilinear of vision/resample.py; NMS runs on the host.
+bilinear of vision/resample.py; NMS runs on the host. ``init_params``,
+``forward_raw`` (the per-scale head outputs that train/detector_train.py
+trains) and ``save_npz`` (fp16 storage) serve training.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -18,10 +21,88 @@ import torch
 import torch.nn.functional as F
 
 from callireader_tpu_torch.core.config import DetectorConfig
-from callireader_tpu_torch.core.dtypes import exact_fp32
+from callireader_tpu_torch.core.dtypes import exact_fp32, require_device
 from callireader_tpu_torch.vision import resample
 
 Params = Dict[str, Any]
+
+
+def _ch(base: int, w: float, max_ch: int) -> int:
+    return min(int(round(base * w / 8) * 8) if base * w % 8 else int(base * w), max_ch)
+
+
+def _depth(n: int, d: float) -> int:
+    return max(1, round(n * d))
+
+
+def channels(cfg: DetectorConfig) -> List[int]:
+    w, mc = cfg.width_mult, cfg.max_channels
+    return [
+        max(8, int(64 * w)), max(8, int(128 * w)), max(8, int(256 * w)),
+        max(8, int(512 * w)), max(8, int(min(1024, mc) * w)),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# param init (the JAX tree: HWIO convs, post-BN-fold biases)
+# ---------------------------------------------------------------------------
+
+
+def _conv_init(generator: torch.Generator, cin: int, cout: int, k: int, device) -> torch.Tensor:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = cin * k * k."""
+    bound = 1.0 / math.sqrt(cin * k * k)
+    x = torch.rand((k, k, cin, cout), generator=generator, dtype=torch.float32, device=device)
+    return (2 * x - 1) * bound
+
+
+def _conv_block(generator, cin, cout, k, device):
+    return {"w": _conv_init(generator, cin, cout, k, device),
+            "b": torch.zeros((cout,), dtype=torch.float32, device=device)}
+
+
+def _c2f(generator, cin, cout, n, device):
+    c = cout // 2
+    return {
+        "cv1": _conv_block(generator, cin, cout, 1, device),
+        "cv2": _conv_block(generator, (2 + n) * c, cout, 1, device),
+        "blocks": [{"cv1": _conv_block(generator, c, c, 3, device),
+                    "cv2": _conv_block(generator, c, c, 3, device)} for _ in range(n)],
+    }
+
+
+def init_params(cfg: DetectorConfig, generator: torch.Generator, device="cuda") -> Params:
+    """Seeded fp32 detector tree, the JAX ``init_params`` layout."""
+    dev = require_device(device)
+    ch = channels(cfg)
+    n3, n6 = _depth(3, cfg.depth_mult), _depth(6, cfg.depth_mult)
+    conv = lambda cin, cout, k: _conv_block(generator, cin, cout, k, dev)  # noqa: E731
+    c2f = lambda cin, cout, n: _c2f(generator, cin, cout, n, dev)  # noqa: E731
+
+    def head_branch(cin, mid, cout):
+        return {"cv1": conv(cin, mid, 3), "cv2": conv(mid, mid, 3), "out": conv(mid, cout, 1)}
+
+    box_c = max(16, ch[2] // 4, 4 * cfg.reg_max)
+    cls_c = max(ch[2], min(cfg.num_classes, 100))
+    return {
+        "backbone": {
+            "stem": conv(3, ch[0], 3), "down1": conv(ch[0], ch[1], 3),
+            "c2f1": c2f(ch[1], ch[1], n3), "down2": conv(ch[1], ch[2], 3),
+            "c2f2": c2f(ch[2], ch[2], n6), "down3": conv(ch[2], ch[3], 3),
+            "c2f3": c2f(ch[3], ch[3], n6), "down4": conv(ch[3], ch[4], 3),
+            "c2f4": c2f(ch[4], ch[4], n3),
+            "sppf": {"cv1": conv(ch[4], ch[4] // 2, 1), "cv2": conv(ch[4] // 2 * 4, ch[4], 1)},
+        },
+        "neck": {
+            "c2f_p4": c2f(ch[4] + ch[3], ch[3], n3), "c2f_p3": c2f(ch[3] + ch[2], ch[2], n3),
+            "down_p3": conv(ch[2], ch[2], 3), "c2f_n4": c2f(ch[2] + ch[3], ch[3], n3),
+            "down_p4": conv(ch[3], ch[3], 3), "c2f_n5": c2f(ch[3] + ch[4], ch[4], n3),
+        },
+        "head": {
+            f"p{i}": {"box": head_branch(cin, box_c, 4 * cfg.reg_max),
+                      "cls": head_branch(cin, cls_c, cfg.num_classes)}
+            for i, cin in zip((3, 4, 5), (ch[2], ch[3], ch[4]))
+        },
+    }
 
 
 def _same_pad(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
@@ -97,32 +178,41 @@ def forward_features(params: Params, x: torch.Tensor):
     return u3, d4, d5
 
 
+def forward_raw(params: Params, cfg: DetectorConfig, x: torch.Tensor):
+    """Per-scale raw head outputs for training (train/detector_train.py):
+    x (B, S, S, 3) in [0, 1] (or uint8, normalised here) ->
+    [(box_logits (B, Hs, Ws, 4*reg_max), cls_logits (B, Hs, Ws, nc), stride)]."""
+    with exact_fp32():
+        if x.dtype == torch.uint8:
+            x = x.float() / 255.0
+        feats = forward_features(params, x.permute(0, 3, 1, 2).contiguous())
+        h = params["head"]
+        return [(_head_branch(h[name]["box"], feat).permute(0, 2, 3, 1),
+                 _head_branch(h[name]["cls"], feat).permute(0, 2, 3, 1), stride)
+                for feat, name, stride in zip(feats, ("p3", "p4", "p5"), (8, 16, 32))]
+
+
 def forward(params: Params, cfg: DetectorConfig, x_nhwc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, S, 3) uint8 letterboxed pages -> (boxes_xyxy (B, N, 4) in
     input px, scores (B, N)) over all N anchor candidates, in the JAX order."""
-    with exact_fp32():
-        x = x_nhwc.float() / 255.0
-        feats = forward_features(params, x.permute(0, 3, 1, 2).contiguous())
-        h = params["head"]
-        all_boxes, all_scores = [], []
-        for feat, name, stride in zip(feats, ("p3", "p4", "p5"), (8, 16, 32)):
-            box_logits = _head_branch(h[name]["box"], feat).permute(0, 2, 3, 1)
-            cls_logits = _head_branch(h[name]["cls"], feat).permute(0, 2, 3, 1)
-            B, Hs, Ws, _ = box_logits.shape
-            dist = torch.softmax(box_logits.reshape(B, Hs * Ws, 4, cfg.reg_max), dim=-1)
-            bins = torch.arange(cfg.reg_max, dtype=torch.float32, device=x.device)
-            ltrb = (dist * bins).sum(dim=-1)
-            cy, cx = torch.meshgrid(
-                torch.arange(Hs, dtype=torch.float32, device=x.device) + 0.5,
-                torch.arange(Ws, dtype=torch.float32, device=x.device) + 0.5,
-                indexing="ij",
-            )
-            centers = torch.stack([cx.reshape(-1), cy.reshape(-1)], dim=-1)
-            x1y1 = (centers - ltrb[..., :2]) * stride
-            x2y2 = (centers + ltrb[..., 2:]) * stride
-            all_boxes.append(torch.cat([x1y1, x2y2], dim=-1))
-            all_scores.append(torch.sigmoid(cls_logits).amax(dim=-1).reshape(B, Hs * Ws))
-        return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
+    all_boxes, all_scores = [], []
+    for box_logits, cls_logits, stride in forward_raw(params, cfg, x_nhwc):
+        B, Hs, Ws, _ = box_logits.shape
+        dev = box_logits.device
+        dist = torch.softmax(box_logits.reshape(B, Hs * Ws, 4, cfg.reg_max), dim=-1)
+        bins = torch.arange(cfg.reg_max, dtype=torch.float32, device=dev)
+        ltrb = (dist * bins).sum(dim=-1)
+        cy, cx = torch.meshgrid(
+            torch.arange(Hs, dtype=torch.float32, device=dev) + 0.5,
+            torch.arange(Ws, dtype=torch.float32, device=dev) + 0.5,
+            indexing="ij",
+        )
+        centers = torch.stack([cx.reshape(-1), cy.reshape(-1)], dim=-1)
+        x1y1 = (centers - ltrb[..., :2]) * stride
+        x2y2 = (centers + ltrb[..., 2:]) * stride
+        all_boxes.append(torch.cat([x1y1, x2y2], dim=-1))
+        all_scores.append(torch.sigmoid(cls_logits).amax(dim=-1).reshape(B, Hs * Ws))
+    return torch.cat(all_boxes, dim=1), torch.cat(all_scores, dim=1)
 
 
 def nms_numpy(boxes: np.ndarray, scores: np.ndarray, iou_thr: float, max_det: int) -> np.ndarray:
@@ -155,6 +245,26 @@ def letterbox(image: np.ndarray, size: int) -> Tuple[np.ndarray, float, Tuple[in
     px, py = (size - nw) // 2, (size - nh) // 2
     out[py:py + nh, px:px + nw] = resized
     return out, scale, (px, py)
+
+
+def save_npz(path: str, params: Params) -> None:
+    """The tree as one .npz (the JAX package's format: '/'-joined key paths,
+    list indices as numeric segments, float32 stored as float16)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def rec(prefix: str, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(f"{prefix}/{k}" if prefix else str(k), v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                rec(f"{prefix}/{i}", v)
+        else:
+            a = node.detach().cpu().numpy() if isinstance(node, torch.Tensor) else np.asarray(node)
+            flat[prefix] = a.astype(np.float16) if a.dtype == np.float32 else a
+
+    rec("", params)
+    np.savez_compressed(path, **flat)
 
 
 def load_npz(path: str, device) -> Params:

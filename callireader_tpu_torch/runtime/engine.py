@@ -51,7 +51,7 @@ from callireader_tpu_torch.runtime import quantize, weights
 from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
 from callireader_tpu_torch.runtime.tokenizer import DEFAULT_MODEL, InternLM2Tokenizer
 from callireader_tpu_torch.vision import boxes as boxes_mod
-from callireader_tpu_torch.vision import preprocess, resample
+from callireader_tpu_torch.vision import native, preprocess, resample
 from callireader_tpu_torch.vision.device_resize import CHAR_RAW_BUCKETS, bicubic_canvas
 
 CHAR_BUCKETS = (8, 16, 32, 64, 96, 128, 192, 256)
@@ -307,9 +307,11 @@ class CalliReaderEngine:
         return groups, host_idx
 
     def _prep_char_crop_groups(self, raw_crops: List[np.ndarray]):
-        """Host path: PIL-compatible bicubic to the [200, 350] rule, white pad
-        to the smallest content-canvas bucket that holds it -> [(indices,
-        (n, c, c) luma or (n, c, c, 3) RGB)], one entry a bucket."""
+        """Host path: the native char-prep library (vision/native.py, the JAX
+        engine's default route) scales each crop by PIL-compatible bicubic to
+        the [200, 350] rule and white-pads it to the smallest content-canvas
+        bucket that holds it -> [(indices, (n, c, c) luma or (n, c, c, 3)
+        RGB)], one entry a bucket."""
         size = self.char_content_size
         buckets = preprocess.char_canvas_buckets(size)
         by_bucket: Dict[int, List[int]] = {}
@@ -317,12 +319,12 @@ class CalliReaderEngine:
             nw, nh = preprocess.char_content_dims(c.shape[1], c.shape[0], size)
             m = max(nw, nh)
             by_bucket.setdefault(next((b for b in buckets if b >= m), buckets[-1]), []).append(i)
+        lo = max(1, round(200 * size / 448))
+        hi = preprocess.char_content_canvas(size)
         out = []
         for bucket, idxs in by_bucket.items():
-            stack = np.stack([self._luma_if_gray(preprocess.load_char_content(raw_crops[i], size,
-                                                                              canvas=bucket))
-                              for i in idxs])
-            out.append((np.asarray(idxs, np.int64), stack))
+            stack = native.char_content_batch([raw_crops[i] for i in idxs], bucket, lo, hi)
+            out.append((np.asarray(idxs, np.int64), self._luma_if_gray(stack)))
         return out
 
     def _char_parts(self, raw_crops: List[np.ndarray], hard_vq: bool = False):

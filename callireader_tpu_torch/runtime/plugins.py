@@ -7,16 +7,10 @@ protocol (api.py:5-43): scan the model turn for ``Calculate("...")``,
 ``Solve("...")``, ``Search("...")`` calls, execute them, and return a
 ``<|Results|>: ... <eor>`` block that is fed back as the next model input.
 
-Pure Python (no sympy, no network):
+Differences from the reference (deliberate, as in the JAX module):
   - Calculate uses a whitelisted AST evaluator instead of raw ``eval``.
-  - Solve takes the JAX module's preprocessing (implicit multiplication,
-    ``^`` as power, ``,`` / ``;`` separated, ``=`` or bare expressions) and
-    solves systems of linear equations exactly in rationals (a decimal
-    read at the 15 significant digits of sympy's Float): a unique
-    solution prints as the JAX module's sympy route prints it
-    (``x = 1, y = 1/3``, variables in sorted order), an inconsistent system
-    as ``No solution.``. A nonlinear or underdetermined system, which the
-    JAX module hands to sympy, gives ``No result.`` here.
+  - Solve runs sympy (a requirement of torch), imported inside the call so
+    that importing the port never loads it.
   - Search is an offline stub; a custom ``search_fn`` can be injected for
     deployments with network access.
 """
@@ -27,8 +21,7 @@ import ast
 import math
 import operator
 import re
-from fractions import Fraction
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Optional
 
 CALL_PATTERN = (
     r'(Solve|solve|Solver|solver|Calculate|calculate|Calculator|calculator|Search)'
@@ -80,105 +73,34 @@ def calculate(expression: str) -> str:
     return ";".join(out)
 
 
-# a linear form: {variable: coefficient, "": constant}, exact rationals
-Linear = Dict[str, Fraction]
-
-
-def _lin_const(form: Linear) -> Optional[Fraction]:
-    return form.get("", Fraction(0)) if all(k == "" or c == 0 for k, c in form.items()) else None
-
-
-def _lin_add(a: Linear, b: Linear, sign: int = 1) -> Linear:
-    out = dict(a)
-    for k, c in b.items():
-        out[k] = out.get(k, Fraction(0)) + sign * c
-    return out
-
-
-def _lin_scale(a: Linear, s: Fraction) -> Linear:
-    return {k: c * s for k, c in a.items()}
-
-
-def _linear(node: ast.AST, names: List[str]) -> Linear:
-    """An expression of numbers and variables -> its linear form; raises
-    ValueError where it is not linear."""
-    if isinstance(node, ast.Expression):
-        return _linear(node.body, names)
-    if isinstance(node, ast.Constant) and isinstance(node.value, (int, float)) \
-            and not isinstance(node.value, bool):
-        # a decimal at the 15 significant digits of sympy's Float
-        return {"": Fraction(format(node.value, ".15g")) if isinstance(node.value, float)
-                else Fraction(node.value)}
-    if isinstance(node, ast.Name) and node.id in names:
-        return {node.id: Fraction(1)}
-    if isinstance(node, ast.UnaryOp) and type(node.op) in _UNARY:
-        inner = _linear(node.operand, names)
-        return inner if isinstance(node.op, ast.UAdd) else _lin_scale(inner, Fraction(-1))
-    if isinstance(node, ast.BinOp):
-        a, b = _linear(node.left, names), _linear(node.right, names)
-        ca, cb = _lin_const(a), _lin_const(b)
-        if isinstance(node.op, (ast.Add, ast.Sub)):
-            return _lin_add(a, b, 1 if isinstance(node.op, ast.Add) else -1)
-        if isinstance(node.op, ast.Mult) and (ca is not None or cb is not None):
-            return _lin_scale(b, ca) if ca is not None else _lin_scale(a, cb)
-        if isinstance(node.op, ast.Div) and cb is not None and cb != 0:
-            return _lin_scale(a, 1 / cb)
-        if isinstance(node.op, ast.Pow) and cb is not None and cb.denominator == 1:
-            if ca is not None and (ca != 0 or cb >= 0):
-                return {"": ca ** int(cb)}
-            if cb == 1:
-                return a
-    raise ValueError(f"not a linear expression: {ast.dump(node)}")
-
-
-def _solve_linear(rows: List[List[Fraction]], n: int):
-    """Gauss-Jordan on the augmented rows -> the unique solution, None when
-    the system is inconsistent; raises ValueError when it is
-    underdetermined."""
-    rows = [r[:] for r in rows]
-    pivots, r = [], 0
-    for col in range(n):
-        piv = next((i for i in range(r, len(rows)) if rows[i][col] != 0), None)
-        if piv is None:
-            continue
-        rows[r], rows[piv] = rows[piv], rows[r]
-        lead = rows[r][col]
-        rows[r] = [v / lead for v in rows[r]]
-        for i in range(len(rows)):
-            if i != r and rows[i][col] != 0:
-                f = rows[i][col]
-                rows[i] = [v - f * w for v, w in zip(rows[i], rows[r])]
-        pivots.append(col)
-        r += 1
-    if any(all(v == 0 for v in row[:n]) and row[n] != 0 for row in rows):
-        return None
-    if len(pivots) < n:
-        raise ValueError("underdetermined system")
-    return [rows[i][n] for i in range(n)]
-
-
 def solve_equations(equations_str: str) -> str:
-    """Linear equation systems (plugins/solve.py's input rules: implicit
-    multiplication insertion, ','/';' separated, '=' or bare expressions),
-    solved exactly; see the module docstring for what is not solved."""
+    """Symbolic equation solving (plugins/solve.py behavior: implicit
+    multiplication insertion, ','/';' separated, '=' or bare expressions).
+    sympy is imported here, not with the module."""
     try:
+        import sympy
+
         s = equations_str.replace(" ", "").replace("^", "**")
         s = re.sub(r"(\(.*\))([a-zA-Z])", r"\1 * \2", s)
         s = re.sub(r"(\d+)([a-zA-Z])", r"\1 * \2", s)
         s = s.replace("pi", str(math.pi))
         parts = [p for p in re.split(r"[,;]+", s) if p]
         var_names = sorted(set(re.findall(r"[a-zA-Z]+", s)))
-        rows = []
+        syms = {v: sympy.symbols(v) for v in var_names}
+        eqs = []
         for p in parts:
-            left, right = p.split("=") if "=" in p else (p, "0")
-            form = _lin_add(_linear(ast.parse(left, mode="eval"), var_names),
-                            _linear(ast.parse(right, mode="eval"), var_names), -1)
-            rows.append([form.get(v, Fraction(0)) for v in var_names]
-                        + [-form.get("", Fraction(0))])
-        sol = _solve_linear(rows, len(var_names))
-        if sol is None:
+            if "=" in p:
+                left, right = p.split("=")
+                eqs.append(sympy.Eq(sympy.sympify(left, syms), sympy.sympify(right, syms)))
+            else:
+                eqs.append(sympy.sympify(p, syms))
+        sol = sympy.solve(eqs, list(syms.values()), dict=True)
+        if not sol:
             return "No solution."
-        return ", ".join(f"{v} = {x}" for v, x in zip(var_names, sol))
+        lines = []
+        for s_ in sol:
+            lines.append(", ".join(f"{k} = {sympy.nsimplify(v)}" for k, v in s_.items()))
+        return "\n".join(lines)
     except Exception:  # noqa: BLE001
         return "No result."
 

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import os
 import zipfile
 from pathlib import Path
@@ -47,6 +46,7 @@ from callireader_tpu_torch.core.config import (
     VLMConfig,
 )
 from callireader_tpu_torch.models import detector as detector_mod
+from callireader_tpu_torch.models import orderformer as orderformer_mod
 from callireader_tpu_torch.runtime import detector_weights, quantize, safetensors_io
 
 ASSETS_DIR = Path(__file__).resolve().parents[2] / "callireader_tpu" / "assets"
@@ -438,76 +438,6 @@ def init_resampler(r: _Init, cfg: ResamplerConfig) -> Dict[str, Any]:
     }
 
 
-def init_orderformer(r: _Init, cfg: OrderFormerConfig) -> Dict[str, Any]:
-    L, E, F = cfg.num_layers, cfg.model_dim, cfg.ff_dim
-    f32 = torch.float32
-
-    def xavier(shape):
-        fan_in, fan_out = shape[-2], shape[-1]
-        return r.uniform(shape, math.sqrt(6.0 / (fan_in + fan_out)), f32)
-
-    return {
-        "embed_kernel": xavier((cfg.input_dim, E)), "embed_bias": r.zeros((E,), f32),
-        "layers": {
-            "in_proj_kernel": xavier((L, E, 3 * E)), "in_proj_bias": r.zeros((L, 3 * E), f32),
-            "out_proj_kernel": xavier((L, E, E)), "out_proj_bias": r.zeros((L, E), f32),
-            "norm1_scale": r.ones((L, E), f32), "norm1_bias": r.zeros((L, E), f32),
-            "norm2_scale": r.ones((L, E), f32), "norm2_bias": r.zeros((L, E), f32),
-            "ff1_kernel": xavier((L, E, F)), "ff1_bias": r.zeros((L, F), f32),
-            "ff2_kernel": xavier((L, F, E)), "ff2_bias": r.zeros((L, E), f32),
-        },
-        "decode_kernel": xavier((E, cfg.output_dim)),
-        "decode_bias": r.zeros((cfg.output_dim,), f32),
-    }
-
-
-def _det_channels(cfg: DetectorConfig) -> List[int]:
-    w, mc = cfg.width_mult, cfg.max_channels
-    return [max(8, int(64 * w)), max(8, int(128 * w)), max(8, int(256 * w)),
-            max(8, int(512 * w)), max(8, int(min(1024, mc) * w))]
-
-
-def init_detector(r: _Init, cfg: DetectorConfig) -> Dict[str, Any]:
-    """The JAX detector tree (HWIO convs, post-BN-fold biases)."""
-    ch = _det_channels(cfg)
-    n3, n6 = (max(1, round(n * cfg.depth_mult)) for n in (3, 6))
-
-    def conv(cin, cout, k):
-        return {"w": r.uniform((k, k, cin, cout), 1.0 / math.sqrt(cin * k * k)),
-                "b": r.zeros((cout,), torch.float32)}
-
-    def c2f(cin, cout, n):
-        c = cout // 2
-        return {"cv1": conv(cin, cout, 1), "cv2": conv((2 + n) * c, cout, 1),
-                "blocks": [{"cv1": conv(c, c, 3), "cv2": conv(c, c, 3)} for _ in range(n)]}
-
-    def branch(cin, mid, cout):
-        return {"cv1": conv(cin, mid, 3), "cv2": conv(mid, mid, 3), "out": conv(mid, cout, 1)}
-
-    box_c = max(16, ch[2] // 4, 4 * cfg.reg_max)
-    cls_c = max(ch[2], min(cfg.num_classes, 100))
-    return {
-        "backbone": {
-            "stem": conv(3, ch[0], 3), "down1": conv(ch[0], ch[1], 3),
-            "c2f1": c2f(ch[1], ch[1], n3), "down2": conv(ch[1], ch[2], 3),
-            "c2f2": c2f(ch[2], ch[2], n6), "down3": conv(ch[2], ch[3], 3),
-            "c2f3": c2f(ch[3], ch[3], n6), "down4": conv(ch[3], ch[4], 3),
-            "c2f4": c2f(ch[4], ch[4], n3),
-            "sppf": {"cv1": conv(ch[4], ch[4] // 2, 1), "cv2": conv(ch[4] // 2 * 4, ch[4], 1)},
-        },
-        "neck": {
-            "c2f_p4": c2f(ch[4] + ch[3], ch[3], n3), "c2f_p3": c2f(ch[3] + ch[2], ch[2], n3),
-            "down_p3": conv(ch[2], ch[2], 3), "c2f_n4": c2f(ch[2] + ch[3], ch[3], n3),
-            "down_p4": conv(ch[3], ch[3], 3), "c2f_n5": c2f(ch[3] + ch[4], ch[4], n3),
-        },
-        "head": {
-            f"p{i}": {"box": branch(cin, box_c, 4 * cfg.reg_max),
-                      "cls": branch(cin, cls_c, cfg.num_classes)}
-            for i, cin in zip((3, 4, 5), (ch[2], ch[3], ch[4]))
-        },
-    }
-
-
 def init_params(cfg: VLMConfig, generator: torch.Generator, dtype=torch.bfloat16,
                 device="cuda", *, llm_int8: bool = False) -> Dict[str, Any]:
     """Seeded full-width random init of the whole engine tree (the JAX
@@ -523,8 +453,8 @@ def init_params(cfg: VLMConfig, generator: torch.Generator, dtype=torch.bfloat16
         "vision": init_vision(r, cfg.vision),
         "projector": init_projector(r, cfg),
         "resampler": init_resampler(r, cfg.resampler),
-        "orderformer": init_orderformer(r, cfg.orderformer),
-        "detector": init_detector(r, cfg.detector),
+        "orderformer": orderformer_mod.init_params(cfg.orderformer, generator, device=device),
+        "detector": detector_mod.init_params(cfg.detector, generator, device=device),
         "align": {
             "normed_emb": r.normal((V, E)),
             "mu": r.zeros((V,), torch.float32),

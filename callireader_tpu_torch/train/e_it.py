@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,6 +88,16 @@ def merge_params(trainable, frozen):
     if isinstance(trainable, (list, tuple)):
         return type(trainable)(merge_params(a, b) for a, b in zip(trainable, frozen))
     return trainable if trainable is not None else frozen
+
+
+def clone_tree(tree, requires_grad: bool):
+    """A copy of a tree of tensors (dicts and lists), detached, each leaf
+    ``requires_grad`` as asked: a trainer's own parameters, or a snapshot."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v, requires_grad) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [clone_tree(v, requires_grad) for v in tree]
+    return tree.detach().clone().requires_grad_(requires_grad)
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -156,15 +166,42 @@ def eit_loss(
 # ---------------------------------------------------------------------------
 
 
-def lr_schedule(train_cfg: TrainConfig) -> Callable[[int], float]:
-    """optax.warmup_cosine_decay_schedule(init 0, peak lr, warmup, decay over
-    total_steps, end 0), warmup = max(1, int(total_steps * warmup_ratio))."""
-    warmup = max(1, int(train_cfg.total_steps * train_cfg.warmup_ratio))
-    decay = train_cfg.total_steps - warmup
+def cosine_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule(init_value, decay_steps, alpha): from
+    init_value down to alpha * init_value over decay_steps, then flat."""
+    if decay_steps <= 0:
+        raise ValueError(f"the cosine decay needs decay_steps > 0, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        t = min(count, decay_steps)
+        return init_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / decay_steps)) + alpha)
+
+    return schedule
+
+
+def join_schedules(schedules: Sequence[Callable[[int], float]],
+                   boundaries: Sequence[int]) -> Callable[[int], float]:
+    """optax.join_schedules: past each boundary the next schedule runs on
+    the count since that boundary."""
+
+    def schedule(count: int) -> float:
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = sched(count - boundary)
+        return out
+
+    return schedule
+
+
+def warmup_cosine_schedule(peak: float, warmup: int, total_steps: int) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup, total_steps, 0):
+    linear from 0 to peak over warmup steps, then a cosine to 0 at
+    total_steps."""
+    decay = total_steps - warmup
     if decay <= 0:
-        raise ValueError(f"the cosine decay needs total_steps > warmup ({train_cfg.total_steps} "
+        raise ValueError(f"the cosine decay needs total_steps > warmup ({total_steps} "
                          f"<= {warmup})")
-    peak = train_cfg.learning_rate
 
     def schedule(count: int) -> float:
         if count < warmup:
@@ -175,33 +212,42 @@ def lr_schedule(train_cfg: TrainConfig) -> Callable[[int], float]:
     return schedule
 
 
+def lr_schedule(train_cfg: TrainConfig) -> Callable[[int], float]:
+    """The e-IT schedule: warmup_cosine_schedule over total_steps, warmup =
+    max(1, int(total_steps * warmup_ratio))."""
+    warmup = max(1, int(train_cfg.total_steps * train_cfg.warmup_ratio))
+    return warmup_cosine_schedule(train_cfg.learning_rate, warmup, train_cfg.total_steps)
+
+
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads.values()))
 
 
 class Optimizer:
-    """clip_by_global_norm(grad_clip) -> AdamW(lr_schedule, betas, eps 1e-8,
+    """[clip_by_global_norm(grad_clip) ->] AdamW(schedule, betas, eps,
     weight_decay) on flat {path: tensor} trees, inside MultiSteps(grad_accum)
-    when grad_accum > 1. ``update`` writes the parameters and the state in
+    when grad_accum > 1: optax's chain, step for step. No clipping where
+    ``grad_clip`` is None. ``update`` writes the parameters and the state in
     place."""
 
-    def __init__(self, train_cfg: TrainConfig):
-        self.cfg = train_cfg
-        self.schedule = lr_schedule(train_cfg)
-        self.eps = 1e-8
+    def __init__(self, schedule: Callable[[int], float], *, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0, grad_clip: Optional[float] = None,
+                 grad_accum: int = 1):
+        self.schedule, self.betas, self.eps = schedule, betas, eps
+        self.weight_decay, self.grad_clip, self.grad_accum = weight_decay, grad_clip, grad_accum
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         zeros = lambda: {k: torch.zeros_like(v, memory_format=torch.contiguous_format)
                          for k, v in params.items()}
         state: Dict[str, Any] = {"count": 0, "mu": zeros(), "nu": zeros()}
-        if self.cfg.grad_accum > 1:
+        if self.grad_accum > 1:
             state.update(mini_step=0, gradient_step=0, acc_grads=zeros())
         return state
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: Dict[str, Any],
                params: Dict[str, torch.Tensor]) -> None:
-        k = self.cfg.grad_accum
+        k = self.grad_accum
         if k == 1:
             self._apply(grads, state, params)
             return
@@ -218,28 +264,33 @@ class Optimizer:
         state["gradient_step"] += 1
 
     def _apply(self, grads, state, params) -> None:
-        max_norm = self.cfg.grad_clip
-        g_norm = global_norm(grads)
-        keep = g_norm < max_norm
-        b1, b2 = self.cfg.betas
+        max_norm = self.grad_clip
+        if max_norm is not None:
+            g_norm = global_norm(grads)
+            keep = g_norm < max_norm
+        b1, b2 = self.betas
         count = state["count"] + 1
         lr = self.schedule(state["count"])
         one = torch.ones((), dtype=torch.float32)
         bc1, bc2 = 1 - (one * b1) ** count, 1 - (one * b2) ** count
         for path, g in grads.items():
             p, mu, nu = params[path], state["mu"][path], state["nu"][path]
-            g = torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm)
+            if max_norm is not None:
+                g = torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm)
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
             u = (mu / bc1.to(mu.device, mu.dtype)) / (
                 torch.sqrt(nu / bc2.to(nu.device, nu.dtype)) + self.eps)
-            u = u + self.cfg.weight_decay * p
+            u = u + self.weight_decay * p
             p.add_(torch.tensor(-lr, dtype=u.dtype, device=u.device) * u)
         state["count"] = count
 
 
 def make_optimizer(train_cfg: TrainConfig) -> Optimizer:
-    return Optimizer(train_cfg)
+    """The e-IT optimizer: clip, then AdamW (eps 1e-8) under ``lr_schedule``."""
+    return Optimizer(lr_schedule(train_cfg), betas=train_cfg.betas, eps=1e-8,
+                     weight_decay=train_cfg.weight_decay, grad_clip=train_cfg.grad_clip,
+                     grad_accum=train_cfg.grad_accum)
 
 
 # ---------------------------------------------------------------------------

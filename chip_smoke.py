@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero; nothing is caught and continued):
   1. build: compile every CUDA kernel of the port (one nvcc per source, in
-     parallel) and print the card's name and power limit;
+     parallel) and the native char-prep library (g++, beside them), and
+     print the compiler's version, the card's name and power limit;
   2. main path, callireader-2b: build_engine("callireader-2b",
      device_tile_pages=True: pages tiled on the device) with seeded random
      weights and the committed trained detector / OrderFormer /
@@ -43,7 +44,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      that tree's engine's through the same CLI, every kernel of the int8 path
      launched. The attention kernels are held against their plain versions
      at the boot run's shapes and flash_decode at the CLI's. The bytes and
-     shards, the export, sync and boot seconds and the boot's GB/s are
+     shards, the export and boot seconds and the boot's GB/s are
      printed beside the card's name and power limit; the directory is
      deleted;
   5. main path, flagship: build_engine("callireader-8b", quant="int8",
@@ -226,11 +227,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      callireader-2b int8 at full width: ``cli.evaluate.main(["--type",
      "full_page", "--splits", "easy", "--preset", "callireader-2b",
      "--random-init", "--quant", "int8", ...])`` in-process at the
-     harness's defaults (RGB char crops resized on the host, host tiling,
-     batch 8, 1024 new tokens, repetition penalty 1.0), its parquet reader
-     swapped for in-memory synthetic tasks (EVAL_PAGES of the seeded
-     788x2000 pages with ground-truth strings: two pipelined batches, batch
-     i built while decode i-1 runs). Counts zeroed before the full_page run,
+     harness's defaults (RGB char crops resized on the host by the native
+     char-prep library, host tiling, batch 8, 1024 new tokens, repetition
+     penalty 1.0), its parquet reader swapped for in-memory synthetic tasks
+     (EVAL_PAGES of the seeded 788x2000 pages with ground-truth strings: two
+     pipelined batches, batch i built while decode i-1 runs; the pages' host
+     tiles are made ahead in two worker processes during phases 24 and
+     17-18, so the run reads them). Counts zeroed before the full_page run,
      read after: the tile and char towers, prefill, flash_decode, both int8
      kernels and the RMSNorm forward launched, once a layer and step; every
      char crop took the host route as an RGB (n, c, c, 3) stack, no raw
@@ -247,6 +250,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      (second-turn) prompt, flash_decode at that task's batch. Printed: seconds per task, full_page pages/s pipelined
      and batch_chat_ocr's, and the share of VQ indices on which the RGB host
      route agrees with the default luma device route on one page's crops;
+ 25. char prep: the native library (csrc/charprep.cpp, built with g++ in
+     phase 1) over the full_page run's raw char crops, against the plain
+     numpy route: within 3/255 a pixel, both white outside the content's place,
+     the same bytes at 1 and 8 threads, its resize within 2/255; ms a crop
+     on both routes, and phase 23's char_crops seconds;
+ 26. library models: models/moe.forward at the default MoEConfig widths
+     (E=4096, M=14336, 8 experts, top-2, 32/8 heads of 128, vocab 92553)
+     cut to 4 layers, B=2 S=2048 with two segments a row, counted and held
+     against its all-plain route (tokens whose top-2 experts flip counted,
+     the rest's logits and the aux loss within 5e-2 rel); then
+     models/llava.llava_loss on the 2b's widths (B=2, 256 text tokens +
+     1024 patches), counted, its loss and projector / LLM grads held as
+     phase 24 holds a step; ms, device ms and peak memory; the prefill, ViT,
+     training attention and RMSNorm kernels at these shapes (phase 19 takes
+     the norms);
+ 27. trainers: train_orderformer on 512 synthetic layouts (2 epochs, batch
+     64) and 10 detector steps at 640 (batch 8, synth_calligraphy_pages):
+     each loss falls; ms a step; save_npz -> load_npz bit for bit at fp16,
+     the loaded tree in the port's Detector; each script's main once with
+     tiny arguments;
  19. the RMSNorm kernels against their plain versions at every path's shapes
      (E = 4096; 8b batch, serve, 2b CLI, beams: decode and prefill rows; train:
      2 x 2048 rows, forward and backward with dw on and off), both roundings:
@@ -271,7 +294,7 @@ spills (``-Xptxas -v``); phase 8 and 13 hold each row of the LM head's
 launch, and of the (K, N) kernel's at the w13 projection, to the same row
 launched alone, bit for bit, and the log compares the int8 kernels' and the
 paged kernel's device ms with their bounds across the paths' row counts.
-Phases run in the order 1-4, 22, 5-13, 20-21, 14-16, 24, 17-18, 23, 19.
+Phases run in the order 1-4, 22, 5-13, 20-21, 14-16, 24, 17-18, 23, 25-27, 19.
 Prints the wall seconds of each phase, the card's name and power limit, the
 ``kernels`` JSON line (it fails if a kernel has no entry), then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
@@ -355,6 +378,20 @@ EVAL_WORK_ROWS = 896  # their works: the top of a page, 788x896 (6 columns, 42 c
 EVAL_MMBENCH = 8
 EVAL_REFCOCO = 2
 NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_fused", "rms_norm_bwd_fused")
+# phase 25: the native char-prep library against the plain numpy route over
+# phase 23's crops, within tests/test_native_prep.py's bounds (per pixel, of
+# 255); the resize on this many of them
+CHARPREP_TOL, RESIZE_TOL, RESIZE_CROPS = 3, 2, 64
+# phase 26: MoE at the default MoEConfig widths with its depth cut to 4
+# layers (2.82 GB of bf16 experts a layer: 32 would not fit the card), B=2
+# S=2048, each row two segments split here; LLaVA at the 2b's widths, B=2,
+# 256 text tokens and a 448 px image (1024 patches), the placeholders here
+MOE_LAYERS, MOE_B, MOE_S, MOE_SPLITS = 4, 2, 2048, (1200, 900)
+MODEL_REL_TOL = 5e-2  # the model bound of PERF.md section 2
+LLAVA_TEXT, LLAVA_IMAGE_AT, LLAVA_PROMPT = 256, (5, 100), 8
+# phase 27: the asset trainers
+OF_LAYOUTS, OF_EPOCHS, OF_BATCH, OF_LR = 512, 2, 64, 1e-3
+DET_STEPS, DET_BATCH, DET_SIZE, DET_GLYPHS = 10, 8, 640, 64
 # H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor cores (data sheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -761,6 +798,9 @@ class TrainingReferences:
             return tuple(one_ulp(g) for g in plain_bwd(*args))
 
         def sdpa_attention(q, k, v, q_seg, kv_seg, causal, scale):
+            if q_seg is None:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
+                                                      enable_gqa=True)
             S = q.shape[2]
             allowed = (q_seg[:, :, None] == kv_seg[:, None, :]) & torch.ones(
                 (S, S), dtype=torch.bool, device=q.device).tril()
@@ -1312,7 +1352,7 @@ def export_readback(out_dir, state, frozen, cfg, export_s):
 
 def train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F):
     """The forward, dq and dk/dv kernels against their plain versions at one
-    shape (causal, the given segment ids), beside scaled_dot_product_attention
+    shape (causal, the given segment ids or none), beside scaled_dot_product_attention
     and its autograd backward (the backward computes dq, dk and dv at once; its
     time stands in the dk/dv row). The plain versions run one (batch row, KV
     head) at a time so that their fp32 scores fit."""
@@ -1323,10 +1363,12 @@ def train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F):
     q, do, k, v = rnd(q_shape), rnd(q_shape), rnd(k_shape), rnd(k_shape)
     o, lse = k_bwd._launch_fwd(q, k, v, seg, seg, True, scale)
     dsum = (do.float() * o.float()).sum(-1)
-    allowed = (seg[:, :, None] == seg[:, None, :]) & torch.ones((S, S), dtype=torch.bool,
-                                                                   device=dev).tril()
-    pairs = int(allowed.sum().item())
-    causal_only = bool((seg == 0).all())
+    allowed = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    if seg is not None:
+        allowed = (seg[:, :, None] == seg[:, None, :]) & allowed
+    pairs = int(allowed.sum().item()) * (B if seg is None else 1)
+    causal_only = seg is None or bool((seg == 0).all())
+    seg_of = (lambda sb: None) if seg is None else (lambda sb: seg[sb])
 
     def chunks():
         for b in range(B):
@@ -1338,7 +1380,7 @@ def train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F):
         out_lse = torch.empty(q_shape[:3], dtype=torch.float32, device=dev)
         for b, sb, sq, sk in chunks():
             out[sb, sq], out_lse[sb, sq] = k_bwd.attention_fwd_lse_reference(
-                q[sb, sq], k[sb, sk], v[sb, sk], seg[sb], seg[sb], True, scale)
+                q[sb, sq], k[sb, sk], v[sb, sk], seg_of(sb), seg_of(sb), True, scale)
         return out, out_lse
 
     def plain_bwd():
@@ -1347,7 +1389,7 @@ def train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F):
         dv = torch.empty(k_shape, dtype=torch.float32, device=dev)
         for b, sb, sq, sk in chunks():
             dq[sb, sq], dk[sb, sk], dv[sb, sk] = k_bwd.attention_bwd_reference(
-                q[sb, sq], k[sb, sk], v[sb, sk], seg[sb], seg[sb], o[sb, sq], lse[sb, sq],
+                q[sb, sq], k[sb, sk], v[sb, sk], seg_of(sb), seg_of(sb), o[sb, sq], lse[sb, sq],
                 do[sb, sq], True, scale)
         return dq, dk, dv
 
@@ -1368,7 +1410,7 @@ def train_attention_rows(h, label, q_shape, k_shape, seg, launches, k_bwd, F):
     def sdpa_bwd():
         return torch.autograd.grad(out_lib, (qg, kg, vg), do, retain_graph=True)
 
-    seg_bytes = 8 * seg.numel()
+    seg_bytes = 0 if seg is None else 8 * seg.numel()
     shape_desc = f"[{label}] B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} causal, {pairs} attended pairs"
     n2 = 2 * q.numel() + 4 * k.numel()  # q, k, v in bf16
     rows = (
@@ -1689,14 +1731,22 @@ def eval_tasks():
 class TileMemo:
     """preprocess.load_image keeping each page's tiles (keyed by its bytes
     and the arguments): a page tiled again takes a copy of its first tiling
-    (the host tiling is deterministic numpy, ~1.1 s a 788x2000 page)."""
+    (the host tiling is deterministic numpy, ~1.1 s a 788x2000 page), and a
+    page tiled ahead (``put``) takes those tiles."""
 
     def __init__(self, load_image):
         self.load_image, self.cache, self.hits = load_image, {}, 0
 
+    @staticmethod
+    def key(img, a, kw):
+        return (img.shape, img.dtype.str, hashlib.sha1(img).hexdigest(), a, tuple(sorted(kw.items())))
+
+    def put(self, img, a, tiles):
+        self.cache[self.key(np.ascontiguousarray(img), a, {})] = tiles
+
     def __call__(self, img, *a, **kw):
         img = np.ascontiguousarray(img)
-        key = (img.shape, img.dtype.str, hashlib.sha1(img).hexdigest(), a, tuple(sorted(kw.items())))
+        key = self.key(img, a, kw)
         if key in self.cache:
             self.hits += 1
         else:
@@ -1704,12 +1754,43 @@ class TileMemo:
         return self.cache[key].copy()
 
 
-def evaluate_phase(h):
+def tile_args():
+    """The host tiling's arguments on phase 23's engine (the 2b preset)."""
+    from callireader_tpu_torch.core.config import get_config
+
+    cfg = get_config("callireader-2b")
+    return cfg.force_image_size, cfg.max_dynamic_patch, cfg.use_thumbnail
+
+
+def tile_eval_pages(seeds):
+    """In a worker process: the host tiles of phase 23's pages of ``seeds``
+    and the seconds it took."""
+    from callireader_tpu_torch.vision import preprocess
+
+    t0 = time.time()
+    return [preprocess.load_image(make_page(s)[0], *tile_args()) for s in seeds], time.time() - t0
+
+
+def tile_ahead():
+    """Phase 23's 16 pages tiled on the host in two worker processes while
+    the device-bound phases 24 and 17-18 run -> (the pool, its futures)."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    seeds = list(range(EVAL_PAGES))
+    return pool, [pool.submit(tile_eval_pages, seeds[i::2]) for i in range(2)]
+
+
+def evaluate_phase(h, ahead):
     """Phase 23: the evaluation harness. cli.evaluate.main runs full_page at
-    its defaults (RGB chars resized on the host, host tiling, batch 8) on
-    ``--preset callireader-2b --random-init --quant int8``, its parquet reader
-    swapped for the in-memory tasks; the engine it built then runs
-    region_wise, choice, bilingual, intent, mmbench and refcoco."""
+    its defaults (RGB chars resized on the host by the native library, host
+    tiling, batch 8) on ``--preset callireader-2b --random-init --quant
+    int8``, its parquet reader swapped for the in-memory tasks, its pages'
+    tiles made ahead (``tile_ahead``: the full_page run reads them); the
+    engine it built then runs region_wise, choice, bilingual, intent,
+    mmbench and refcoco -> (the full_page run's raw char crops, the engine's
+    char content size, its char_crops seconds) for phase 25."""
     import torch
 
     from callireader_tpu_torch.cli import common as cli_common
@@ -1730,9 +1811,14 @@ def evaluate_phase(h):
         built.append(build(**kw))
         return built[-1]
 
-    routes = {"raw_groups": 0, "raw": 0, "host": []}
-    raw_groups, raw, host = (CalliReaderEngine._prep_char_raw_groups,
-                             CalliReaderEngine._char_pipeline_raw, CalliReaderEngine._char_pipeline)
+    routes = {"raw_groups": 0, "raw": 0, "host": [], "crops": []}
+    raw_groups, raw, host, host_groups = (
+        CalliReaderEngine._prep_char_raw_groups, CalliReaderEngine._char_pipeline_raw,
+        CalliReaderEngine._char_pipeline, CalliReaderEngine._prep_char_crop_groups)
+
+    def record_crops(self, raw_crops):
+        routes["crops"].extend(raw_crops)
+        return host_groups(self, raw_crops)
 
     def count_raw_groups(self, *a, **kw):
         routes["raw_groups"] += 1
@@ -1774,6 +1860,18 @@ def evaluate_phase(h):
     # a page the phase tiles again (batch_chat_ocr after the full_page run, a
     # two-turn task's second turn) takes the tiles of its first tiling
     tiles = TileMemo(preprocess.load_image)
+    pool, futures = ahead
+    t0 = time.time()
+    tiled = [f.result() for f in futures]
+    pool.shutdown()
+    wait_s = time.time() - t0
+    full_pages = tasks[os.path.join(EVAL_DATA, "full_page_ocr/easy/easy.parquet")][0]
+    for i, (page_tiles, _) in enumerate(tiled):
+        for seed, t in zip(range(i, EVAL_PAGES, 2), page_tiles):
+            tiles.put(full_pages[seed], tile_args(), t)
+    log(f"[evaluate] the {EVAL_PAGES} pages' host tiles made ahead in 2 worker processes "
+        f"({' + '.join(f'{s:.3f}' for _, s in tiled)} s of tiling, the workers' own clocks) while "
+        f"phases 24 and 17-18 ran; {wait_s:.3f} s waited for them here")
     memo = Swap(preprocess, load_image=tiles)
     memo.__enter__()
     try:
@@ -1784,7 +1882,8 @@ def evaluate_phase(h):
                 Swap(callibench, get_parquet=lambda path: tasks[path],
                      test_full_page=counted_full_page), \
                 Swap(CalliReaderEngine, _prep_char_raw_groups=count_raw_groups,
-                     _char_pipeline_raw=count_raw, _char_pipeline=record_host):
+                     _char_pipeline_raw=count_raw, _char_pipeline=record_host,
+                     _prep_char_crop_groups=record_crops):
             eval_cli.main(argv)
         seconds["cli"] = time.time() - t0
         (engine,) = built
@@ -1799,6 +1898,7 @@ def evaluate_phase(h):
             f"({engine.pad_steps} pad steps); spans (s) "
             + json.dumps({k: round(v, 4) for k, v in engine.timings.spans.items()})
             + f"; launches {launches}")
+        char_crops_s = engine.timings.spans["char_crops"]
         if (engine.gray_chars, engine.device_resize_chars, engine.device_tile_pages) != \
                 (False, False, False) or run["kw"]["batch_size"] != 8:
             fail("[evaluate] the CLI's engine left the harness's defaults (RGB chars, host char "
@@ -1838,7 +1938,7 @@ def evaluate_phase(h):
         log(f"[evaluate] pipelined responses = batch_chat_ocr on the same 8 pages; pages/s: "
             f"pipelined {EVAL_PAGES / seconds['full_page']:.4f} ({EVAL_PAGES} pages, 2 batches), "
             f"batch_chat_ocr {8 / seconds['batch_chat_ocr']:.4f} (8 pages, one batch, after, on "
-            f"the full_page run's host tiles: {tiles.hits} pages not tiled again)")
+            f"the tiles made ahead)")
 
         # ---------------------------------------------------------- the other tasks, same engine
         kw = dict(run["kw"])
@@ -1943,11 +2043,12 @@ def evaluate_phase(h):
                                                   ("RGB host", "luma host"),
                                                   ("luma host", "luma device"))))
         log(f"[evaluate] host tiling: {len(tiles.cache)} pages tiled, {tiles.hits} tilings taken "
-            f"from the first")
+            f"from those made ahead or before")
     finally:
         memo.__exit__()
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
+    return routes["crops"], engine.char_content_size, char_crops_s
 
 
 def bits(t):
@@ -2037,9 +2138,6 @@ def boot_phase(h, run_main_path, path_2b):
         export_s = time.time() - t0
         if sorted(side.written) != sorted(BOOT_SIDE_READ):
             fail(f"[boot] side files written {side.written}, want {BOOT_SIDE_READ}")
-        t0 = time.time()
-        os.sync()
-        sync_s = time.time() - t0
         files = {os.path.relpath(os.path.join(r, f), ckpt): os.path.getsize(os.path.join(r, f))
                  for r, _, fs in os.walk(ckpt) for f in fs}
         shards = [f for f in files if f.endswith(".safetensors")]
@@ -2060,7 +2158,7 @@ def boot_phase(h, run_main_path, path_2b):
             f"{free / 1e9:.1f} GB free before; {export_s:.3f} s to return "
             f"({sum(files.values()) / export_s / 1e9:.3f} GB/s: the shards {shards_s[0]:.3f} s, "
             f"{shard_bytes / shards_s[0] / 1e9:.3f} GB/s; the side files' torch.save "
-            f"{export_s - shards_s[0]:.3f} s), then os.sync {sync_s:.3f} s")
+            f"{export_s - shards_s[0]:.3f} s); no os.sync: the boot reads the page cache")
 
         # ------------------------------------------ build_engine(checkpoint_dir=...), bf16
         t0 = time.time()
@@ -2164,7 +2262,7 @@ def boot_phase(h, run_main_path, path_2b):
             f"equal to that engine's; launches {launches}; printed "
             f"{[ln[:40] for ln in out.getvalue().splitlines()[:2]]}")
         h.flash_decode_row("boot cli", shapes, launches)
-        log(f"[boot] card: {h.smi}; export {export_s:.3f} s + sync {sync_s:.3f} s for "
+        log(f"[boot] card: {h.smi}; export {export_s:.3f} s for "
             f"{sum(files.values())} bytes in {len(files)} files ({len(shards)} shards); boot "
             f"{boot_s:.3f} s for {read_bytes} bytes read, {read_bytes / boot_s / 1e9:.3f} GB/s "
             f"(host and disk times of the card's machine, not kernel times)")
@@ -2426,6 +2524,308 @@ def norm_rows(h):
             del x, w, dy, xg, wg, lib_out, r_model, r_fused
             torch.cuda.empty_cache()
 
+def charprep_phase(h, crops, size, char_crops_s):
+    """Phase 25: the native char-prep library (vision/native.py, built in
+    phase 1) over phase 23's raw char crops, grouped into the engine's
+    canvas buckets: ``char_content_batch`` against the plain route
+    (preprocess.load_char_content) within CHARPREP_TOL per pixel, the same
+    bytes at 1 and 8 threads, and
+    ``resize_bicubic`` within RESIZE_TOL of the PIL-compatible resize
+    (vision/resample.py); ms a crop on both routes, and phase 23's
+    char_crops seconds against the plain route's. The geometry is held
+    where it is defined: both routes white outside the content's place."""
+    from callireader_tpu_torch.vision import native, preprocess, resample
+
+    lo, hi = max(1, round(200 * size / 448)), preprocess.char_content_canvas(size)
+    buckets = preprocess.char_canvas_buckets(size)
+    groups = {}
+    for c in crops:
+        nw, nh = preprocess.char_content_dims(c.shape[1], c.shape[0], size)
+        groups.setdefault(next((b for b in buckets if b >= max(nw, nh)), buckets[-1]), []).append(c)
+    t0 = time.perf_counter()
+    lib = {b: native.char_content_batch(cs, b, lo, hi) for b, cs in groups.items()}
+    lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = {b: np.stack([preprocess.load_char_content(c, size, canvas=b) for c in cs])
+             for b, cs in groups.items()}
+    plain_s = time.perf_counter() - t0
+    worst = max(int(np.abs(lib[b].astype(np.int16) - plain[b].astype(np.int16)).max()) for b in groups)
+    # the geometry: white wherever the content does not lie (content pixels
+    # may reach 255 in one route and 254 in the other)
+    pads, saturated = True, 0
+    for b, cs in groups.items():
+        for c, x, y in zip(cs, lib[b], plain[b]):
+            nw, nh = preprocess.char_content_dims(c.shape[1], c.shape[0], size)
+            pad = np.ones((b, b), bool)
+            top, left = (b - nh) // 2, (b - nw) // 2
+            pad[top:top + nh, left:left + nw] = False
+            pads &= bool((x[pad] == 255).all() and (y[pad] == 255).all())
+            saturated += int(((x == 255) != (y == 255)).any(-1).sum())
+    threads = all(np.array_equal(native.char_content_batch(cs, b, lo, hi, nthreads=1), lib[b])
+                  for b, cs in groups.items())
+    r_worst = 0
+    for c in crops[:RESIZE_CROPS]:
+        nw, nh = preprocess.char_content_dims(c.shape[1], c.shape[0], size)
+        got = native.resize_bicubic(c, nh, nw).astype(np.int16)
+        r_worst = max(r_worst, int(np.abs(got - resample.pil_resize(c, (nw, nh), "bicubic")).max()))
+    n = len(crops)
+    log(f"[char prep] {n} crops of phase 23 (content size {size}, buckets "
+        f"{ {b: len(cs) for b, cs in groups.items()} }): char_content_batch max |native - plain| "
+        f"{worst}/255 (tol {CHARPREP_TOL}), white padding outside the content in both {pads} "
+        f"({saturated} content pixels 255 in one route only), 1 and 8 threads byte-equal "
+        f"{threads}; resize_bicubic on {min(n, RESIZE_CROPS)} crops max {r_worst}/255 (tol "
+        f"{RESIZE_TOL}); {lib_s * 1e3 / n:.4f} ms a crop native ({lib_s:.3f} s), "
+        f"{plain_s * 1e3 / n:.4f} ms plain ({plain_s:.3f} s); phase 23's char_crops span "
+        f"{char_crops_s:.3f} s (the native route, grouping included); host clock, card: {h.smi}")
+    if worst > CHARPREP_TOL or not pads or not threads or r_worst > RESIZE_TOL:
+        fail("[char prep] the native library disagrees with the plain route")
+
+
+def library_models_phase(h):
+    """Phase 26: the library models on the card. models/moe.forward at the
+    default MoEConfig widths (MOE_LAYERS layers) on B=2 S=2048 rows of two
+    segments: counted (the prefill kernel once a layer, the model RMSNorm
+    2L+1 times), then against the all-plain route (``use_flash=False`` and
+    the plain norms): tokens whose top-2 experts differ between the routes
+    are counted, every other token's logits within MODEL_REL_TOL (rel L2),
+    the aux loss too. Then models/llava.llava_loss on the 2b's widths (B=2,
+    256 text tokens + 1024 patches): counted (the ViT kernel once a tower
+    layer, the training attention forward, dq and dk/dv and both norms' once
+    a norm), its loss and the projector and LLM grads held as phase 24 holds
+    a step (TrainingReferences: within twice the smaller of two noise
+    witnesses; the ViT kernel runs in every route). ms, device ms and peak
+    memory of both; the kernels at their shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from callireader_tpu_torch.core.config import LLMConfig, get_config
+    from callireader_tpu_torch.kernels import attention_bwd as k_bwd
+    from callireader_tpu_torch.kernels import rmsnorm as k_rms
+    from callireader_tpu_torch.models import internlm2, llava, moe
+    from callireader_tpu_torch.train import e_it
+
+    dev = h.dev
+    rng = np.random.RandomState(26)
+
+    # ---------------------------------------------------------- MoE
+    cfg = moe.MoEConfig(llm=dataclasses.replace(LLMConfig(), num_hidden_layers=MOE_LAYERS))
+    L, K = MOE_LAYERS, cfg.num_experts_per_tok
+    params = moe.init_params(cfg, torch.Generator(device=dev).manual_seed(26), device=dev)
+    expert_gb = sum(params["layers"][n].numel() for n in ("w1", "w3", "w2")) * 2 / L / 1e9
+    ids = torch.from_numpy(rng.randint(3, cfg.llm.vocab_size, (MOE_B, MOE_S))).to(dev)
+    seg = torch.zeros((MOE_B, MOE_S), dtype=torch.int32, device=dev)
+    for b, cut in enumerate(MOE_SPLITS):
+        seg[b, cut:] = 1
+    routes, mlp = [], moe._moe_mlp
+
+    def recording_mlp(p, x, c, policy):
+        out, probs = mlp(p, x, c, policy)
+        routes[-1].append(torch.topk(probs, K, dim=-1).indices.sort(dim=-1).values)
+        return out, probs
+
+    def run(use_flash):
+        routes.append([])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), Swap(moe, _moe_mlp=recording_mlp):
+            out = moe.forward(params, cfg, input_ids=ids, segment_ids=seg, use_flash=use_flash,
+                              return_aux_loss=True)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    h.zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with ShapeLog(h.kernels) as shapes:
+        (logits_k, aux_k), first_ms = run(None)
+    launches = h.read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    others = {n: c for n, c in launches.items() if n not in ("flash_attention", "rms_norm_fwd") and c}
+    if launches["flash_attention"] != L or others:
+        fail(f"[moe] launches {launches}: want flash_attention {L} and no other kernel but the norms")
+    h.check_norms("moe", launches, L, 1)
+    ms = run(None)[1]
+    h.zero_counts()
+    with Swap(k_rms, **h.plain_rms):
+        (logits_p, aux_p), plain_ms = run(False)
+    if any(h.read_counts().values()):
+        fail(f"[moe] the plain route launched a kernel: {h.read_counts()}")
+    flips = [(a != b).any(-1) for a, b in zip(routes[0], routes[2])]
+    flipped = torch.stack(flips).any(0).reshape(MOE_B, MOE_S, 1)
+    diff = torch.where(flipped, 0.0, logits_k - logits_p).square().sum().sqrt()
+    ref = torch.where(flipped, 0.0, logits_p).square().sum().sqrt()
+    rel = (diff / ref).item()
+    aux_rel = abs(aux_k.item() - aux_p.item()) / abs(aux_p.item())
+    del logits_k, logits_p, diff, ref
+    log(f"[moe] forward, {L} of 32 layers at E=4096 M=14336 X=8 top-{K} Hq=32 Hkv=8 D=128 vocab "
+        f"{cfg.llm.vocab_size} ({expert_gb:.3f} GB of bf16 experts a layer), B={MOE_B} S={MOE_S}, two "
+        f"segments a row: {first_ms:.1f} ms counted, {ms:.1f} ms again, plain route {plain_ms:.1f} "
+        f"ms (host clock, a sync at each end), peak {peak:.2f} GiB; launches "
+        f"{ {n: c for n, c in launches.items() if c} }; tokens routed to other experts on the plain "
+        f"route by layer {[int(f.sum()) for f in flips]}, {int(flipped.sum())} of {MOE_B * MOE_S} in "
+        f"any layer; the rest's logits rel L2 {rel:.3e}, aux loss {aux_k.item():.6f} / "
+        f"{aux_p.item():.6f} rel {aux_rel:.3e} (tol {MODEL_REL_TOL})")
+    if rel > MODEL_REL_TOL or aux_rel > MODEL_REL_TOL:
+        fail("[moe] the kernel route disagrees with the plain route")
+    del params, routes
+    torch.cuda.empty_cache()
+    h.flash_attention_rows("moe", shapes, launches)
+    h.keep_norms("moe", shapes, launches)
+    del shapes
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- LLaVA
+    cfg = get_config("callireader-2b")
+    L = cfg.llm.num_hidden_layers
+    params = llava.init_llava_params(cfg, torch.Generator(device=dev).manual_seed(27), device=dev)
+    flat = e_it.flatten({"projector": params["projector"], "llm": params["llm"]})
+    for leaf in flat.values():
+        leaf.requires_grad_(True)
+    S = LLAVA_TEXT + 1
+    ids_np = rng.randint(3, cfg.llm.vocab_size, (2, S))
+    for b, at in enumerate(LLAVA_IMAGE_AT):
+        ids_np[b, at] = llava.IMAGE_TOKEN_INDEX
+    labels_np = np.where(ids_np == llava.IMAGE_TOKEN_INDEX, -100, ids_np)
+    labels_np[:, :LLAVA_PROMPT] = -100
+    ids_t, labels_t = (torch.from_numpy(a).to(dev) for a in (ids_np, labels_np))
+    px = torch.from_numpy(rng.randint(0, 256, (2, cfg.vision.image_size, cfg.vision.image_size, 3),
+                                      dtype=np.uint8)).to(dev)
+
+    def loss_and_grads():
+        loss = llava.llava_loss(params, cfg, px, ids_t, labels_t)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        return loss.item(), dict(zip(flat, grads))
+
+    h.zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ShapeLog(h.kernels) as shapes:
+        t0 = time.perf_counter()
+        first = loss_and_grads()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+    launches = h.read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"vit_attention": cfg.vision.num_hidden_layers, "attn_train_fwd": L, "attn_train_dq": L,
+            "attn_train_dkv": L, "rms_norm_fwd": 2 * L + 1, "rms_norm_bwd": 2 * L + 1}
+    if any(launches[n] != want.get(n, 0) for n in launches):
+        fail(f"[llava] launches {launches}, want {want} and 0 elsewhere")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_and_grads()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    kern = profiled(loss_and_grads, torch)[1]
+    dev_ms = sum(us for us, _ in kern.values()) / 1e3
+    S2 = shapes.calls["attn_train_fwd"][0][0][2]
+    log(f"[llava] llava_loss + grads of the projector and the LLM ({len(flat)} leaves), "
+        f"callireader-2b widths ({cfg.vision.num_hidden_layers} ViT / {L} LLM layers), B=2, {S} ids "
+        f"-> S'={S2} with {cfg.vision.num_patches} patches: loss {first[0]:.6f}; {first_ms:.1f} ms "
+        f"counted, {ms:.1f} ms again (host clock, a sync at each end), {dev_ms:.1f} ms of device "
+        f"kernels under the profiler; peak {peak:.2f} GiB; launches {want}")
+    refs = TrainingReferences(h, torch, F, k_bwd, k_rms, internlm2)
+    refs.hold("llava", "llava_loss and the projector and LLM grads", loss_and_grads,
+              loss_tol=1e-3, first=first)
+    del first, params, flat
+    torch.cuda.empty_cache()
+    h.vit_rows("llava", shapes, launches)
+    q_shape, k_shape, _causal, seg = shapes.calls["attn_train_fwd"][0]
+    train_attention_rows(h, f"llava B={q_shape[0]} S={q_shape[2]}", q_shape, k_shape, seg,
+                         launches, k_bwd, F)
+    h.keep_norms("llava", shapes, launches)
+    torch.cuda.empty_cache()
+
+
+def trainers_phase(h):
+    """Phase 27: the asset trainers on the card. OrderFormer: 2 epochs of
+    train_orderformer over OF_LAYOUTS synthetic layouts at batch 64, its loss
+    below the initial one; the detector: DET_STEPS steps at 640 on one batch
+    of 8 synth_calligraphy_pages, the last step's loss below the first;
+    save_npz -> load_npz gives the fp16-rounded leaves bit for bit and the
+    loaded tree runs in the port's Detector; then each script's main with
+    tiny arguments (stdout kept: the scripts print a JSON line)."""
+    import contextlib
+
+    import torch
+
+    from callireader_tpu_torch.core.config import DetectorConfig, OrderFormerConfig
+    from callireader_tpu_torch.models import detector as det
+    from callireader_tpu_torch.models import orderformer as of
+    from callireader_tpu_torch.scripts import train_detector, train_orderformer
+    from callireader_tpu_torch.train import detector_train as dt
+    from callireader_tpu_torch.train import e_it
+
+    dev = h.dev
+    cfg = OrderFormerConfig()
+    boxes, ranks, counts = train_orderformer.build_dataset(cfg, OF_LAYOUTS, 27)
+    params = of.init_params(cfg, torch.Generator(device=dev).manual_seed(27), device=dev)
+    before = of.evaluate_orderformer(params, cfg, boxes, ranks, counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, loss = of.train_orderformer(params, cfg, boxes, ranks, batch_size=OF_BATCH, lr=OF_LR,
+                                      epochs=OF_EPOCHS, seed=27)
+    torch.cuda.synchronize()
+    of_ms = (time.perf_counter() - t0) * 1e3 / (OF_LAYOUTS // OF_BATCH * OF_EPOCHS)
+    after = of.evaluate_orderformer(best, cfg, boxes, ranks, counts)
+    log(f"[trainers] OrderFormer ({cfg.num_layers} layers, E={cfg.model_dim}): {OF_EPOCHS} epochs of "
+        f"{OF_LAYOUTS} layouts at batch {OF_BATCH}, lr {OF_LR}: mse over the layouts "
+        f"{before['loss']:.4f} before, {after['loss']:.4f} after (the best epoch's mean "
+        f"{loss:.4f}), order accuracy {before['order_accuracy']:.4f} -> "
+        f"{after['order_accuracy']:.4f}; {of_ms:.3f} ms a step (host clock, the step's loss read "
+        f"each step)")
+    if not after["loss"] < before["loss"]:
+        fail("[trainers] the OrderFormer's loss did not fall")
+
+    dcfg = DetectorConfig()
+    rng = np.random.RandomState(27)
+    batch = dt.synth_calligraphy_pages(rng, DET_BATCH, DET_SIZE, 128,
+                                       dt.make_glyph_bank(rng, DET_GLYPHS))
+    imgs, gt, mask = (torch.from_numpy(a).to(dev) for a in batch)
+    dparams = e_it.clone_tree(det.init_params(dcfg, torch.Generator(device=dev).manual_seed(27),
+                                              device=dev), True)
+    tc = dt.DetTrainConfig(total_steps=DET_STEPS, learning_rate=2e-3)
+    tx = dt.make_optimizer(tc)
+    opt, step = tx.init(e_it.flatten(dparams)), dt.make_train_step(dcfg, tc, tx)
+    losses, times = [], []
+    for _ in range(DET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dparams, opt, m = step(dparams, opt, imgs, gt, mask)
+        losses.append(m["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"[trainers] detector at {DET_SIZE}, batch {DET_BATCH} ({int(mask.sum())} boxes): losses "
+        f"{[round(x, 4) for x in losses]}; {np.median(times[1:]):.2f} ms a step (median of steps "
+        f"2-{DET_STEPS}, the first {times[0]:.1f} ms; host clock, a sync at each end)")
+    if not losses[-1] < losses[0]:
+        fail("[trainers] the detector's loss did not fall")
+    work = tempfile.mkdtemp(prefix="chip_smoke_trainers_")
+    try:
+        path = os.path.join(work, "det.npz")
+        det.save_npz(path, dparams)
+        loaded, saved = e_it.flatten(det.load_npz(path, dev)), e_it.flatten(dparams)
+        same = sorted(loaded) == sorted(saved) and all(
+            torch.equal(loaded[k], saved[k].detach().half().float()) for k in saved)
+        found = det.Detector(det.load_npz(path, dev), dcfg, dev)(batch[0][0])
+        if not same or not isinstance(found, list):
+            fail("[trainers] save_npz -> load_npz is not the fp16-rounded tree, or the Detector "
+                 "did not run on it")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            t0 = time.time()
+            of_main = train_orderformer.main(["--samples", "64", "--heldout", "16", "--epochs", "1",
+                                              "--batch", "32"])
+            det_main = train_detector.main(["--steps", "2", "--batch", "2", "--size", "320", "--bank",
+                                            "2", "--style", "boxes", "--out",
+                                            os.path.join(work, "main.npz")])
+            mains_s = time.time() - t0
+        printed = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+        if printed != [of_main, det_main]:
+            fail(f"[trainers] the scripts printed {printed}")
+        log(f"[trainers] save_npz -> load_npz: the fp16-rounded leaves bit for bit, the Detector "
+            f"finds {len(found)} boxes on page 0; the scripts' mains in {mains_s:.1f} s: "
+            f"train_orderformer {of_main}, train_detector {det_main}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 
 def main() -> int:
     import torch
@@ -2548,8 +2948,12 @@ def main() -> int:
     # ---------------------------------------------------------- 1. build
     phase("1 build")
     t0 = time.time()
-    logs = _build.build_all(sorted({k.counter.source for k in kernels.values()}), force=True)
-    log(f"built {len(logs)} kernel libraries in {time.time() - t0:.1f} s")
+    logs = _build.build_all(sorted({k.counter.source for k in kernels.values()}) + ["charprep"],
+                            force=True)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    log(f"built {len(logs)} libraries (the kernels with nvcc, the char-prep library with {gxx}) "
+        f"in {time.time() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -3577,6 +3981,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         # ------------------------------------------------------ 24. post-training
         phase("24 post-train")
+        ahead = tile_ahead()  # phase 23's host tiles, made during phases 24 and 17-18
         post_training_phase(h, post, work)
         del post
         gc.collect()
@@ -3589,7 +3994,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     # ---------------------------------------------------------- 23. the evaluation harness
     phase("23 evaluate")
-    evaluate_phase(h)
+    crops, size, char_crops_s = evaluate_phase(h, ahead)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------------- 25-27. char prep, library models, trainers
+    phase("25 char prep")
+    charprep_phase(h, crops, size, char_crops_s)
+    del crops
+    phase("26 llava, moe")
+    library_models_phase(h)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("27 trainers")
+    trainers_phase(h)
     gc.collect()
     torch.cuda.empty_cache()
     # ---------------------------------------------------------- 19. RMSNorm at every path's shapes

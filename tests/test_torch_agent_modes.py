@@ -47,8 +47,8 @@ TOKENIZER = "callireader_tpu/assets/tokenizer.model"
 
 EXPRESSIONS = ["1+2*3", "2^10", "sqrt(2);pi*2", "1/0", "import os", "3//2; 7%3", "-5+abs(-2)",
                "factorial(5)/log(e)", "round(2.567, 1)", "sin(pi/2)+cos(0)", "x+1", "2**0.5"]
-# linear systems: the port's solver (see runtime/plugins.py) prints what the
-# JAX module's sympy route prints
+# linear systems, and inputs that fail to parse: the port's sympy route
+# prints what the JAX module's prints
 SYSTEMS = ["x+y=2, x-y=0", "2x+3y=7; x-y=1", "x=3", "3x=1", "x+y=1,x+y=2", "2*(x+1)=5",
            "0.5x=2", "x+2y+z=4, y-z=1, x+z=2", "a-b=-3, a+b=5", "(x+1)*3=9",
            "x/3+y/4=1, x-y=2", "y=2x+1, y=3", "foo(", "2x=x+1", "-x=4", "x=1.5",
@@ -73,10 +73,12 @@ def test_plugins_match_jax():
 
 @pytest.mark.parametrize("system", ["x^2=4", "x*y=2, x+y=3", "1/x=2", "x+y", "x+y=1,2x+2y=2"])
 def test_solve_refuses_what_is_not_a_determined_linear_system(system):
-    """Nonlinear and underdetermined systems, which the JAX module hands to
-    sympy, give "No result." in the port (pure Python)."""
-    assert jplugins.solve_equations(system) not in ("No result.", "No solution.")
-    assert tplugins.solve_equations(system) == "No result."
+    """Nonlinear and underdetermined systems: the port solves them through
+    sympy, as the JAX module does, and prints the same text (the name is
+    kept from when the port refused them)."""
+    want = jplugins.solve_equations(system)
+    assert want not in ("No result.", "No solution.")
+    assert tplugins.solve_equations(system) == want
 
 
 def test_agent_prompts_are_byte_equal():

@@ -3,8 +3,8 @@ preset (CPU, fp32, the same parameters carried across with from_jax_params):
 ``gray_chars`` (luma or full-RGB crops) and ``device_resize_chars`` (raw
 crops resized on the device, or every crop resized on the host).
 
-Host canvases are held to the JAX engine's PIL route within 3/255 (the
-bound of tests/test_torch_vision.py); the device canvases to the JAX device
+The port's plain host canvases (numpy) are held to the JAX engine's PIL
+route within 3/255 (the bound of tests/test_torch_vision.py); the device canvases to the JAX device
 resize within the bound of tests/test_torch_models.py (at most 1 apart, on
 fewer than 1e-3 of the values). Fed the JAX canvases, the port's char
 pipeline gives the JAX pseudo embeddings within 1e-5 of their largest value
@@ -33,6 +33,8 @@ from callireader_tpu_torch.runtime.engine import CalliReaderEngine as TEngine
 from callireader_tpu_torch.runtime.tokenizer import InternLM2Tokenizer as TTok
 from callireader_tpu_torch.runtime.weights import from_jax_params
 from callireader_tpu_torch.vision import device_resize as tdr
+from callireader_tpu_torch.vision import native as tnative
+from callireader_tpu_torch.vision import preprocess as tpre
 
 OPTIONS = [(True, True), (True, False), (False, True), (False, False)]  # (gray, device resize)
 REL = 1e-5
@@ -91,8 +93,14 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("gray", [True, False])
 def test_host_canvases_match_the_jax_pil_route(params, t_params, monkeypatch, gray):
+    """Both engines' plain host routes: JAX's PIL route (its native library
+    switched off) and the port's numpy route (``load_char_content`` in place
+    of its native library, which tests/test_torch_native_prep.py holds to
+    JAX's byte for byte)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
     jeng, teng = _engines(params, t_params, gray_chars=gray, device_resize_chars=False)
+    monkeypatch.setattr(tnative, "char_content_batch", lambda crops, canvas, lo, hi: np.stack(
+        [tpre.load_char_content(c, teng.char_content_size, canvas=canvas) for c in crops]))
     crops = _crops(0)
     want = {tuple(i): jeng._to_luma(s) for i, s in jeng._prep_char_crop_groups(crops)}
     got = {tuple(i): s for i, s in teng._prep_char_crop_groups(crops)}

@@ -54,7 +54,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "train.templates", "train.sft_data", "train.dpo", "train.reward",
                  "configs.dpo_internlm2_7b", "configs.llava_finetune", "configs.llava_pretrain",
                  "configs.long_context_sp4", "configs.orderformer_train", "configs.orpo_internlm2",
-                 "configs.reward_internlm2", "configs.sft_internlm2_7b"):
+                 "configs.reward_internlm2", "configs.sft_internlm2_7b", "vision.native",
+                 "models.llava", "models.moe", "train.moe_io", "train.detector_train",
+                 "scripts", "scripts.train_orderformer", "scripts.train_detector"):
         assert f"callireader_tpu_torch.{name}" in res["modules"]
     assert res["jax"] == []
     assert res["jax_package"] == []
