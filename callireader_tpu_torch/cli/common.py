@@ -122,7 +122,7 @@ def build_engine(
         if random_components:
             print(f"[engine] random-initializing missing components: {random_components}",
                   file=sys.stderr)
-            rand = weights.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+            rand = weights.init_params(cfg, 0,
                                        dtype=torch.bfloat16, device=dev)
             params.update({n: rand[n] for n in random_components})
             del rand
@@ -136,7 +136,7 @@ def build_engine(
             engine.random_components = random_components
             return engine
         # the base as cli.train draws it (bf16, seed 0), then its adapters
-        params = weights.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+        params = weights.init_params(cfg, 0,
                                      dtype=torch.bfloat16, device=dev)
     else:
         raise FileNotFoundError(f"checkpoint_dir {checkpoint_dir!r} not found; pass "

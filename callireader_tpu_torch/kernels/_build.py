@@ -227,6 +227,16 @@ def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def refuse_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """A kernel with no backward writes into a tensor autograd never sees, so
+    a wrapper that launched it on an input requiring grad would cut the
+    gradient without a word: it raises instead (while grad is enabled). The
+    caller asks for the differentiable plain version by name."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} has no backward: its input requires grad; call its plain "
+                           f"version, or run under torch.no_grad()")
+
+
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")

@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr
+from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr, refuse_grad
 
 KERNEL = CudaKernel(
     "flash_attention", "flash_attention_launch",
@@ -118,4 +118,5 @@ def flash_attention(
             q, k, v, causal=causal, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, scale=scale, q_offset=q_offset,
         )
+    refuse_grad("flash_attention", q, k, v)
     return _launch(q, k, v, causal, q_segment_ids, kv_segment_ids, scale, q_offset)

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from callireader_tpu_torch.kernels._build import CudaKernel
+from callireader_tpu_torch.kernels._build import CudaKernel, refuse_grad
 
 KERNEL = CudaKernel(
     "flash_decode", "flash_decode_launch",
@@ -132,4 +132,5 @@ def flash_decode(
         scale = q.shape[-1] ** -0.5
     if q.is_cpu:
         return flash_decode_reference(q, cache_k, cache_v, layer_idx, valid_mask, scale=scale)
+    refuse_grad("flash_decode", q, cache_k, cache_v)
     return _launch(q, cache_k, cache_v, layer_idx, valid_mask, scale)

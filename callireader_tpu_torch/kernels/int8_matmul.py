@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr
+from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr, refuse_grad
 
 KERNEL = CudaKernel("int8_matmul", "int8_matmul_kn_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
 KERNEL_NT = CudaKernel("int8_matmul", "int8_matmul_nt_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
@@ -97,6 +97,7 @@ def int8_matmul(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     """h (M, K) @ dequant(q (K, N) int8, scale (N,) fp32) -> (M, N) in h.dtype."""
     if h.device.type == "cpu":
         return int8_matmul_reference(h, q, scale)
+    refuse_grad("int8_matmul", h, scale)
     return _launch(h, q, scale)
 
 
@@ -104,4 +105,5 @@ def int8_matmul_nt(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
     """h (M, K) @ dequant(q (N, K) int8, per-row scale (N,)).T -> (M, N)."""
     if h.device.type == "cpu":
         return int8_matmul_nt_reference(h, q, scale)
+    refuse_grad("int8_matmul_nt", h, scale)
     return _launch_nt(h, q, scale)

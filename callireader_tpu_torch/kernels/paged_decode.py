@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr
+from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr, refuse_grad
 from callireader_tpu_torch.kernels.decode_attention import SUPPORTED_SHAPES, flash_decode_reference
 
 KERNEL = CudaKernel(
@@ -114,4 +114,5 @@ def paged_flash_decode(
     if q.device.type == "cpu":
         return paged_flash_decode_reference(q, kpool, vpool, layer_idx, page_table, valid,
                                             scale=scale)
+    refuse_grad("paged_flash_decode", q, kpool, vpool)
     return _launch(q, kpool, vpool, layer_idx, page_table, valid, scale)

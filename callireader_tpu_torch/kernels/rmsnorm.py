@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr
+from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr, refuse_grad
 
 SOURCE = "rmsnorm"
 _FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int]
@@ -203,7 +203,11 @@ def _bwd(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, dy: torch.Tensor, mo
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, mode: str = "model") -> torch.Tensor:
-    """Forward only (no autograd): x (..., E), w (E,) -> y in x's dtype."""
+    """Forward only (no autograd): x (..., E), w (E,) -> y in x's dtype. On
+    CUDA an input that requires grad raises (``rms_norm_trainable`` has the
+    backward)."""
+    if not x.is_cpu:
+        refuse_grad("rms_norm", x, w)
     return _fwd(x, w, eps, mode, False)[0]
 
 

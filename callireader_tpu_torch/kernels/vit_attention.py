@@ -23,7 +23,8 @@ tensor cores (wgmma, csrc/flash_common.cuh), the softmax weights split into
 two bf16 parts so that the output holds the fp32 plain version's tolerance.
 
 ``vit_attention_reference`` is the plain PyTorch version: the wrapper uses it
-for CPU tensors only; for a CUDA tensor it launches the kernel or raises.
+for CPU tensors only; for a CUDA tensor it launches the kernel or raises (on
+an input that requires grad too: the kernel has no backward).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr
+from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr, refuse_grad
 
 KERNEL = CudaKernel(
     "vit_attention", "vit_attention_launch",
@@ -83,6 +84,7 @@ def attention_from_packed_qkv_nomax(
         scale = D**-0.5
     if qkv.device.type == "cpu":
         return vit_attention_reference(qkv, num_heads, scale=scale)
+    refuse_grad("vit_attention", qkv)
     return _launch(qkv, num_heads, scale)
 
 

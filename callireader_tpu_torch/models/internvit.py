@@ -6,27 +6,34 @@ unchanged. NHWC pixels; the stride == kernel patch conv is a reshape and one
 matmul; pre-norm layers with layer-scale ls1/ls2 and exact-erf GELU.
 Attention goes through ``kernels.vit_attention`` straight from the packed
 (B, S, 3E) projection. The layer linears run W8A8 where the tree holds
-int8 leaves (runtime/quantize.quantize_vit_int8, ``--quant int8-all``); the
-port's towers carry no LoRA, so the JAX linear's adapter delta has no
-counterpart here.
+int8 leaves (runtime/quantize.quantize_vit_int8, ``--quant int8-all``).
+
+Training (the CalliAlign trainer, train/callialign_train.py) reaches the
+same forward with ``lora`` deltas over the four big matrices, ``remat``
+(``torch.utils.checkpoint`` per layer) and the differentiable plain
+attention (``attn_impl="reference"``): the kernel has no backward, and its wrapper raises on an input that requires grad.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from callireader_tpu_torch.core.config import VisionConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
-from callireader_tpu_torch.kernels.vit_attention import attention_from_packed_qkv_nomax
+from callireader_tpu_torch.kernels.vit_attention import (
+    attention_from_packed_qkv_nomax, vit_attention_reference,
+)
 from callireader_tpu_torch.vision import resample
 
 Params = Dict[str, Any]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+VIT_LORA_MATS = ("qkv", "proj", "fc1", "fc2")
 
 
 def layer_norm(x, scale, bias, eps: float, policy: DTypePolicy) -> torch.Tensor:
@@ -93,19 +100,45 @@ def int8_product(hq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x, q)[:m].reshape(*hq.shape[:-1], q.shape[-1])
 
 
-def _linear(lp: Params, i: int, h: torch.Tensor, name: str) -> torch.Tensor:
+def _linear(lp: Params, i: int, h: torch.Tensor, name: str, lora: Optional[Params] = None,
+            lora_scale: float = 1.0) -> torch.Tensor:
     """Layer ``i``'s ``name`` linear: bf16 (or the compute dtype), or W8A8 on
     ``{name}_kernel_q`` + ``{name}_kernel_scale``: the activations quantized
     per token, an int8 x int8 -> int32 product, then the activation scale
-    times the weight scale, and the bias."""
+    times the weight scale, and the bias. ``lora``: {name_a: (L, in, r),
+    name_b: (L, r, out)} adds ``lora_scale * (h @ A) @ B`` in the compute
+    dtype before the bias, as the JAX linear does."""
     cd = h.dtype
     q = lp.get(f"{name}_kernel_q")
     if q is None:
-        return h @ lp[f"{name}_kernel"][i].to(cd) + lp[f"{name}_bias"][i].to(cd)
-    hq, hs = quantize_rows(h)
-    # int32 * fp32 promotes to fp32: (y * hs) * scale in fp32, as in JAX
-    y = torch.mul(int8_product(hq, q[i]), hs).mul_(lp[f"{name}_kernel_scale"][i])
-    return y.to(cd).add_(lp[f"{name}_bias"][i].to(cd))
+        y = h @ lp[f"{name}_kernel"][i].to(cd)
+    else:
+        hq, hs = quantize_rows(h)
+        # int32 * fp32 promotes to fp32: (y * hs) * scale in fp32, as in JAX
+        y = torch.mul(int8_product(hq, q[i]), hs).mul_(lp[f"{name}_kernel_scale"][i]).to(cd)
+    if lora is not None:
+        d = (h @ lora[f"{name}_a"][i].to(cd)) @ lora[f"{name}_b"][i].to(cd)
+        y = y + (lora_scale * d).to(y.dtype)
+    if q is None:
+        return y + lp[f"{name}_bias"][i].to(cd)
+    return y.add_(lp[f"{name}_bias"][i].to(cd))
+
+
+def _layer(lp: Params, i: int, x: torch.Tensor, cfg: VisionConfig, policy: DTypePolicy,
+           attend, lora: Optional[Params], lora_scale: float) -> torch.Tensor:
+    eps = cfg.layer_norm_eps
+    cd = policy.compute_dtype
+    h = layer_norm(x, lp["norm1_scale"][i], lp["norm1_bias"][i], eps, policy)
+    qkv = _linear(lp, i, h, "qkv", lora, lora_scale)
+    ctx = attend(qkv.contiguous(), cfg.num_attention_heads)
+    ctx = _linear(lp, i, ctx, "proj", lora, lora_scale)
+    x = x + ctx * lp["ls1"][i].to(cd)
+
+    h = layer_norm(x, lp["norm2_scale"][i], lp["norm2_bias"][i], eps, policy)
+    h = _linear(lp, i, h, "fc1", lora, lora_scale)
+    h = F.gelu(h, approximate="none")
+    h = _linear(lp, i, h, "fc2", lora, lora_scale)
+    return x + h * lp["ls2"][i].to(cd)
 
 
 def forward(
@@ -114,8 +147,23 @@ def forward(
     pixel_values: torch.Tensor,  # (B, H, W, C) NHWC, uint8 or float
     *,
     policy: DTypePolicy = DEFAULT_POLICY,
+    attn_impl: Optional[str] = None,
+    lora: Optional[Params] = None,
+    lora_scale: float = 1.0,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Returns the last hidden state (B, 1 + num_patches, E)."""
+    """Returns the last hidden state (B, 1 + num_patches, E).
+
+    Attention runs through kernels.vit_attention (the kernel on the card,
+    its plain version on CPU tensors) unless ``attn_impl="reference"`` asks
+    for the plain version, which autograd can differentiate. ``lora``: {name_a: (L, in, r), name_b: (L, r, out)}
+    deltas over the VIT_LORA_MATS matrices (the JAX forward's functional
+    LoRA). ``remat``: each layer under ``torch.utils.checkpoint``, its
+    activations recomputed in the backward (``jax.checkpoint`` of the JAX
+    scan body)."""
+    if attn_impl not in (None, "reference"):
+        raise ValueError(f"attn_impl {attn_impl!r}: the port has the kernel (None) and "
+                         f"'reference'")
     B, H, W, _ = pixel_values.shape
     P = cfg.patch_size
     gh, gw = H // P, W // P
@@ -130,19 +178,12 @@ def forward(
     x = torch.cat([cls, x], dim=1)
     x = x + interp_pos_embed(params["pos_embed"], gh, gw, base).to(cd)
 
+    attend = vit_attention_reference if attn_impl == "reference" else attention_from_packed_qkv_nomax
     lp = params["layers"]
-    Hn = cfg.num_attention_heads
-    eps = cfg.layer_norm_eps
     for i in range(cfg.num_hidden_layers):
-        h = layer_norm(x, lp["norm1_scale"][i], lp["norm1_bias"][i], eps, policy)
-        qkv = _linear(lp, i, h, "qkv")
-        ctx = attention_from_packed_qkv_nomax(qkv.contiguous(), Hn)
-        ctx = _linear(lp, i, ctx, "proj")
-        x = x + ctx * lp["ls1"][i].to(cd)
-
-        h = layer_norm(x, lp["norm2_scale"][i], lp["norm2_bias"][i], eps, policy)
-        h = _linear(lp, i, h, "fc1")
-        h = F.gelu(h, approximate="none")
-        h = _linear(lp, i, h, "fc2")
-        x = x + h * lp["ls2"][i].to(cd)
+        if remat:
+            x = checkpoint(_layer, lp, i, x, cfg, policy, attend, lora, lora_scale,
+                           use_reentrant=False)
+        else:
+            x = _layer(lp, i, x, cfg, policy, attend, lora, lora_scale)
     return x

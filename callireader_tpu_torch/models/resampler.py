@@ -5,12 +5,13 @@ callireader_tpu/models/resampler.py).
 queries cross-attend over concat(media, learns), then a LayerNorm-MLP; a
 final LayerNorm and, for the compact tower, a dim -> out_dim projection into
 the token-table space. The attention here is a (3 x ~260) product per head:
-plain torch ops, as the JAX package left it to XLA.
+plain torch ops, as the JAX package left it to XLA. ``lora`` adds the
+CalliAlign trainer's functional deltas over LORA_MATS.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +22,7 @@ from callireader_tpu_torch.models.internvit import layer_norm
 
 Params = Dict[str, Any]
 LN_EPS = 1e-5
+LORA_MATS = ("to_q", "to_kv", "to_out", "ff1", "ff2")
 
 
 def forward(
@@ -29,8 +31,13 @@ def forward(
     x: torch.Tensor,
     *,
     policy: DTypePolicy = DEFAULT_POLICY,
+    lora: Optional[Params] = None,
+    lora_scale: float = 1.0,
 ) -> torch.Tensor:
-    """-> (B, num_learns, dim or out_dim)."""
+    """-> (B, num_learns, dim or out_dim). ``lora``: {name_a: (L, in, r),
+    name_b: (L, r, out)} float32 deltas over the LORA_MATS matrices, applied
+    as ``(h @ A) @ B`` in float32 and added in the compute dtype, as the JAX
+    forward does (the trainer never materialises the merged matrices)."""
     B = x.shape[0]
     H, Dh = cfg.heads, cfg.dim_head
     scale = Dh**-0.5
@@ -42,23 +49,30 @@ def forward(
     def heads(t):
         return t.reshape(B, t.shape[1], H, Dh).transpose(1, 2)
 
+    def mm(h, i, name):
+        out = h @ lp[name][i].to(cd)
+        if lora is not None:
+            d = (h.float() @ lora[name + "_a"][i]) @ lora[name + "_b"][i]
+            out = out + (lora_scale * d).to(out.dtype)
+        return out
+
     for i in range(cfg.depth):
         xm = layer_norm(x, lp["norm_media_scale"][i], lp["norm_media_bias"][i], LN_EPS, policy)
         ln = layer_norm(learns, lp["norm_learns_scale"][i], lp["norm_learns_bias"][i], LN_EPS, policy)
-        q = ln @ lp["to_q"][i].to(cd)
-        kv = torch.cat([xm, ln], dim=1) @ lp["to_kv"][i].to(cd)
+        q = mm(ln, i, "to_q")
+        kv = mm(torch.cat([xm, ln], dim=1), i, "to_kv")
         k, v = kv.chunk(2, dim=-1)
         q, k, v = heads(q), heads(k), heads(v)
         sim = (q * scale).float() @ k.float().transpose(-1, -2)
-        sim = sim - sim.amax(dim=-1, keepdim=True)
+        sim = sim - sim.amax(dim=-1, keepdim=True).detach()
         attn = torch.softmax(sim, dim=-1).to(v.dtype)
         out = (attn @ v).transpose(1, 2).reshape(B, -1, H * Dh)
-        learns = out @ lp["to_out"][i].to(cd) + learns
+        learns = mm(out, i, "to_out") + learns
 
         h = layer_norm(learns, lp["ff_norm_scale"][i], lp["ff_norm_bias"][i], LN_EPS, policy)
-        h = h @ lp["ff1"][i].to(cd) + lp["ff1_bias"][i].to(cd)
+        h = mm(h, i, "ff1") + lp["ff1_bias"][i].to(cd)
         h = F.gelu(h, approximate="none")
-        h = h @ lp["ff2"][i].to(cd) + lp["ff2_bias"][i].to(cd)
+        h = mm(h, i, "ff2") + lp["ff2_bias"][i].to(cd)
         learns = learns + h
     learns = layer_norm(learns, params["norm_scale"], params["norm_bias"], LN_EPS, policy)
     if cfg.out_dim is not None:

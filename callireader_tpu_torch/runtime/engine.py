@@ -174,12 +174,15 @@ class CalliReaderEngine:
         return self._encode_tower(p["vision"], p["projector"], self.cfg.vision, pixel_values)
 
     def _char_encode(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        """The compact char tower when configured, else the tile tower."""
+        """The compact char tower when configured; else a ``char_vision``
+        overlay over the tile-tower architecture (a v2 CalliAlign asset),
+        else the tile tower."""
         p = self.params
         if self.cfg.char_vision is not None:
             return self._encode_tower(p["char_vision"], p["char_projector"],
                                       self.cfg.char_vision, pixel_values)
-        return self._encode_tower(p["vision"], p["projector"], self.cfg.vision, pixel_values)
+        return self._encode_tower(p.get("char_vision", p["vision"]), p["projector"],
+                                  self.cfg.vision, pixel_values)
 
     def _resample_vq(self, feats: torch.Tensor, hard_vq: bool = False):
         """(N, tok, dim) -> (pseudo embeds (N*3, E), indices (N, 3))."""
@@ -1020,8 +1023,7 @@ def build_engine(
         raise ValueError(f"quant={quant!r}: the port has None (bf16), 'int8' and 'int8-all'")
     dev = require_device(device)
     cfg = get_config(preset)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    params = weights.init_params(cfg, g, dtype=torch.bfloat16, device=dev,
+    params = weights.init_params(cfg, seed, dtype=torch.bfloat16, device=dev,
                                  llm_int8=quant is not None)
     if quant is not None:
         params["llm"], llm_cfg = internlm2.pad_vocab(params["llm"], cfg.llm, 128)

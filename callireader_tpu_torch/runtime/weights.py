@@ -5,8 +5,9 @@ committed trained assets.
 The port keeps the JAX package's parameter tree (same keys, layers stacked
 on axis 0, kernels (in, out), detector convolutions HWIO), so
 ``from_jax_params`` is a leaf-wise numpy -> torch move. ``init_params``
-draws every component at full width from one ``torch.Generator`` (the
-numbers differ from jax.random's; a torch seed is its own reference). The
+draws every component at full width, each from its own generators derived
+from the seed and the component's slot (``draw_key``; the numbers differ from
+jax.random's, a torch seed is its own reference). The
 loaders read the npz assets under callireader_tpu/assets by path.
 
 The deployed reference checkpoint (InternVL/model.safetensors.index.json)
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 import os
 import zipfile
 from pathlib import Path
@@ -438,33 +440,143 @@ def init_resampler(r: _Init, cfg: ResamplerConfig) -> Dict[str, Any]:
     }
 
 
-def init_params(cfg: VLMConfig, generator: torch.Generator, dtype=torch.bfloat16,
+# each component's slot in the JAX init_all_params: its index in
+# jax.random.split(key, 7), and the fold_in data of the compact char tower
+COMPONENT_SLOTS = {"llm": 0, "vision": 1, "projector": 2, "resampler": 3, "orderformer": 4,
+                   "detector": 5, "align": 6, "char_vision": 101, "char_projector": 102}
+SLOT_SPAN = 256  # > every slot
+LEAF_SPAN = 256  # > the leaves one component draws
+BLOCK = 1 << 22  # elements one host generator draws
+BLOCK_SPAN = 4096  # > the blocks of one leaf (leaves below 2^34 elements)
+MAX_SEED = 2**64 // (SLOT_SPAN * LEAF_SPAN * BLOCK_SPAN)  # every key then fits in uint64
+
+
+def draw_key(seed: int, name: str, leaf: int = 0, block: int = 0) -> int:
+    """The generator seed of block ``block`` of leaf ``leaf`` of component
+    ``name`` for engine seed ``seed``: the four numbers as digits of one
+    integer, each below its span, so two draws never share a generator seed
+    (the map is one to one for 0 <= seed < MAX_SEED). Leaf 0 block 0 seeds
+    ``component_generator``; the host-drawn leaves count from 1."""
+    if not 0 <= seed < MAX_SEED:
+        raise ValueError(f"seed {seed} is outside [0, {MAX_SEED})")
+    if not (0 <= leaf < LEAF_SPAN and 0 <= block < BLOCK_SPAN):
+        raise ValueError(f"leaf {leaf} / block {block} outside {LEAF_SPAN} / {BLOCK_SPAN}")
+    return ((seed * SLOT_SPAN + COMPONENT_SLOTS[name]) * LEAF_SPAN + leaf) * BLOCK_SPAN + block
+
+
+def component_generator(seed: int, name: str, device) -> torch.Generator:
+    """One generator for the whole of component ``name``, on ``device``."""
+    return torch.Generator(device=device).manual_seed(draw_key(seed, name))
+
+
+class _HostInit(_Init):
+    """The draws of one component that do not depend on the device: torch's
+    CPU (mt19937) and CUDA (Philox) generators give different streams, so
+    each normal / uniform leaf is drawn on the host in float32, in blocks of
+    BLOCK elements, block j of leaf i from a CPU generator seeded with
+    ``draw_key(seed, name, i, j)``. Each block is scaled and cast on the
+    host (IEEE float32 products, a round-to-nearest-even cast) and copied
+    into the leaf on the device; the blocks run in threads, so one block's
+    copy overlaps the others' draws."""
+
+    def __init__(self, seed: int, name: str, device, dtype):
+        super().__init__(None, device, dtype)
+        self.seed, self.name, self.leaf = seed, name, 0
+
+    def _host(self, shape, dtype, fill, finish) -> torch.Tensor:
+        self.leaf += 1
+        leaf, out = self.leaf, torch.empty(shape, dtype=dtype, device=self.device)
+        flat = out.view(-1)
+
+        def draw(j):
+            blk = flat[j * BLOCK:(j + 1) * BLOCK]
+            g = torch.Generator().manual_seed(draw_key(self.seed, self.name, leaf, j))
+            x = fill(torch.empty(blk.numel(), dtype=torch.float32), g)
+            blk.copy_(finish(x).to(dtype))
+
+        n = -(-flat.numel() // BLOCK)
+        with ThreadPoolExecutor(max(1, min(n, torch.get_num_threads()))) as pool:
+            list(pool.map(draw, range(n)))
+        return out
+
+    def normal(self, shape, std=1.0, dtype=None):
+        return self._host(shape, dtype or self.dtype, lambda x, g: x.normal_(generator=g),
+                          lambda x: x * std)
+
+    def uniform(self, shape, bound, dtype=torch.float32):
+        return self._host(shape, dtype, lambda x, g: x.uniform_(generator=g),
+                          lambda x: (2 * x - 1) * bound)
+
+
+def draw_vision(cfg: VisionConfig, seed: int, *, dtype=torch.bfloat16, device="cuda",
+                name: str = "vision") -> Dict[str, Any]:
+    """Component ``name`` (the tile tower, or ``char_vision``) of the
+    engine drawn for ``seed``."""
+    return init_vision(_HostInit(seed, name, device, dtype), cfg)
+
+
+def draw_resampler(cfg: ResamplerConfig, seed: int, *, dtype=torch.bfloat16,
+                   device="cuda") -> Dict[str, Any]:
+    """The engine's resampler drawn for ``seed``."""
+    return init_resampler(_HostInit(seed, "resampler", device, dtype), cfg)
+
+
+def draw_projector(cfg: VLMConfig, seed: int, *, dtype=torch.bfloat16,
+                   device="cuda") -> Dict[str, Any]:
+    """The engine's tile-tower projector drawn for ``seed``."""
+    return init_projector(_HostInit(seed, "projector", device, dtype), cfg)
+
+
+def draw_align_table(vocab_size: int, hidden_size: int, seed: int, *, dtype=torch.bfloat16,
+                     device="cuda") -> torch.Tensor:
+    """The engine's ``align.normed_emb`` (vocab_size, hidden_size) drawn for
+    ``seed``: N(0, 1) in float32, cast."""
+    return _HostInit(seed, "align", device, dtype).normal((vocab_size, hidden_size))
+
+
+def init_params(cfg: VLMConfig, seed: int = 0, dtype=torch.bfloat16,
                 device="cuda", *, llm_int8: bool = False) -> Dict[str, Any]:
     """Seeded full-width random init of the whole engine tree (the JAX
-    engine's ``init_all_params`` layout). Detector and OrderFormer are fp32.
+    engine's ``init_all_params`` layout). Each component draws from its own
+    generators (``draw_key``), so no other component's depth, width or dtype
+    moves it, as in the JAX package, whose components each take their own
+    key. Every component but the LLM is drawn on the host (``_HostInit``;
+    the OrderFormer and detector, fp32, by one CPU generator each) and is
+    the same on every device. The LLM is drawn on the device by
+    ``component_generator(seed, "llm", device)``, so its numbers differ
+    between the CPU and the card (an 8B drawn on the host would take
+    minutes): no trained asset reads it, and a ``cli.train --random-init``
+    adapter merges onto its own base only on the kind of device that
+    trained it.
     ``llm_int8``: the LLM is drawn directly as int8 + scales in the fused
     layout (runtime/quantize.init_llm_int8), never as a bf16 tree."""
-    r = _Init(generator, device, dtype)
-    V, E = cfg.llm.vocab_size, cfg.llm.hidden_size
-    llm = (quantize.init_llm_int8(cfg.llm, generator, dtype=dtype, device=device) if llm_int8
-           else init_llm(r, cfg.llm))
+    llm_gen = component_generator(seed, "llm", device)
+    llm = (quantize.init_llm_int8(cfg.llm, llm_gen, dtype=dtype, device=device) if llm_int8
+           else init_llm(_Init(llm_gen, device, dtype), cfg.llm))
+    V = cfg.llm.vocab_size
+    host = lambda name: component_generator(seed, name, "cpu")  # noqa: E731
     out = {
         "llm": llm,
-        "vision": init_vision(r, cfg.vision),
-        "projector": init_projector(r, cfg),
-        "resampler": init_resampler(r, cfg.resampler),
-        "orderformer": orderformer_mod.init_params(cfg.orderformer, generator, device=device),
-        "detector": detector_mod.init_params(cfg.detector, generator, device=device),
+        "vision": draw_vision(cfg.vision, seed, dtype=dtype, device=device),
+        "projector": draw_projector(cfg, seed, dtype=dtype, device=device),
+        "resampler": draw_resampler(cfg.resampler, seed, dtype=dtype, device=device),
+        "orderformer": tree_to(orderformer_mod.init_params(cfg.orderformer, host("orderformer"),
+                                                           device="cpu"), None, device),
+        "detector": tree_to(detector_mod.init_params(cfg.detector, host("detector"),
+                                                     device="cpu"), None, device),
         "align": {
-            "normed_emb": r.normal((V, E)),
-            "mu": r.zeros((V,), torch.float32),
-            "sigma": r.ones((V,), torch.float32),
+            "normed_emb": draw_align_table(V, cfg.llm.hidden_size, seed, dtype=dtype,
+                                           device=device),
+            "mu": torch.zeros((V,), dtype=torch.float32, device=device),
+            "sigma": torch.ones((V,), dtype=torch.float32, device=device),
         },
     }
     if cfg.char_vision is not None:
-        out["char_vision"] = init_vision(r, cfg.char_vision)
+        out["char_vision"] = draw_vision(cfg.char_vision, seed, dtype=dtype, device=device,
+                                         name="char_vision")
         out["char_projector"] = init_projector(
-            r, cfg, vit_hidden=cfg.char_vision.hidden_size, out_dim=cfg.resampler.dim)
+            _HostInit(seed, "char_projector", device, dtype), cfg,
+            vit_hidden=cfg.char_vision.hidden_size, out_dim=cfg.resampler.dim)
     return out
 
 
@@ -528,10 +640,12 @@ def overlay_trained_assets(params: Dict, cfg: VLMConfig, *, dtype, device,
                            names: Sequence[str] = TRAINED_ASSETS,
                            replaceable: Optional[Collection[str]] = None,
                            ) -> Tuple[VLMConfig, List[str]]:
-    """The committed detector, OrderFormer and compact CalliAlign tower (those
-    of them in ``names``) over the components drawn at random, where the
-    preset's architecture matches them (the JAX
-    cli/common._overlay_trained_assets rule). ``replaceable``: the
+    """The committed detector, OrderFormer and CalliAlign asset (those of them
+    in ``names``) over the components drawn at random, where the preset's
+    architecture matches them (the JAX cli/common._overlay_trained_assets
+    rule). A v3 CalliAlign asset brings the compact tower and its
+    architecture; a v1 / v2 asset is merged over the seed-0 resampler (v2:
+    and the seed-0 tile ViT, as ``char_vision``). ``replaceable``: the
     components drawn at random (None: every one an asset replaces); a
     component loaded from a checkpoint is never replaced. Returns (cfg,
     loaded names)."""
@@ -555,8 +669,13 @@ def overlay_trained_assets(params: Dict, cfg: VLMConfig, *, dtype, device,
             loaded.append("orderformer")
     ca = ASSETS_DIR / "callialign.npz"
     if ("callialign" in names and cfg.resampler == ResamplerConfig() and cfg.char_vision is None
-            and cfg.llm.hidden_size == 4096 and ca.exists() and asset_version(ca) >= 3):
-        stack, cfg, _meta = apply_v3_asset(cfg, ca, dtype, device)
-        params.update(stack)
+            and cfg.llm.hidden_size == 4096 and ca.exists()):
+        if asset_version(ca) >= 3:  # the compact tower: its params and its architecture
+            stack, cfg, _meta = apply_v3_asset(cfg, ca, dtype, device)
+            params.update(stack)
+        else:  # v1 / v2: deltas over the seed-0 resampler (and tile ViT, as char_vision)
+            from callireader_tpu_torch.train import callialign_train
+
+            params.update(callialign_train.apply_asset(cfg, ca, dtype, device))
         loaded.append("callialign")
     return cfg, loaded

@@ -194,20 +194,22 @@ def join_schedules(schedules: Sequence[Callable[[int], float]],
     return schedule
 
 
-def warmup_cosine_schedule(peak: float, warmup: int, total_steps: int) -> Callable[[int], float]:
-    """optax.warmup_cosine_decay_schedule(0, peak, warmup, total_steps, 0):
-    linear from 0 to peak over warmup steps, then a cosine to 0 at
-    total_steps."""
+def warmup_cosine_schedule(peak: float, warmup: int, total_steps: int,
+                           end_value: float = 0.0) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup, total_steps,
+    end_value): linear from 0 to peak over warmup steps, then a cosine to
+    end_value at total_steps, flat after."""
     decay = total_steps - warmup
     if decay <= 0:
         raise ValueError(f"the cosine decay needs total_steps > warmup ({total_steps} "
                          f"<= {warmup})")
+    alpha = end_value / peak if peak else 0.0
 
     def schedule(count: int) -> float:
         if count < warmup:
             return peak * min(max(count, 0), warmup) / warmup
         t = min(count - warmup, decay)
-        return peak * 0.5 * (1 + math.cos(math.pi * t / decay))
+        return peak * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / decay)) + alpha)
 
     return schedule
 

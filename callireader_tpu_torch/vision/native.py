@@ -6,7 +6,11 @@ callireader_tpu/vision/native.py).
 kernels/_build.py's staleness cache, into ``_build/libcharprep.so``. It runs
 the batched crop -> scale -> centre-pad-white pipeline of the host char
 route over a thread pool, each crop written by one thread, so the thread
-count changes no byte. Outputs are within 2/255 of PIL's bicubic (the
+count changes no byte. The library pastes each row without clipping, so a
+content wider than the canvas would be written past its crop's canvas
+(into the neighbour's, or before the array for the first crop, at a place
+that depends on the threads' order): ``char_content_batch`` refuses such a
+crop, as ``preprocess.load_char_content`` does. Outputs are within 2/255 of PIL's bicubic (the
 library convolves in double precision where PIL uses int16 fixed point).
 
 A failed build or load raises with the compiler's or the loader's message:
@@ -61,6 +65,14 @@ def resize_bicubic(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
     return out
 
 
+def content_dims(h: int, w: int, lo: int, hi: int):
+    """The library's scaled (rows, cols) of an h x w crop: its longest edge
+    brought into [lo, hi], each side truncated, at least 1."""
+    m = max(h, w)
+    scale = lo / m if m <= lo else hi / m if m >= hi else 1.0
+    return max(int(h * scale), 1), max(int(w * scale), 1)
+
+
 def char_content_batch(
     crops: List[np.ndarray], canvas: int, lo: int, hi: int, nthreads: int = 0
 ) -> np.ndarray:
@@ -69,6 +81,10 @@ def char_content_batch(
     lib = get_lib()
     n = len(crops)
     crops = [np.ascontiguousarray(c, np.uint8) for c in crops]
+    for c in crops:
+        nh, nw = content_dims(c.shape[0], c.shape[1], lo, hi)
+        if max(nh, nw) > canvas:
+            raise ValueError(f"canvas {canvas} cannot hold a {nw}x{nh} char")
     packed = np.concatenate([c.reshape(-1) for c in crops])
     offsets = np.zeros(n, np.int64)
     shs = np.zeros(n, np.int32)

@@ -16,6 +16,15 @@ Two families, both as explicit separable weights:
     22-bit fixed point), a horizontal pass then a vertical pass, each
     rounding to uint8. A pass whose size does not change is skipped, as
     Pillow does.
+
+(c) The rest of the CalliAlign augmentation's Pillow calls on 8-bit grey
+    images, in numpy: ``Image.rotate(angle, BILINEAR, expand=True,
+    fillcolor)`` (Pillow's expanded canvas and affine, Geometry.c's bilinear
+    sample in float64), ``ImageFilter.MinFilter`` / ``MaxFilter`` (edge
+    pixels repeated, as ``Image.expand`` does) and ``GaussianBlur(r)``
+    (BoxBlur.c: three passes of the extended box blur a direction, its
+    radius and 24-bit fixed-point weights from the float32 arithmetic of
+    ``_gaussian_blur_radius``).
 """
 
 from __future__ import annotations
@@ -149,3 +158,114 @@ def pil_resize(img: np.ndarray, size: Tuple[int, int], method: str) -> np.ndarra
     if out_h != x.shape[0]:
         x = _pass(x, out_h, 0, method)
     return x.copy() if x is img else x
+
+
+# ----------------------------------------------------------------- (c) PIL
+
+
+def _affine(x, y, m):
+    a, b, c, d, e, f = m
+    return a * x + b * y + c, d * x + e * y + f
+
+
+def pil_rotate(img: np.ndarray, angle: float, fillcolor: int = 255) -> np.ndarray:
+    """PIL ``Image.rotate(angle, resample=BILINEAR, expand=True,
+    fillcolor=fillcolor)`` on a uint8 (h, w) array."""
+    angle = angle % 360.0
+    h, w = img.shape
+    if angle == 0:
+        return img.copy()
+    if angle == 180:
+        return img[::-1, ::-1].copy()
+    if angle in (90, 270):
+        return np.ascontiguousarray(np.rot90(img, 1 if angle == 90 else -1))
+    cx, cy = w / 2, h / 2
+    rad = -math.radians(angle)
+    m = [round(math.cos(rad), 15), round(math.sin(rad), 15), 0.0,
+         round(-math.sin(rad), 15), round(math.cos(rad), 15), 0.0]
+    m[2], m[5] = _affine(-cx, -cy, m)
+    m[2] += cx
+    m[5] += cy
+    xx, yy = zip(*(_affine(x, y, m) for x, y in ((0, 0), (w, 0), (w, h), (0, h))))
+    nw = math.ceil(max(xx)) - math.floor(min(xx))
+    nh = math.ceil(max(yy)) - math.floor(min(yy))
+    m[2], m[5] = _affine(-(nw - w) / 2.0, -(nh - h) / 2.0, m)
+    # every output pixel's source point (pixel centres, float64)
+    ox = np.arange(nw, dtype=np.float64)[None, :] + 0.5
+    oy = np.arange(nh, dtype=np.float64)[:, None] + 0.5
+    xin = m[0] * ox + m[1] * oy + m[2]
+    yin = m[3] * ox + m[4] * oy + m[5]
+    inside = (xin >= 0.0) & (xin < w) & (yin >= 0.0) & (yin < h)
+    xs, ys = xin - 0.5, yin - 0.5
+    x0, y0 = np.floor(xs).astype(np.int64), np.floor(ys).astype(np.int64)
+    dx, dy = xs - x0, ys - y0
+    src = img.astype(np.float64)
+    xa, xb = np.clip(x0, 0, w - 1), np.clip(x0 + 1, 0, w - 1)
+    ya = np.clip(y0, 0, h - 1)
+    top = src[ya, xa] + (src[ya, xb] - src[ya, xa]) * dx
+    has_next = (y0 + 1 >= 0) & (y0 + 1 < h)
+    yb = np.clip(y0 + 1, 0, h - 1)
+    bot = np.where(has_next, src[yb, xa] + (src[yb, xb] - src[yb, xa]) * dx, top)
+    v = top + (bot - top) * dy
+    out = np.full((nh, nw), fillcolor, np.uint8)
+    out[inside] = v[inside].astype(np.uint8)  # C's (UINT8) cast truncates
+    return out
+
+
+def pil_rank_filter(img: np.ndarray, size: int, op: str) -> np.ndarray:
+    """PIL ``ImageFilter.MinFilter(size)`` (``op="min"``) or
+    ``MaxFilter(size)`` (``"max"``) on a uint8 (h, w) array."""
+    r = size // 2
+    pad = np.pad(img, r, mode="edge")
+    h, w = img.shape
+    reduce = np.minimum if op == "min" else np.maximum
+    out = pad[:h, :w].copy()
+    for dy in range(size):
+        for dx in range(size):
+            out = reduce(out, pad[dy:dy + h, dx:dx + w])
+    return out
+
+
+def _gaussian_box_radius(radius: float, passes: int) -> np.float32:
+    """BoxBlur.c's _gaussian_blur_radius, in its float32 / float64 mix."""
+    f32 = np.float32
+    sigma2 = f32(radius) * f32(radius) / f32(passes)
+    L = f32(math.sqrt(12.0 * float(sigma2) + 1.0))
+    l = f32(math.floor((float(L) - 1.0) / 2.0))
+    a = (f32(2) * l + f32(1)) * (l * (l + f32(1)) - f32(3) * sigma2)
+    a = a / (f32(6) * (sigma2 - (l + f32(1)) * (l + f32(1))))
+    return f32(l + a)
+
+
+def _box_blur_rows(a: np.ndarray, radius: np.float32) -> np.ndarray:
+    """One horizontal pass of BoxBlur.c's ImagingLineBoxBlur8 over every row
+    of the uint8 (h, w) array ``a``."""
+    r = int(radius)
+    ww = int(np.float32(1 << 24) / (radius * np.float32(2) + np.float32(1)))
+    fw = ((1 << 24) - (r * 2 + 1) * ww) // 2
+    h, w = a.shape
+    last = w - 1
+    # the window of x is [x - r, x + r] and the two far pixels x - r - 1 and
+    # x + r + 1, every index clamped into the row (the C loops' edge cases)
+    src = a.astype(np.int64)
+    cols = np.arange(w)
+    acc = np.zeros((h, w), np.int64)
+    for t in range(-r, r + 1):
+        acc += src[:, np.clip(cols + t, 0, last)]
+    far = src[:, np.clip(cols - r - 1, 0, last)] + src[:, np.clip(cols + r + 1, 0, last)]
+    bulk = acc * ww + far * fw
+    return ((bulk + (1 << 23)) >> 24).astype(np.uint8)
+
+
+def pil_gaussian_blur(img: np.ndarray, radius: float, passes: int = 3) -> np.ndarray:
+    """PIL ``ImageFilter.GaussianBlur(radius)`` on a uint8 (h, w) array."""
+    box = _gaussian_box_radius(radius, passes)
+    out = img
+    if box != 0:
+        for _ in range(passes):
+            out = _box_blur_rows(out, box)
+        out = out.T
+        for _ in range(passes):
+            out = _box_blur_rows(out, box)
+        out = np.ascontiguousarray(out.T)
+    return out

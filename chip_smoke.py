@@ -270,6 +270,17 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      each loss falls; ms a step; save_npz -> load_npz bit for bit at fp16,
      the loaded tree in the port's Detector; each script's main once with
      tiny arguments;
+ 28. callialign: train/callialign_train.py and its script. v3 at the
+     shipping widths (a 6-layer 256-wide ViT at 224, the 92553 x 4096 fp32
+     table) on a glyph-only pool: the first step at batch 8 against the same
+     step on the CPU (loss and grads), then 40 steps of the script's
+     train_loop at batch 96 (the loss falls; ms a step, peak memory); the
+     asset it saves through apply_v3_asset into the engine's char route
+     (the ViT kernel at D=32, 6 launches), held against v3_forward in bf16
+     with the plain attention, and the kernel row at that shape; v2 at the
+     8b's tile tower (24 layers at 448, the default resampler): 3 steps
+     under remat at batch 8 (finite, the LoRA B factors move), the grads
+     with and without remat at batch 2;
  19. the RMSNorm kernels against their plain versions at every path's shapes
      (E = 4096; 8b batch, serve, 2b CLI, beams: decode and prefill rows; train:
      2 x 2048 rows, forward and backward with dw on and off), both roundings:
@@ -294,7 +305,7 @@ spills (``-Xptxas -v``); phase 8 and 13 hold each row of the LM head's
 launch, and of the (K, N) kernel's at the w13 projection, to the same row
 launched alone, bit for bit, and the log compares the int8 kernels' and the
 paged kernel's device ms with their bounds across the paths' row counts.
-Phases run in the order 1-4, 22, 5-13, 20-21, 14-16, 24, 17-18, 23, 25-27, 19.
+Phases run in the order 1-4, 22, 5-13, 20-21, 14-16, 24, 17-18, 23, 25-28, 19.
 Prints the wall seconds of each phase, the card's name and power limit, the
 ``kernels`` JSON line (it fails if a kernel has no entry), then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
@@ -392,6 +403,21 @@ LLAVA_TEXT, LLAVA_IMAGE_AT, LLAVA_PROMPT = 256, (5, 100), 8
 # phase 27: the asset trainers
 OF_LAYOUTS, OF_EPOCHS, OF_BATCH, OF_LR = 512, 2, 64, 1e-3
 DET_STEPS, DET_BATCH, DET_SIZE, DET_GLYPHS = 10, 8, 640, 64
+# phase 28: CalliAlign. v3 (the shipping widths, float32) on a glyph-only
+# pool: distractor classes capped for the glyphs' host time, views a class,
+# steps and batch of the script's loop; its first step at CA_CPU_BATCH held
+# against the same step on the CPU (float32 both, TF32 off: the loss within
+# CA_CPU_LOSS_REL, the grads within CA_CPU_GRAD_REL rel L2; on an H100 the
+# step reads 0 and 7.2e-5, its witness with TF32 on 2.5e-4 and 6.3e-2); the
+# readout of CA_READOUT training crops through the engine's
+# char route against v3_forward in bf16 with the plain attention (rel L2 of
+# the normalised pseudo tokens within MODEL_REL_TOL); v2 at the 8b's tile tower: CA_V2_STEPS
+# steps at batch CA_V2_BATCH, LoRA rank CA_V2_RANK, then the grads with and
+# without remat at batch 2 (the recomputation runs the same kernels)
+CA_SYNTH_CHARS, CA_SYNTH_VIEWS, CA_STEPS, CA_BATCH = 256, 4, 40, 96
+CA_CPU_BATCH, CA_CPU_LOSS_REL, CA_CPU_GRAD_REL = 8, 1e-5, 1e-3
+CA_READOUT = 64
+CA_V2_STEPS, CA_V2_BATCH, CA_V2_RANK, CA_V2_LR, CA_REMAT_REL = 3, 8, 16, 1e-3, 1e-4
 # H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor cores (data sheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -2827,6 +2853,237 @@ def trainers_phase(h):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def callialign_phase(h):
+    """Phase 28: the CalliAlign trainer on the card. (a) v3 at the shipping
+    widths (CHAR_VISION_V3, CHAR_RESAMPLER_V3, the 92553 x 4096 float32
+    table, the sub-table of every single-char piece of the tokenizer) on a
+    glyph-only pool: the first step's loss and grads at batch CA_CPU_BATCH
+    against the same step on the CPU, whose seed-0 table is its own draw
+    (a table that depended on the device would fail it), then CA_STEPS steps of the script's
+    train_loop at batch CA_BATCH (its loss falls; ms a step, peak memory),
+    which ends with its eval and save_v3_asset. (b) The asset through
+    apply_v3_asset into an engine whose char route (_char_pipeline_raw)
+    reads CA_READOUT training crops: the ViT kernel launched once a tower
+    layer at D=32 and nothing else, its pseudo tokens against v3_forward's
+    in bf16 with the plain attention, the share of VQ ids that agree; the
+    kernel against its plain version at that shape. (c) v2 at the 8b's tile
+    tower (24-layer InternViT-300M at 448, the default resampler):
+    CA_V2_STEPS steps of make_step_fn under remat at batch CA_V2_BATCH
+    (finite losses, the LoRA B factors off zero, peak memory), then the
+    grads with and without remat at batch 2."""
+    import torch
+
+    from callireader_tpu_torch.align import vq as vq_mod
+    from callireader_tpu_torch.core.config import get_config
+    from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY, exact_fp32
+    from callireader_tpu_torch.runtime.engine import CalliReaderEngine
+    from callireader_tpu_torch.runtime.tokenizer import InternLM2Tokenizer
+    from callireader_tpu_torch.scripts import train_callialign as script
+    from callireader_tpu_torch.train import callialign_train as ca
+    from callireader_tpu_torch.train import e_it
+
+    dev = h.dev
+    tok = InternLM2Tokenizer()
+    work = tempfile.mkdtemp(prefix="chip_smoke_callialign_")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    @contextlib.contextmanager
+    def tf32():
+        """TF32 products and convolutions: the witness of what the trainer's
+        exact_fp32 keeps out."""
+        prev = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        try:
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev[0]
+            torch.set_float32_matmul_precision(prev[1])
+
+    def loss_and_grads(loss_fn, trainable, *args, precision=exact_fp32):
+        flat = e_it.flatten(trainable)
+        for leaf in flat.values():
+            leaf.requires_grad_(True)
+        with precision():
+            loss, _ = loss_fn(trainable, *args)
+            grads = torch.autograd.grad(loss, list(flat.values()))
+        return loss.detach(), dict(zip(flat, grads))
+
+    def to(tree, device):
+        return {k: to(v, device) if isinstance(v, dict) else v.detach().to(device).clone()
+                for k, v in tree.items()}
+
+    try:
+        # ------------------------------------------------------ (a) v3
+        out = os.path.join(work, "callialign.npz")
+        args = script.parse_args(["--steps", str(CA_STEPS), "--batch", str(CA_BATCH),
+                                  "--synth-chars", str(CA_SYNTH_CHARS), "--synth-views",
+                                  str(CA_SYNTH_VIEWS), "--eval-every", str(CA_STEPS), "--out", out])
+        cfg = script.v3_config()
+        t0 = time.time()
+        data = script.build_data(args, tok, cfg.char_vision.image_size, [], [])
+        data_s = time.time() - t0
+        ids = [tid for tid, _ch in data.vocab]
+        crops, labels = data.pool
+        frozen = ca.build_v3_frozen(cfg, class_token_ids=ids, device=dev)
+        trainable = {
+            "stack": ca.init_v3_params(torch.Generator(device=dev).manual_seed(28), cfg, device=dev),
+            "logit_scale": torch.tensor(np.log(1 / 0.07), dtype=torch.float32, device=dev),
+            "aux": ca.init_aux_head(torch.Generator(device=dev).manual_seed(29), cfg, len(ids),
+                                    dim=cfg.resampler.dim, device=dev),
+        }
+        raw, src, tgt = ca.pack_raw_batch(crops[:CA_CPU_BATCH], input_size=cfg.char_vision.image_size)
+        cls = data.cls_map[labels[:CA_CPU_BATCH]].astype(np.int32)
+        batch = [torch.from_numpy(a) for a in (raw, src, tgt, cls)]
+        loss_fn = ca.make_v3_loss_fn(cfg, FP32_POLICY, aux_weight=args.aux_weight)
+        # the CPU side draws its own seed-0 table, as a --device cpu run does
+        card_args = ({"table_sub": frozen["table_sub"]}, [b.to(dev) for b in batch])
+        host_frozen = ca.build_v3_frozen(cfg, class_token_ids=ids, device="cpu")
+        loss_h, grads_h = loss_and_grads(loss_fn, to(trainable, "cpu"),
+                                         {"table_sub": host_frozen["table_sub"]}, batch)
+        del host_frozen
+        flat_h = torch.cat([g.flatten() for g in grads_h.values()])
+
+        def against_cpu(precision):
+            loss_c, grads_c = loss_and_grads(loss_fn, trainable, *card_args, precision=precision)
+            worst = max((rel(grads_c[k].cpu(), grads_h[k]), k) for k in grads_h
+                        if grads_h[k].norm() > 0)
+            return (abs(loss_c.item() - loss_h.item()) / abs(loss_h.item()),
+                    rel(torch.cat([g.flatten().cpu() for g in grads_c.values()]), flat_h), worst)
+
+        loss_rel, grad_rel, worst = against_cpu(exact_fp32)
+        tf32_loss_rel, tf32_grad_rel, _ = against_cpu(tf32)
+        log(f"[callialign] v3 first step at batch {CA_CPU_BATCH}, card against CPU (float32 both, "
+            f"TF32 off, each side's own seed-0 table): loss {loss_h.item():.6f}, rel {loss_rel:.3e} (tol {CA_CPU_LOSS_REL}), "
+            f"grads of {len(grads_h)} leaves rel L2 {grad_rel:.3e} (tol {CA_CPU_GRAD_REL}), worst "
+            f"leaf {worst[1]} {worst[0]:.3e}; the witness with TF32 on: loss rel "
+            f"{tf32_loss_rel:.3e}, grads rel L2 {tf32_grad_rel:.3e}")
+        if not (loss_rel <= CA_CPU_LOSS_REL and grad_rel <= CA_CPU_GRAD_REL):
+            fail("[callialign] the card's v3 step disagrees with the CPU's")
+        del trainable, frozen, grads_h, flat_h, card_args
+
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = script.train_loop(args, cfg, data, dev)
+        loop_s = time.time() - t0
+        peak = (torch.cuda.max_memory_allocated() - live) / 2**30
+        losses = res["losses"]
+        n_par = sum(x.numel() for x in e_it.flatten(res["trainable"]["stack"]).values())
+        log(f"[callialign] v3 train_loop: {n_par / 1e6:.2f}M params, {len(data.vocab)} classes in "
+            f"the sub-table ({len(data.synth)} glyph classes, pool of {len(crops)} views made in "
+            f"{data_s:.1f} s), {CA_STEPS} steps at batch {CA_BATCH}: loss_vq {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} (mean of the last 5 {np.mean(losses[-5:]):.4f}); "
+            f"{res['ms_per_step']:.2f} ms a step (host clock over steps 2-{CA_STEPS}, a sync at "
+            f"each end), {loop_s:.1f} s with its eval and save; peak {peak:.2f} GiB above the "
+            f"{live / 2**30:.2f} GiB live before it; eval "
+            f"{res['evals']}")
+        if not np.isfinite(losses).all() or not np.mean(losses[-5:]) < losses[0]:
+            fail("[callialign] the v3 loss did not fall")
+
+        # ------------------------------------------------------ (b) the readout
+        base_cfg = get_config("callireader-2b")
+        stack, rcfg, meta = ca.apply_v3_asset(base_cfg, out, torch.bfloat16, dev)
+        V, E = rcfg.llm.vocab_size, rcfg.llm.hidden_size
+        params = {**stack, "align": {
+            "normed_emb": ca.align_table(V, E, torch.bfloat16, dev),
+            "mu": torch.zeros((V,), dtype=torch.float32, device=dev),
+            "sigma": torch.ones((V,), dtype=torch.float32, device=dev)}}
+        engine = CalliReaderEngine(rcfg, params, tok, device=dev)
+        raw, src, tgt = (torch.from_numpy(a).to(dev) for a in ca.pack_raw_batch(
+            crops[:CA_READOUT], input_size=rcfg.char_vision.image_size))
+        h.zero_counts()
+        with ShapeLog(h.kernels) as shapes, torch.inference_mode():
+            pseudo, idx = engine._char_pipeline_raw(raw, src, tgt)
+        torch.cuda.synchronize()
+        launches = h.read_counts()
+        others = {n: c for n, c in launches.items() if n != "vit_attention" and c}
+        dims = {a[0][-1] // 3 // a[1] for a in shapes.calls["vit_attention"]}
+        if launches["vit_attention"] != rcfg.char_vision.num_hidden_layers or others or dims != {32}:
+            fail(f"[callialign] the char route launched {launches} at head dims {dims}: want the ViT "
+                 f"kernel {rcfg.char_vision.num_hidden_layers} times at D=32 and nothing else")
+        with torch.inference_mode():
+            want = ca.v3_forward(stack, rcfg, raw, src, tgt, DEFAULT_POLICY)
+            want_idx, _ = vq_mod.vq_cos_sim(params["align"]["normed_emb"], want)
+        got = vq_mod.normalize(pseudo.reshape(want.shape).float())
+        readout_rel = rel(got, want)
+        agree = (idx == want_idx).float().mean().item()
+        log(f"[callialign] readout of {CA_READOUT} training crops: asset v{meta['version']} "
+            f"({os.path.getsize(out) / 1e6:.1f} MB), the char route launched {launches['vit_attention']}"
+            f" ViT kernels at D=32; its normalised pseudo tokens against v3_forward in bf16 with "
+            f"the plain attention: rel L2 {readout_rel:.3e} (tol {MODEL_REL_TOL}), VQ ids agree "
+            f"on {agree:.4f} of {idx.numel()}")
+        if not readout_rel <= MODEL_REL_TOL:
+            fail("[callialign] the char route's pseudo tokens disagree with v3_forward")
+        h.vit_rows("callialign", shapes, launches)
+        del engine, params, stack, res, pseudo, want, shapes
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------ (c) v2 at the 8b's tile tower
+        cfg8 = get_config("callireader-8b")
+        canvas = cfg8.force_image_size
+        frozen = ca.build_frozen(cfg8, torch.bfloat16, class_token_ids=ids, device=dev)
+        base_res = ca.base_resampler_params(cfg8.resampler, torch.bfloat16, dev)
+        gen = torch.Generator(device=dev).manual_seed(30)
+        trainable = {
+            "small": ca.small_leaves(base_res),
+            "lora": ca.init_lora(gen, base_res["layers"], CA_V2_RANK),
+            "vit_small": ca.vit_small_leaves(frozen["vision"]),
+            "vit_lora": ca.init_vit_lora(gen, frozen["vision"]["layers"], CA_V2_RANK),
+            "logit_scale": torch.tensor(np.log(1 / 0.07), dtype=torch.float32, device=dev),
+            "aux": ca.init_aux_head(gen, cfg8, len(ids), device=dev),
+        }
+        tx = e_it.Optimizer(lambda count: CA_V2_LR, grad_clip=1.0)
+        opt = tx.init(e_it.flatten(trainable))
+        step = ca.make_step_fn(cfg8, canvas, DEFAULT_POLICY, tx)
+        batch = [torch.from_numpy(a).to(dev) for a in (
+            *ca.pack_raw_batch(crops[:CA_V2_BATCH], input_size=canvas),
+            data.cls_map[labels[:CA_V2_BATCH]].astype(np.int32))]
+        h.zero_counts()
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        v2_losses, times = [], []
+        for _ in range(CA_V2_STEPS):
+            t0 = time.perf_counter()
+            trainable, opt, loss, acc, aux_acc = step(trainable, opt, frozen, base_res, batch)
+            v2_losses.append(loss.item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() - live) / 2**30
+        if any(h.read_counts().values()):
+            fail(f"[callialign] the v2 step launched a kernel: {h.read_counts()}")
+        moved = {k: v.abs().max().item() for k, v in e_it.flatten(trainable).items()
+                 if k.endswith("_b") and "lora" in k}
+        log(f"[callialign] v2 at the 8b's tile tower ({cfg8.vision.num_hidden_layers}-layer "
+            f"InternViT, {canvas} px, S={cfg8.vision.num_patches + 1}) and the default resampler "
+            f"(dim {cfg8.resampler.dim}, depth {cfg8.resampler.depth}), LoRA rank {CA_V2_RANK}, "
+            f"bf16, plain ViT attention under remat, batch {CA_V2_BATCH}: loss_vq {v2_losses}; "
+            f"{times[0]:.1f} ms the first step, {np.median(times[1:]):.1f} ms after (host clock, "
+            f"the loss read each step); peak {peak:.2f} GiB above the {live / 2**30:.2f} GiB live "
+            f"before the steps (the tower, the table, the data); the LoRA B factors' largest |value| "
+            f"{min(moved.values()):.3e} to {max(moved.values()):.3e}")
+        if not np.isfinite(v2_losses).all() or not all(m > 0 for m in moved.values()):
+            fail("[callialign] the v2 steps gave a non-finite loss or left a LoRA B factor at zero")
+        small = [b[:2] for b in batch]
+        grads = [loss_and_grads(ca.make_loss_fn(cfg8, canvas, DEFAULT_POLICY, remat=remat),
+                                trainable, frozen, base_res, small)[1] for remat in (True, False)]
+        remat_rel = rel(torch.cat([g.flatten().float() for g in grads[0].values()]),
+                        torch.cat([g.flatten().float() for g in grads[1].values()]))
+        same = sum(torch.equal(grads[0][k], grads[1][k]) for k in grads[0])
+        log(f"[callialign] v2 grads at batch 2 with and without remat: rel L2 {remat_rel:.3e} (tol "
+            f"{CA_REMAT_REL}), {same} of {len(grads[0])} leaves bit-equal")
+        if not remat_rel <= CA_REMAT_REL:
+            fail("[callialign] the v2 grads under remat disagree with those without it")
+        del frozen, base_res, trainable, opt, grads
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4007,6 +4264,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("27 trainers")
     trainers_phase(h)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------------- 28. the CalliAlign trainer
+    phase("28 callialign")
+    callialign_phase(h)
     gc.collect()
     torch.cuda.empty_cache()
     # ---------------------------------------------------------- 19. RMSNorm at every path's shapes

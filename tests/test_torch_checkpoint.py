@@ -391,7 +391,7 @@ def test_missing_components_and_overlays_match_jax(assets_preset, tmp_path, monk
     and the trained assets overlay the same components (the JAX
     ``replaceable`` rule), with and without --no-trained-assets."""
     cfg = tconfig.get_config(assets_preset)
-    params = tw.init_params(cfg, torch.Generator().manual_seed(7), dtype=torch.float32,
+    params = tw.init_params(cfg, 7, dtype=torch.float32,
                             device="cpu")
     for name in drop:
         params.pop(name)
@@ -410,7 +410,7 @@ def test_missing_components_and_overlays_match_jax(assets_preset, tmp_path, monk
     jloaded = {n for n in ("detector", "orderformer") if f"trained {n} loaded" in err}
     assert seen["replaceable"] == {"detector", "orderformer", *drop}
     assert jloaded == {"detector", "orderformer"}
-    seed0 = tw.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+    seed0 = tw.init_params(cfg, 0, dtype=torch.bfloat16,
                            device="cpu")
     for trained in (True, False):
         eng = tcommon.build_engine(preset=assets_preset, checkpoint_dir=str(tmp_path),

@@ -1129,3 +1129,52 @@ def test_cuda_int8_wrappers_refuse_bad_input(cuda):
         ti8.int8_matmul(_bf16(rng, (4, 192), cuda), _int8(rng, (192, 256), cuda), s)
     with pytest.raises(ValueError):
         ti8.int8_matmul_nt(_bf16(rng, (4, 192), cuda), _int8(rng, (256, 192), cuda), st)
+
+
+# ------------------------------------------------------- forward-only wrappers
+
+
+def _no_backward_calls(device):
+    """{wrapper: (call(inputs), inputs)} with valid kernel shapes for every
+    wrapper whose kernel has no backward."""
+    from callireader_tpu_torch.kernels import rmsnorm as trms
+
+    rng = np.random.default_rng(9)
+    z = lambda *shape: _bf16(rng, shape, device)  # noqa: E731
+    valid = torch.ones((1, 64), dtype=torch.int32, device=device)
+    table = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    ok = torch.ones((1, 1, 64), dtype=torch.int32, device=device)
+    q8, s8 = _int8(rng, (256, 128), device), _scales(rng, 128, device)
+    q8t, s8t = _int8(rng, (128, 256), device), _scales(rng, 128, device)
+    return {
+        "vit_attention": (lambda t: tvit.attention_from_packed_qkv_nomax(t[0], 2),
+                          [z(1, 33, 3 * 2 * 32)]),
+        "flash_attention": (lambda t: tattn.flash_attention(*t, causal=True),
+                            [z(1, 4, 64, 128), z(1, 1, 64, 128), z(1, 1, 64, 128)]),
+        "flash_decode": (lambda t: tdec.flash_decode(t[0], t[1], t[2], 0, valid),
+                         [z(1, 4, 1, 128), z(1, 1, 1, 64, 128), z(1, 1, 1, 64, 128)]),
+        "paged_flash_decode": (lambda t: tpaged.paged_flash_decode(t[0], t[1], t[2], 0, table, ok),
+                               [z(1, 4, 1, 128), z(1, 2, 1, 64, 128), z(1, 2, 1, 64, 128)]),
+        "int8_matmul": (lambda t: ti8.int8_matmul(t[0], q8, s8), [z(4, 256)]),
+        "int8_matmul_nt": (lambda t: ti8.int8_matmul_nt(t[0], q8t, s8t), [z(4, 256)]),
+        "rms_norm": (lambda t: trms.rms_norm(t[0], t[1], 1e-6), [z(4, 256), z(256)]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vit_attention", "flash_attention", "flash_decode",
+                                  "paged_flash_decode", "int8_matmul", "int8_matmul_nt",
+                                  "rms_norm"])
+def test_cuda_forward_only_wrappers_refuse_inputs_that_require_grad(cuda, name):
+    """A wrapper whose kernel has no backward raises on a CUDA input that
+    requires grad while grad is enabled (launched, the kernel's output would
+    carry no gradient); under no_grad, and on inputs that need none, it
+    launches."""
+    call, inputs = _no_backward_calls(cuda)[name]
+    for i in range(len(inputs)):
+        tracked = [t.clone().requires_grad_(j == i) for j, t in enumerate(inputs)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(tracked)
+        with torch.no_grad():
+            assert torch.isfinite(call(tracked).float()).all()
+    assert not call(inputs).requires_grad

@@ -39,13 +39,25 @@ def _crops(seed, shapes=SHAPES):
 @pytest.mark.parametrize("nthreads", [1, 8])
 @pytest.mark.parametrize("size", [448, 224])
 def test_char_content_batch_equals_the_jax_library(jlib, size, nthreads):
+    """Every crop a bucket holds, byte for byte; a crop whose content is
+    larger than the bucket is refused (the shared library would write past
+    its canvas: into the next crop's at a place that depends on the
+    threads' order, or before the array)."""
     crops = _crops(size + nthreads)
     lo, hi = max(1, round(200 * size / 448)), tpre.char_content_canvas(size)
+    refused = 0
     for bucket in tpre.char_canvas_buckets(size):
-        want = jnative.char_content_batch(crops, bucket, lo, hi, nthreads=nthreads)
-        got = tnative.char_content_batch(crops, bucket, lo, hi, nthreads=nthreads)
-        assert got.shape == (len(crops), bucket, bucket, 3)
+        fits = [c for c in crops if max(tnative.content_dims(*c.shape[:2], lo, hi)) <= bucket]
+        want = jnative.char_content_batch(fits, bucket, lo, hi, nthreads=nthreads)
+        got = tnative.char_content_batch(fits, bucket, lo, hi, nthreads=nthreads)
+        assert got.shape == (len(fits), bucket, bucket, 3)
         np.testing.assert_array_equal(got, want)
+        for c in crops:
+            if max(tnative.content_dims(*c.shape[:2], lo, hi)) > bucket:
+                refused += 1
+                with pytest.raises(ValueError, match="cannot hold"):
+                    tnative.char_content_batch([c], bucket, lo, hi, nthreads=nthreads)
+    assert refused > 0
 
 
 def test_thread_count_changes_no_byte():

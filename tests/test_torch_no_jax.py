@@ -56,13 +56,15 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "configs.long_context_sp4", "configs.orderformer_train", "configs.orpo_internlm2",
                  "configs.reward_internlm2", "configs.sft_internlm2_7b", "vision.native",
                  "models.llava", "models.moe", "train.moe_io", "train.detector_train",
-                 "scripts", "scripts.train_orderformer", "scripts.train_detector"):
+                 "scripts", "scripts.train_orderformer", "scripts.train_detector",
+                 "train.callialign_train", "scripts.train_callialign"):
         assert f"callireader_tpu_torch.{name}" in res["modules"]
     assert res["jax"] == []
     assert res["jax_package"] == []
     # PIL among them: the servers import it per request only, the evaluation
-    # harness's readers (pandas, PIL) only where they read a file; sympy: the
-    # solve plugin is pure Python
+    # harness's readers (pandas, PIL) and the CalliAlign fixture reader only
+    # where they read a file; sympy: runtime/plugins.solve_equations imports it
+    # inside the call
     assert res["banned"] == []
 
 

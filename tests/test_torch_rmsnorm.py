@@ -184,7 +184,7 @@ def test_training_step_launch_counts(monkeypatch):
     monkeypatch.setattr(k, "_fwd", count("fwd", fwd))
     monkeypatch.setattr(k, "_bwd", count("bwd", bwd))
     cfg = callireader_tiny().llm
-    params = weights.init_params(callireader_tiny(), torch.Generator().manual_seed(0),
+    params = weights.init_params(callireader_tiny(), 0,
                                  dtype=torch.float32, device="cpu")["llm"]
     L = cfg.num_hidden_layers
     emb = torch.randn((2, 16, cfg.hidden_size), requires_grad=True)
