@@ -23,7 +23,11 @@ base without an adapter is drawn as int8 directly. ``gray_chars`` and
 ``device_tile_pages`` (default on) and ``char_canvas`` go to the engine, with
 the JAX build_engine's defaults.
 
-Not ported yet: meshes (``mesh_spec`` raises).
+``mesh_spec`` ("tensor=4,fsdp=2"; "data" takes the rest of the world): one
+process per rank under ``torchrun`` (a world of 1 without it), NCCL on the
+card and gloo with ``device="cpu"``; the engine runs its LLM tensor parallel
+(runtime/engine.py) in the unfused int8 layout. A mesh whose size is not the
+world's raises. Ranks other than 0 print nothing to stdout (``make_mesh``).
 """
 
 from __future__ import annotations
@@ -58,10 +62,31 @@ def merge_adapter(params, cfg, adapter_path: str, lora_rank: int, lora_alpha: fl
     return params
 
 
+def make_mesh(mesh_spec: str, device, fill: str = "data"):
+    """The CLIs' mesh: the process group joined (torchrun's environment, or a
+    world of 1), ``mesh_spec`` with ``fill`` taking the rest of the world;
+    on ranks other than 0 stdout goes to the null device."""
+    import torch
+    import torch.distributed as dist
+
+    from callireader_tpu_torch.parallel import spmd
+
+    dev = torch.device(device)
+    spmd.init_distributed(dev.type)
+    shape = spmd.parse_mesh(mesh_spec, dist.get_world_size(), fill)
+    mesh = spmd.make_mesh(shape, device=dev.type)
+    if not spmd.is_main():
+        sys.stdout = open(os.devnull, "w")
+    print(f"[engine] SPMD mesh: {mesh.shape} over {dist.get_world_size()} ranks "
+          f"({dist.get_backend()})", file=sys.stderr)
+    return mesh
+
+
 def quantize_params(params, cfg, quant: str):
     """The JAX build_engine's int8 order on a dense tree: quantize_llm_int8, the
-    vocab padded to 128, the fused wqkv / w13 leaves; ``"int8-all"`` adds the
-    W8A8 tile tower -> (params, cfg)."""
+    vocab padded to 128, the fused wqkv / w13 leaves (an engine under a mesh
+    splits them again: runtime/engine.py); ``"int8-all"`` adds the W8A8 tile
+    tower -> (params, cfg)."""
     from callireader_tpu_torch.models import internlm2
     from callireader_tpu_torch.runtime import quantize
 
@@ -96,8 +121,6 @@ def build_engine(
     trained_assets: bool = True,
     device: str = "cuda",
 ):
-    if mesh_spec:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP A11)")
     if quant not in (None, "int8", "int8-all"):
         raise ValueError(f"unknown quant mode {quant!r}")
     import torch
@@ -110,8 +133,9 @@ def build_engine(
 
     dev = require_device(device)
     cfg = get_config(preset)
+    mesh = make_mesh(mesh_spec, dev) if mesh_spec else None
     options = dict(gray_chars=gray_chars, device_resize_chars=device_resize_chars,
-                   device_tile_pages=device_tile_pages, char_canvas=char_canvas)
+                   device_tile_pages=device_tile_pages, char_canvas=char_canvas, mesh=mesh)
     assets = weights.TRAINED_ASSETS if trained_assets else ()
     if checkpoint_dir and os.path.isdir(checkpoint_dir):
         print(f"[engine] loading checkpoint from {checkpoint_dir}", file=sys.stderr)

@@ -17,7 +17,9 @@ the host. ``--gray-chars``, ``--device-resize-chars`` and
 default. ``--batch_size`` defaults to 8 (the pipelined batch route) on the
 GPU and to 1 (``chat_ocr`` a page) with ``--device cpu``. Without
 ``--checkpoint`` (default ``$CALLIREADER_CKPT``), ``--random-init`` draws
-seeded random weights. ``--mesh`` is not ported.
+seeded random weights. ``--mesh data=8`` splits the batch rows over a mesh
+(one process per rank under ``torchrun``, a world of 1 without it); rank 0
+alone prints and writes the result files.
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ def main(argv=None):
                         "(author/style/layout); default: all")
     parser.add_argument("--data-path", type=str, default=None,
                         help="mmbench TSV / refcoco JSON path (overrides --data)")
-    parser.add_argument("--mesh", type=str, default=None, help="not ported (ROADMAP A11)")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help='SPMD eval mesh, e.g. "data=8" (rank-sharded batch rows; one '
+                        'process per rank under torchrun)')
     chars = parser.add_mutually_exclusive_group()
     chars.add_argument("--rgb-chars", action="store_true",
                        help="(default) full-RGB char canvases, the reference's crops")
@@ -134,8 +138,11 @@ def main(argv=None):
         for s in samples:
             s["image"] = preprocess.open_image(s["image"])
         out = refcoco.evaluate_refcoco(engine, samples)
-        with open(os.path.join(save_dir, "refcoco.json"), "w") as f:
-            json.dump({"accuracy": out["accuracy"]}, f)
+        from callireader_tpu_torch.parallel.spmd import is_main
+
+        if is_main():
+            with open(os.path.join(save_dir, "refcoco.json"), "w") as f:
+                json.dump({"accuracy": out["accuracy"]}, f)
         print(f"refcoco IoU@0.5 accuracy: {out['accuracy']:.4f}")
 
     if args.verbose and engine.timings.spans:

@@ -15,8 +15,11 @@ directory, its side files under ``params/``; without one, ``--random-init``
 draws seeded random weights. ``--no-trained-assets`` keeps the committed
 detector, OrderFormer and CalliAlign tower off the components drawn at
 random. ``--quant int8-all`` adds the W8A8 tile tower to the int8 LLM,
-``--char-canvas`` sets the shared tower's char canvas. Not ported yet:
-``--mesh`` (exits with a message).
+``--char-canvas`` sets the shared tower's char canvas. ``--mesh
+tensor=4,fsdp=2`` runs the LLM over a mesh, one process per rank
+(``torchrun --nproc-per-node N -m callireader_tpu_torch.cli.inference --mesh
+tensor=N ...``; a world of 1 without torchrun); rank 0 alone prints and
+writes.
 """
 
 from __future__ import annotations
@@ -86,7 +89,9 @@ def main(argv=None):
     parser.add_argument("--quant", type=str, default=None, choices=[None, "int8", "int8-all"])
     parser.add_argument("--adapter", type=str, default=None,
                         help="e-IT checkpoint dir of cli.train (LoRA + projector) to merge")
-    parser.add_argument("--mesh", type=str, default=None, help="not ported yet")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help='SPMD inference mesh, e.g. "tensor=4,fsdp=2" (one process per rank '
+                        'under torchrun; "data" takes the rest of the world)')
     parser.add_argument("--char-canvas", type=int, default=None,
                         help="char-ViT canvas of the shared tower (default: the model's 448); "
                         "a preset with the compact char tower keeps its own")
@@ -106,7 +111,7 @@ def main(argv=None):
             quant=args.quant, adapter_path=args.adapter, char_canvas=args.char_canvas,
             mesh_spec=args.mesh, trained_assets=not args.no_trained_assets, device=args.device,
         )
-    except (NotImplementedError, FileNotFoundError, ValueError) as e:
+    except (FileNotFoundError, ValueError) as e:
         parser.error(str(e))
 
     def rec(image_path):
@@ -123,8 +128,11 @@ def main(argv=None):
         response = rec(args.tgt)
         print(f"User: {args.prompt}\nAssistant: {response}")
     elif os.path.isdir(args.tgt):
+        from callireader_tpu_torch.parallel.spmd import is_main
+
         print("Multiple images recognition mode")
-        os.makedirs("results", exist_ok=True)
+        if is_main():
+            os.makedirs("results", exist_ok=True)
         results = []
         for pic in get_image_paths(args.tgt):
             try:
@@ -137,6 +145,8 @@ def main(argv=None):
         save_name = args.save_name
         if not save_name.endswith("json"):
             save_name += "_result.json"
+        if not is_main():
+            return
         with open(os.path.join("results", save_name), "w", encoding="utf-8") as f:
             json.dump(results, f, ensure_ascii=False, indent=4)
     else:

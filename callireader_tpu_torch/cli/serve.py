@@ -27,6 +27,13 @@ ViT / LLM weights, as the JAX CLI does. The committed trained detector,
 OrderFormer and CalliAlign tower overlay the components drawn at random
 unless ``--no-trained-assets`` is given. Image files are decoded with PIL,
 imported only when a request names one.
+
+``--mesh tensor=4`` serves over a mesh, one process per rank
+(``torchrun --nproc-per-node 4 -m callireader_tpu_torch.cli.serve --mesh
+tensor=4 ...``; a world of 1 without torchrun): every rank reads the same
+requests and runs the same scheduler on its block of the model (its KV
+heads of the cache or page pool), and rank 0 alone writes the responses.
+The HTTP server takes a world of 1 only (its requests reach one process).
 """
 
 from __future__ import annotations
@@ -90,6 +97,9 @@ def main(argv=None):
     parser.add_argument("--steps-per-sync", type=int, default=1,
                         help="decode steps per host round trip: amortizes the sync, costs "
                         "up to k-1 throwaway steps per retiring request")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help='SPMD inference mesh, e.g. "tensor=4,fsdp=2" (one process per rank '
+                        'under torchrun; "data" takes the rest of the world)')
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
     if args.http is None and (args.input is None or args.output is None):
@@ -108,7 +118,10 @@ def main(argv=None):
                           random_init_ok=args.random_init, quant=args.quant,
                           gray_chars=not args.rgb_chars,
                           device_tile_pages=args.device_tile_pages, char_canvas=args.char_canvas,
-                          trained_assets=not args.no_trained_assets, device=args.device)
+                          mesh_spec=args.mesh, trained_assets=not args.no_trained_assets,
+                          device=args.device)
+    if args.http is not None and engine.mesh is not None and engine.mesh.size > 1:
+        parser.error("--http serves a world of 1: its requests reach one process")
     cfg = engine.cfg
     sep = get_conv_template(cfg.template).sep
     eos = (engine.tok.convert_tokens_to_ids(sep),)
@@ -121,12 +134,12 @@ def main(argv=None):
         batcher = PagedBatcher(
             engine.params["llm"], cfg.llm, num_slots=args.slots, num_pages=num_pages,
             page_size=args.page_size, max_pages_per_slot=pages_per_slot, policy=engine.policy,
-            steps_per_sync=args.steps_per_sync,
+            steps_per_sync=args.steps_per_sync, mesh=engine.mesh,
         )
     else:
         batcher = ContinuousBatcher(
             engine.params["llm"], cfg.llm, num_slots=args.slots, max_len=args.max_len,
-            policy=engine.policy, steps_per_sync=args.steps_per_sync,
+            policy=engine.policy, steps_per_sync=args.steps_per_sync, mesh=engine.mesh,
         )
 
     if args.http is not None:
@@ -225,6 +238,10 @@ def main(argv=None):
     done.extend(batcher.run())
 
     by_uid = {r.uid: r for r in done}
+    from callireader_tpu_torch.parallel.spmd import is_main
+
+    if not is_main():
+        return
     with open(args.output, "w", encoding="utf-8") as f:
         for uid, rec in enumerate(requests):
             out = {"id": rec.get("id", uid)}

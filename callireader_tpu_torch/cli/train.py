@@ -22,7 +22,16 @@ cli/common.build_engine) or, with ``--random-init``, from the seeded random
 init. The run ends as the JAX CLI's does: the final ``save_train_state``,
 then the merged params (LoRA folded in, an int8 QLoRA base dequantized first)
 exported to the reference's safetensors layout in ``<out>/export_official``.
-Not offered: ``--mesh`` (the port has no parallel layer yet).
+
+``--mesh data=2,fsdp=2`` (or a recipe's ``mesh`` / ``sequence_parallel_size``)
+trains over a mesh, one process per rank (``torchrun --nproc-per-node N -m
+callireader_tpu_torch.cli.train --mesh ...``; a world of 1 without
+torchrun): each rank keeps its block of the trainable leaves and their
+moments, runs its rows of each batch (its part of the sequence over "seq",
+through Ulysses) and adds the grads over data, fsdp and seq
+(train/e_it.py). Under torchrun without ``--mesh`` the default is the JAX
+CLI's: "data" as large as the batch allows, the rest "fsdp". Rank 0 alone
+logs, saves and exports (the state gathered whole).
 """
 
 from __future__ import annotations
@@ -78,6 +87,9 @@ def main(argv=None):
     parser.add_argument("--config", type=str, default=None,
                         help="recipe name from the config zoo (list-cfg) or a .py file defining "
                         "config(); sets flag defaults")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help='SPMD train mesh, e.g. "data=2,fsdp=2" or "data=2,seq=4" (one '
+                        'process per rank under torchrun)')
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     pre, _ = parser.parse_known_args(argv)
     if pre.config:
@@ -87,10 +99,13 @@ def main(argv=None):
             "accumulative_counts": "grad_accum", "lr": "lr",
             "lora_rank": "lora_rank", "lora_alpha": "lora_alpha",
             "max_epochs": "epochs", "save_steps": "ckpt_interval",
-            "quant_base": "qlora",
+            "quant_base": "qlora", "mesh": "mesh",
         }
         parser.set_defaults(**{key_map[k]: v for k, v in recipe.items() if k in key_map})
     args = parser.parse_args(argv)
+    sp = int(recipe.get("sequence_parallel_size", 1)) if pre.config else 1
+    if sp > 1 and "seq=" not in (args.mesh or ""):
+        args.mesh = f"{args.mesh},seq={sp}" if args.mesh else f"seq={sp}"
 
     import torch
 
@@ -125,6 +140,7 @@ def main(argv=None):
         if "pseudo_embeds" in sample:
             print(f"[check-data] pseudo embeds: {sample['pseudo_embeds'].shape}", file=sys.stderr)
         return
+    mesh = _train_mesh(args, dev)
     accum = max(1, args.grad_accum)
     steps_per_epoch = max(1, len(dataset) // (args.batch_size * accum))
     total_steps = args.max_iters or int(steps_per_epoch * args.epochs)
@@ -162,9 +178,16 @@ def main(argv=None):
               f"dropped from the train state", file=sys.stderr)
     engine.params = params
 
-    state, frozen, tx = e_it.create_train_state(params, train_cfg)
+    axes = None
+    if mesh is not None:
+        from callireader_tpu_torch.parallel import spmd
+
+        axes = spmd.engine_logical_axes(cfg, params)
+    state, frozen, tx = e_it.create_train_state(params, train_cfg, mesh, axes)
+    main_rank = mesh is None or spmd.is_main()
     if args.resume:
-        state = ckpt_mod.restore_train_state(args.resume, state)
+        whole = e_it.gather_state(state)
+        state = e_it.shard_state(ckpt_mod.restore_train_state(args.resume, whole), state)
         # the seed from the checkpoint, so the data shuffle continues the same stream
         meta_path = os.path.join(args.resume, "metadata.json")
         if os.path.exists(meta_path):
@@ -175,7 +198,7 @@ def main(argv=None):
                 args.seed = int(saved["seed"])
         print(f"[train] resumed from {args.resume} at step {state.step}", file=sys.stderr)
 
-    step_fn = e_it.make_train_step(cfg, train_cfg, tx, policy=engine.policy)
+    step_fn = e_it.make_train_step(cfg, train_cfg, tx, policy=engine.policy, mesh=mesh)
     spans = Spans()
     thr = TrainThroughput(cfg, seq_len=2048)
     loader = data_mod.data_loader(dataset, args.batch_size, shuffle_seed=args.seed)
@@ -213,7 +236,7 @@ def main(argv=None):
         if it % accum:
             continue  # mid-accumulation micro-batch: no update happened
         upd = it // accum
-        if upd % args.log_interval == 0:
+        if upd % args.log_interval == 0 and main_rank:
             rec = {
                 "iter": upd,
                 "loss": float(metrics["loss"]),
@@ -225,20 +248,27 @@ def main(argv=None):
                 f.write(json.dumps(rec) + "\n")
         if args.ckpt_interval and upd % args.ckpt_interval == 0:
             path = os.path.join(args.out, f"iter_{upd}")
-            ckpt_mod.save_train_state(path, state, metadata={"iter": upd, "seed": args.seed})
-            if last_ckpt and os.path.exists(last_ckpt):
-                shutil.rmtree(last_ckpt)  # keep one
+            whole = e_it.gather_state(state)
+            if main_rank:
+                ckpt_mod.save_train_state(path, whole, metadata={"iter": upd, "seed": args.seed})
+                if last_ckpt and os.path.exists(last_ckpt):
+                    shutil.rmtree(last_ckpt)  # keep one
+            del whole
             last_ckpt = path
         if args.eval_chat_interval and upd % args.eval_chat_interval == 0:
             # the live tree: the decode reads the adapters the optimizer
             # updates in place (a decode graph of the first chat replays
             # with the later values)
-            engine.params = e_it.merge_params(state.trainable, frozen)
+            engine.params = e_it.merge_params(e_it.gather_state(state).trainable, frozen)
             resp = engine.chat(None, args.eval_chat_prompt, max_new_tokens=32)
-            print(f"[eval-chat @{upd}] {resp!r}", file=sys.stderr)
+            if main_rank:
+                print(f"[eval-chat @{upd}] {resp!r}", file=sys.stderr)
 
     # final save + deployable export
     final = os.path.join(args.out, "final")
+    state = e_it.gather_state(state)
+    if not main_rank:
+        return
     ckpt_mod.save_train_state(final, state, metadata={"iter": it // accum, "seed": args.seed})
     merged = e_it.merge_params(state.trainable, frozen)
     # drop the optimizer moments before the export: the merged LLM and the
@@ -253,6 +283,26 @@ def main(argv=None):
     print(f"[train] done: {it // accum} iters ({it} micro-batches); train state at {final}, "
           f"export at {export_dir}", file=sys.stderr)
     print(spans.report(), file=sys.stderr)
+
+
+def _train_mesh(args, dev):
+    """``--mesh`` (the recipe's), or under torchrun the JAX CLI's default
+    (data = gcd(world, batch), the rest fsdp); None for one process without
+    a mesh."""
+    import math
+
+    from callireader_tpu_torch.cli.common import make_mesh
+
+    spec = args.mesh
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if spec is None and world > 1:
+        data = math.gcd(world, args.batch_size)
+        spec = f"data={data},fsdp={world // data},tensor=1,seq=1"
+    if spec is None:
+        return None
+    mesh = make_mesh(spec, dev)
+    print(f"[train] mesh: {mesh.shape}", file=sys.stderr)
+    return mesh
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ Parity target: train/xtuner/configs/llama_speed_benchmark/llama2_7b/
 llama2_7b_full_alpaca_enzh_32k_sp4.py — 32k packed sequences split over a
 4-way seq mesh axis (the reference's sequence_parallel_size=4 + varlen
 flash attention), full-parameter training, lr 2e-5 cosine.
-The sequence split itself waits for the port's parallel layer; the train CLI
-reads the recipe's hyperparameters."""
+The train CLI reads the recipe's hyperparameters and turns
+``sequence_parallel_size`` into a "seq" axis of its mesh (Ulysses,
+parallel/ulysses.py), one process per rank under torchrun."""
 
 
 def config():

@@ -55,7 +55,10 @@ def get_parquet(parquet_path: str) -> Tuple[List[np.ndarray], List[Dict]]:
 
 
 def _save(result: Dict, save_json_path: Optional[str]) -> None:
-    if save_json_path:
+    """Writes on rank 0 only (every rank of a mesh computes the result)."""
+    from callireader_tpu_torch.parallel.spmd import is_main
+
+    if save_json_path and is_main():
         with open(save_json_path, "w", encoding="utf-8") as f:
             json.dump(result, f, ensure_ascii=False, indent=4)
 

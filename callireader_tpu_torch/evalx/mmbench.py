@@ -93,7 +93,9 @@ def evaluate_mmbench(
         "scored": scored,
         "total": len(rows),
     }
-    if save_json_path:
+    from callireader_tpu_torch.parallel.spmd import is_main
+
+    if save_json_path and is_main():
         with open(save_json_path, "w", encoding="utf-8") as f:
             json.dump(result, f, ensure_ascii=False, indent=4)
     return result

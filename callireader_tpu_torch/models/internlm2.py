@@ -39,6 +39,20 @@ Nothing on the decode step copies host data to the card, reads the card
 from the host or allocates outside PyTorch's allocator, so the step can be
 captured in a CUDA graph; ``DECODE_STEPS`` counts the decode steps run (a
 ``LaunchCount``, kept true under replays).
+
+Under a mesh (``mesh=``, core/partition.Mesh) the inference entry points run
+tensor parallel, with the collectives GSPMD inserts in the JAX package
+written out (parallel/spmd.py): each rank holds its block of every leaf
+(``spmd.shard_tree`` by ``spmd.llm_logical_axes``); wq / wk / wv and w1 / w3
+are column-parallel (a rank's Hq/t and Hkv/t heads, its M/t of the mlp), wo
+and w2 row-parallel, their partial sums added by an ``all_reduce`` over
+"tensor"; the embedding and the LM head are vocab-parallel where "tensor"
+divides the vocabulary (a rank looks up its rows and the ``all_reduce`` adds
+them; the head's logits are gathered); a leaf sharded over "fsdp" is
+gathered for its layer and dropped after it. The KV cache holds the rank's
+KV heads (``KVCache.create(..., mesh=)``). The fused int8 layout does not
+shard (runtime/quantize.unfuse_llm_int8). On the card the decode graphs
+capture the NCCL collectives with the rest of the step.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from callireader_tpu_torch.core import partition
 from callireader_tpu_torch.core.config import LLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.kernels import rmsnorm as k_rmsnorm
@@ -60,9 +75,32 @@ from callireader_tpu_torch.kernels.attention import flash_attention
 from callireader_tpu_torch.kernels.attention_bwd import flash_attention_trainable
 from callireader_tpu_torch.kernels.decode_attention import flash_decode
 from callireader_tpu_torch.kernels.int8_matmul import BLOCK, MAX_ROWS, int8_matmul, int8_matmul_nt
+from callireader_tpu_torch.parallel import spmd
 
 Params = Dict[str, Any]
 DECODE_STEPS = LaunchCount("decode_step")
+
+
+def logical_axes(cfg: LLMConfig) -> Params:
+    """Logical sharding annotations, the tree of the dense params
+    (core/partition.py)."""
+    del cfg
+    return {
+        "tok_embeddings": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("stack", "norm"),
+            "ffn_norm": ("stack", "norm"),
+            "wq": ("stack", "embed", "qkv"),
+            "wk": ("stack", "embed", "qkv"),
+            "wv": ("stack", "embed", "qkv"),
+            "wo": ("stack", "qkv", "embed"),
+            "w1": ("stack", "embed", "mlp"),
+            "w3": ("stack", "embed", "mlp"),
+            "w2": ("stack", "mlp", "embed"),
+        },
+        "norm": ("norm",),
+        "output": ("vocab", "embed"),
+    }
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, policy: DTypePolicy) -> torch.Tensor:
@@ -148,8 +186,9 @@ class KVCache:
     length: int  # valid positions (the next write slot)
 
     @classmethod
-    def create(cls, cfg: LLMConfig, batch: int, max_len: int, dtype, device) -> "KVCache":
-        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
+    def create(cls, cfg: LLMConfig, batch: int, max_len: int, dtype, device,
+               mesh=None) -> "KVCache":
+        shape = (cfg.num_hidden_layers, batch, kv_heads(cfg, mesh), max_len, cfg.head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
@@ -158,10 +197,114 @@ class KVCache:
         return self.k.shape[3]
 
 
-def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
+def kv_heads(cfg: LLMConfig, mesh=None) -> int:
+    """The KV heads a rank holds: all of them, or Hkv / tensor."""
+    return cfg.num_key_value_heads // (1 if mesh is None else mesh.axis_size("tensor"))
+
+
+_COLUMN = ("wq", "wk", "wv", "w1", "w3")
+_ROW = ("wo", "w2")
+
+
+def _io_dims(cfg: LLMConfig) -> Dict[str, Tuple[int, int]]:
+    E, M = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    return {"wq": (E, q), "wk": (E, kv), "wv": (E, kv), "wo": (q, E),
+            "w1": (E, M), "w3": (E, M), "w2": (M, E)}
+
+
+def _layer_leaf(name: str, local: Tuple[int, ...], cfg: LLMConfig, T) -> Tuple[tuple, tuple]:
+    """(the whole stacked leaf's shape, the spec a rank's layer product
+    wants: column-parallel out dims and row-parallel in dims over "tensor"),
+    from the shape ``local`` a rank holds."""
+    io, L = _io_dims(cfg), cfg.num_hidden_layers
+    base, _, kind = name.partition("_")
+    if base in ("wqkv", "w13"):
+        raise ValueError("the fused int8 layout does not shard over a mesh: "
+                         "runtime/quantize.unfuse_llm_int8 first")
+    if base not in io:  # the norms, lora_scale: whole on every rank
+        return local, (None,) * (len(local) - 1)
+    K, N = io[base]
+    col = base in _COLUMN
+    if kind in ("", "q"):
+        return (L, K, N), ((None, T) if col else (T, None))
+    if kind == "scale":
+        return (L, 1, N), ((None, T) if col else (None, None))
+    if kind == "lora_a":
+        return (L, K, local[-1]), ((None, None) if col else (T, None))
+    if kind == "lora_b":
+        return (L, local[-2], N), ((None, T) if col else (None, None))
+    raise KeyError(name)
+
+
+class _TP:
+    """The tensor-parallel layout of a tree: per leaf, the spec it is
+    stored in (``spmd.llm_logical_axes`` on the whole shapes, which the
+    config gives) and the spec its product wants. Built from the leaves'
+    names and the shapes a rank holds (``_tp``)."""
+
+    def __init__(self, layers: Tuple[Tuple[str, tuple], ...], top: Tuple[Tuple[str, tuple], ...],
+                 cfg: LLMConfig, mesh):
+        t = mesh.axis_size("tensor")
+        if cfg.num_attention_heads % t or cfg.num_key_value_heads % t or cfg.intermediate_size % t:
+            raise ValueError(f"tensor={t} does not divide {cfg.num_attention_heads}:"
+                             f"{cfg.num_key_value_heads} heads and mlp {cfg.intermediate_size}")
+        self.mesh, T = mesh, ("tensor" if t > 1 else None)
+        axes = spmd.llm_logical_axes(cfg, {"layers": dict(layers), **dict(top)})
+        self.layers = {}
+        for name, shape in layers:
+            full, want = _layer_leaf(name, shape, cfg, T)
+            have = self._stored(full, axes["layers"][name], shape, name)
+            self.layers[name] = (have[1:], want)
+        # vocab-parallel where "tensor" divides the vocabulary
+        self.vocab_axis = T if cfg.vocab_size % t == 0 else None
+        self.top = {}
+        for name, shape in top:
+            if name == "norm":
+                continue
+            full = (cfg.vocab_size, shape[1] if name.endswith("_scale") else cfg.hidden_size)
+            self.top[name] = (self._stored(full, axes[name], shape, name), (self.vocab_axis, None))
+
+    def _stored(self, full, axes, shape, name):
+        spec = partition.spec_for_shape(full, axes, mesh=self.mesh)
+        want = tuple(n // (self.mesh.axis_size(a) if a else 1) for n, a in
+                     zip(full, spec + (None,) * (len(full) - len(spec))))
+        if shape != want:
+            raise ValueError(f"{name}: a rank holds {shape}, its block of {full} "
+                             f"under {spec} is {want} (spmd.shard_tree shards a whole tree)")
+        return spec
+
+    def layer(self, params: Params, i: int) -> Dict[str, torch.Tensor]:
+        return {k: spmd.relayout(v[i], *self.layers[k], self.mesh)
+                for k, v in params["layers"].items()}
+
+    def leaf(self, params: Params, name: str) -> torch.Tensor:
+        return spmd.relayout(params[name], *self.top[name], self.mesh)
+
+
+@functools.lru_cache(maxsize=16)
+def _layout(layers, top, cfg: LLMConfig, mesh) -> _TP:
+    return _TP(layers, top, cfg, mesh)
+
+
+def _tp(params: Params, cfg: LLMConfig, mesh) -> Optional[_TP]:
+    """The layout of ``params`` under ``mesh``, built once for each config,
+    mesh and set of leaf names and shapes: a decode step only reads its
+    leaves' shapes."""
+    if mesh is None:
+        return None
+    layers = tuple((k, tuple(v.shape)) for k, v in params["layers"].items())
+    top = tuple((k, tuple(v.shape)) for k, v in params.items() if k != "layers")
+    return _layout(layers, top, cfg, mesh)
+
+
+def _layer(params: Params, i: int, tp: Optional[_TP] = None) -> Dict[str, torch.Tensor]:
     """Layer ``i``'s leaves: views into the stacks, no copy (an int8 weight
     q[i] is the layer's (K, N) block in place, which the TPU needed a
-    scalar-prefetch kernel for)."""
+    scalar-prefetch kernel for); under a mesh, the rank's blocks its
+    products want (fsdp-sharded leaves gathered for this layer)."""
+    if tp is not None:
+        return tp.layer(params, i)
     return {k: v[i] for k, v in params["layers"].items()}
 
 
@@ -189,50 +332,83 @@ def _int8_mm(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Ten
     return (h @ q.to(h.dtype)) * scale.reshape(N).to(h.dtype)
 
 
-def _proj(p: Dict[str, torch.Tensor], h: torch.Tensor, name: str) -> torch.Tensor:
+def _proj(p: Dict[str, torch.Tensor], h: torch.Tensor, name: str,
+          tp: Optional[_TP] = None) -> torch.Tensor:
     """Linear ``name``: bf16 ``p[name]``, or int8 ``{name}_q`` + ``{name}_scale``;
-    plus the LoRA adapter ``{name}_lora_a/b`` where the layer has one."""
+    plus the LoRA adapter ``{name}_lora_a/b`` where the layer has one. Under
+    a mesh a row-parallel product's partial sums are added over "tensor"."""
     q = p.get(f"{name}_q")
     y = h @ p[name].to(h.dtype) if q is None else _int8_mm(h, q, p[f"{name}_scale"])
     a = p.get(f"{name}_lora_a")
     if a is not None:
         y = y + ((h @ a.to(h.dtype)) @ p[f"{name}_lora_b"].to(h.dtype)) * p["lora_scale"].to(h.dtype)
+    if tp is not None and name in _ROW:
+        y = spmd.all_reduce(y, tp.mesh, "tensor")
     return y
 
 
 def _qkv(p, h, cfg: LLMConfig):
+    """-> q (B, Hq, S, D), k and v (B, Hkv, S, D): the heads the layer's
+    leaves hold (a rank's Hq/t and Hkv/t under a mesh)."""
     B, S, _ = h.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if "wqkv_q" in p:
         q, k, v = torch.split(_proj(p, h, "wqkv"), [Hq * D, Hkv * D, Hkv * D], dim=-1)
     else:
         q, k, v = _proj(p, h, "wq"), _proj(p, h, "wk"), _proj(p, h, "wv")
-    q = q.reshape(B, S, Hq, D).transpose(1, 2)
-    k = k.reshape(B, S, Hkv, D).transpose(1, 2)
-    v = v.reshape(B, S, Hkv, D).transpose(1, 2)
+    q = q.reshape(B, S, -1, D).transpose(1, 2)
+    k = k.reshape(B, S, -1, D).transpose(1, 2)
+    v = v.reshape(B, S, -1, D).transpose(1, 2)
     return q, k, v
 
 
-def _mlp(p, x, cfg: LLMConfig, policy: DTypePolicy):
+def _mlp(p, x, cfg: LLMConfig, policy: DTypePolicy, tp: Optional[_TP] = None):
     h = rms_norm(x, p["ffn_norm"], cfg.rms_norm_eps, policy)
     if "w13_q" in p:
         g, up = _proj(p, h, "w13").chunk(2, dim=-1)
     else:
         g, up = _proj(p, h, "w1"), _proj(p, h, "w3")
-    return x + _proj(p, F.silu(g) * up, "w2")
+    return x + _proj(p, F.silu(g) * up, "w2", tp)
 
 
-def embed_tokens(params: Params, input_ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Token embedding lookup; int8 rows are dequantized after the gather."""
+def embed_tokens(params: Params, input_ids: torch.Tensor, dtype=torch.bfloat16,
+                 mesh=None, cfg: Optional[LLMConfig] = None) -> torch.Tensor:
+    """Token embedding lookup; int8 rows are dequantized after the gather.
+    Under a mesh (``cfg`` given too) a vocab-parallel table: each rank
+    looks up the ids in its rows, zeros elsewhere, and the ranks' rows are
+    added over "tensor"."""
     ids = input_ids.long()
-    if "tok_embeddings_q" in params:
-        return params["tok_embeddings_q"][ids].to(dtype) * params["tok_embeddings_scale"][ids].to(dtype)
-    return params["tok_embeddings"][ids].to(dtype)
+    q = "tok_embeddings_q" in params
+    name = "tok_embeddings_q" if q else "tok_embeddings"
+    if mesh is None:
+        table = params[name]
+    else:
+        tp = _tp(params, cfg, mesh)
+        table = tp.leaf(params, name)
+        if tp.vocab_axis is not None:
+            n = table.shape[0]
+            local = ids - mesh.rank("tensor") * n
+            inside = (local >= 0) & (local < n)
+            local = local.clamp(0, n - 1)
+            e = table[local].to(dtype)
+            if q:
+                e = e * tp.leaf(params, "tok_embeddings_scale")[local].to(dtype)
+            return spmd.all_reduce(e * inside[..., None].to(dtype), mesh, "tensor")
+        if q:
+            return table[ids].to(dtype) * tp.leaf(params, "tok_embeddings_scale")[ids].to(dtype)
+        return table[ids].to(dtype)
+    if q:
+        return table[ids].to(dtype) * params["tok_embeddings_scale"][ids].to(dtype)
+    return table[ids].to(dtype)
 
 
-def _logits(params: Params, x: torch.Tensor, policy: DTypePolicy, cfg: LLMConfig) -> torch.Tensor:
+def _logits(params: Params, x: torch.Tensor, policy: DTypePolicy, cfg: LLMConfig,
+            tp: Optional[_TP] = None) -> torch.Tensor:
+    """The LM head -> (..., V) logits; vocab-parallel under a mesh (each
+    rank's V/t columns, gathered over "tensor")."""
+    leaf = (lambda n: params[n]) if tp is None else (lambda n: tp.leaf(params, n))
     if "output_q" in params:
-        q, scale = params["output_q"], params["output_scale"]  # (V, E), (V, 1)
+        q, scale = leaf("output_q"), leaf("output_scale")  # (V, E), (V, 1)
         N, K = q.shape
         rows = _rows(x)
         if _int8_kernel_route(x, K, N):
@@ -241,7 +417,9 @@ def _logits(params: Params, x: torch.Tensor, policy: DTypePolicy, cfg: LLMConfig
         else:
             y = ((x @ q.T.to(x.dtype)) * scale[:, 0].to(x.dtype)).to(policy.logits_dtype)
     else:
-        y = (x @ params["output"].to(x.dtype).T).to(policy.logits_dtype)
+        y = (x @ leaf("output").to(x.dtype).T).to(policy.logits_dtype)
+    if tp is not None and tp.vocab_axis is not None:
+        y = spmd.all_gather(y, tp.mesh, "tensor", -1)
     if cfg.real_vocab_size is not None and cfg.real_vocab_size < y.shape[-1]:
         # padded vocab rows (pad_vocab) never win argmax; out of place, so
         # that autograd can differentiate through the logits
@@ -270,14 +448,18 @@ def pad_vocab(params: Params, cfg: LLMConfig, multiple: int) -> Tuple[Params, LL
     )
 
 
-def _train_layer(p, x, cos, sin, segment_ids, cfg: LLMConfig, policy: DTypePolicy):
+def _train_layer(p, x, cos, sin, segment_ids, cfg: LLMConfig, policy: DTypePolicy,
+                 attn_override=None):
     """One decoder layer of the full-sequence forward (no cache)."""
     B, S, _ = x.shape
     h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
     q, k, v = _qkv(p, h, cfg)
     q = apply_rope(q, cos, sin).contiguous()
     k = apply_rope(k, cos, sin).contiguous()
-    ctx = flash_attention_trainable(q, k, v.contiguous(), segment_ids, segment_ids, True, None)
+    if attn_override is not None:
+        ctx = attn_override(q, k, v.contiguous())
+    else:
+        ctx = flash_attention_trainable(q, k, v.contiguous(), segment_ids, segment_ids, True, None)
     x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
     return _mlp(p, x, cfg, policy)
 
@@ -293,19 +475,24 @@ def forward(
     policy: DTypePolicy = DEFAULT_POLICY,
     remat: bool = False,
     return_hidden: bool = False,
+    attn_override: Optional[Callable] = None,
+    rope_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Full-sequence forward (training / eval) -> logits (B, S, V) in the
     policy's logits dtype, or the final hidden states if ``return_hidden``.
     Causal attention within equal segment ids. ``remat=True`` checkpoints
     each layer (its activations are recomputed in the backward), as
-    ``jax.checkpoint`` does the JAX scan body."""
+    ``jax.checkpoint`` does the JAX scan body. ``attn_override(q, k, v) ->
+    ctx`` replaces the attention (Ulysses sequence parallelism, where ``x``
+    is a rank's part of the sequence and ``rope_len`` the whole length the
+    dynamic-NTK rule reads)."""
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids, policy.compute_dtype)
     x = inputs_embeds.to(policy.compute_dtype)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    cos, sin = cos_sin_for(cfg, positions, S)
+    cos, sin = cos_sin_for(cfg, positions, rope_len or S)
     # one unbind per stacked leaf: its backward stacks the 32 layers' grads
     # once, where indexing layer by layer would add a full-size zero tensor
     # per layer
@@ -314,10 +501,10 @@ def forward(
     for leaves in per_layer:
         p = dict(zip(names, leaves))
         if remat:
-            x = checkpoint(_train_layer, p, x, cos, sin, segment_ids, cfg, policy,
+            x = checkpoint(_train_layer, p, x, cos, sin, segment_ids, cfg, policy, attn_override,
                            use_reentrant=False)
         else:
-            x = _train_layer(p, x, cos, sin, segment_ids, cfg, policy)
+            x = _train_layer(p, x, cos, sin, segment_ids, cfg, policy, attn_override)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps, policy)
     if return_hidden:
         return x
@@ -334,11 +521,15 @@ def prefill(
     cache_dtype=torch.bfloat16,
     policy: DTypePolicy = DEFAULT_POLICY,
     cache: Optional[KVCache] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prompt -> (last logits (B, V), cache of capacity ``max_len`` with
     length S). Padded positions get segment id -1 and position 0. ``cache``:
     a caller-owned cache of that capacity (and ``cache_dtype``) to fill in
-    place instead of a fresh one; its slots from S on keep what they held."""
+    place instead of a fresh one; its slots from S on keep what they held.
+    ``mesh``: tensor parallel (the module docstring), the cache the rank's
+    KV heads."""
+    tp = _tp(params, cfg, mesh)
     x = inputs_embeds.to(policy.compute_dtype)
     B, S, _ = x.shape
     dev = x.device
@@ -347,13 +538,13 @@ def prefill(
     segment_ids = torch.where(attention_mask > 0, 0, -1).to(torch.int32)
     cos, sin = cos_sin_for(cfg, positions, max(S, 1))
     if cache is None:
-        cache = KVCache.create(cfg, B, max_len, cache_dtype, dev)
+        cache = KVCache.create(cfg, B, max_len, cache_dtype, dev, mesh)
     elif cache.k.shape[1] != B or cache.max_len != max_len or cache.k.dtype != cache_dtype:
         raise ValueError(f"the cache holds {cache.k.shape[1]} rows x {cache.max_len} slots of "
                          f"{cache.k.dtype}, the prefill {B} x {max_len} of {cache_dtype}")
 
     for i in range(cfg.num_hidden_layers):
-        p = _layer(params, i)
+        p = _layer(params, i, tp)
         h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
         q, k, v = _qkv(p, h, cfg)
         q = apply_rope(q, cos, sin).contiguous()
@@ -364,11 +555,12 @@ def prefill(
         # in-place cache fill of this layer's prompt slots
         cache.k[i, :, :, :S] = k.to(cache_dtype)
         cache.v[i, :, :, :S] = v.to(cache_dtype)
-        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
-        x = _mlp(p, x, cfg, policy)
+        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo", tp)
+        x = _mlp(p, x, cfg, policy, tp)
+        del p
     x = rms_norm(x[:, -1:], params["norm"], cfg.rms_norm_eps, policy)
     cache.length = S
-    return _logits(params, x, policy, cfg)[:, 0], cache
+    return _logits(params, x, policy, cfg, tp)[:, 0], cache
 
 
 def decode_layers(
@@ -381,29 +573,32 @@ def decode_layers(
     write_kv: Callable[[int, torch.Tensor, torch.Tensor], None],
     attend: Callable[[int, torch.Tensor], torch.Tensor],
     policy: DTypePolicy = DEFAULT_POLICY,
+    mesh=None,
 ) -> torch.Tensor:
     """The decoder stack for one new token per row -> logits (B, V). What
     differs between the decode entry points is where the cache lives:
     ``write_kv(layer, k, v)`` stores the token's RoPE'd key and its value
     (each (B, Hkv, D)) and ``attend(layer, q)`` maps the RoPE'd query
     (B, Hq, 1, D) to the context of the same shape, reading what was just
-    written."""
+    written. Under ``mesh`` the heads are the rank's (tensor parallel)."""
     DECODE_STEPS.launches += 1
-    x = embed_tokens(params, input_ids, policy.compute_dtype)
+    tp = _tp(params, cfg, mesh)
+    x = embed_tokens(params, input_ids, policy.compute_dtype, mesh, cfg)
     B, S, _ = x.shape
     cos, sin = cos_sin_for(cfg, positions, kv_seq_len)
     for i in range(cfg.num_hidden_layers):
-        p = _layer(params, i)
+        p = _layer(params, i, tp)
         h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
         q, k, v = _qkv(p, h, cfg)
         q = apply_rope(q, cos, sin).contiguous()
         k = apply_rope(k, cos, sin)
         write_kv(i, k[:, :, 0], v[:, :, 0])
         ctx = attend(i, q)
-        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
-        x = _mlp(p, x, cfg, policy)
+        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo", tp)
+        x = _mlp(p, x, cfg, policy, tp)
+        del p
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps, policy)
-    return _logits(params, x, policy, cfg)[:, 0]
+    return _logits(params, x, policy, cfg, tp)[:, 0]
 
 
 def decode_step(
@@ -414,6 +609,7 @@ def decode_step(
     cache: KVCache,
     kv_valid_mask: Optional[torch.Tensor] = None,  # (B, max_len) 1 = attendable
     policy: DTypePolicy = DEFAULT_POLICY,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One token for every row -> (logits (B, V), cache). Writes slot
     ``cache.length`` of every layer in place and advances ``cache.length``:
@@ -432,7 +628,7 @@ def decode_step(
         kv_valid_mask[:, :slot] = 1
     logits = decode_step_at(
         params, cfg, input_ids=input_ids, cache=cache, kv_valid=kv_valid_mask.to(torch.int32),
-        slot=torch.full((1,), slot, dtype=torch.int64, device=dev), policy=policy)
+        slot=torch.full((1,), slot, dtype=torch.int64, device=dev), policy=policy, mesh=mesh)
     cache.length = slot + 1
     return logits, cache
 
@@ -446,6 +642,7 @@ def decode_step_at(
     kv_valid: torch.Tensor,  # (B, max_len) int32, 1 = attendable; slot marked in place
     slot: torch.Tensor,  # (1,) int64 on the cache's device: the write slot and RoPE position
     policy: DTypePolicy = DEFAULT_POLICY,
+    mesh=None,
 ) -> torch.Tensor:
     """``decode_step`` with its slot read on the device -> logits (B, V):
     marks ``kv_valid[:, slot]``, writes the token's K/V at ``slot`` of every
@@ -460,8 +657,12 @@ def decode_step_at(
 
     return decode_layers(
         params, cfg, input_ids=input_ids, positions=slot.view(1, 1).expand(B, 1),
-        kv_seq_len=cache.max_len, write_kv=write_kv, policy=policy,
-        attend=lambda i, q: flash_decode(q, cache.k, cache.v, i, kv_valid))
+        kv_seq_len=cache.max_len, write_kv=write_kv, policy=policy, mesh=mesh,
+        attend=_decode_attend(cache.k, cache.v, kv_valid))
+
+
+def _decode_attend(cache_k, cache_v, kv_valid):
+    return lambda i, q: flash_decode(q, cache_k, cache_v, i, kv_valid)
 
 
 def prefill_with_prefix(
@@ -475,6 +676,7 @@ def prefill_with_prefix(
     max_len: int,
     cache_dtype=torch.bfloat16,
     policy: DTypePolicy = DEFAULT_POLICY,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Chunked prefill over an already-computed prefix KV (the serving prefix
     cache): only the suffix tokens run through the layers; their queries
@@ -483,7 +685,9 @@ def prefill_with_prefix(
 
     Returns (last logits (B, V), cache) whose per-row region is laid out
     ``[pad | prefix | suffix]`` at ``[padlen, P + S)``, the contiguous
-    left-padded region the multislot decode expects."""
+    left-padded region the multislot decode expects. Under ``mesh`` the
+    prefix KV and the cache hold the rank's KV heads."""
+    tp = _tp(params, cfg, mesh)
     x = inputs_embeds.to(policy.compute_dtype)
     B, S, _ = x.shape
     P = prefix_k.shape[2]
@@ -494,7 +698,7 @@ def prefill_with_prefix(
     q_seg = torch.where(attention_mask > 0, 0, -1).to(torch.int32)
     kv_seg = torch.cat([torch.zeros((B, P), dtype=torch.int32, device=dev), q_seg], dim=1)
     cos, sin = cos_sin_for(cfg, positions, P + S)
-    cache = KVCache.create(cfg, B, max_len, cache_dtype, dev)
+    cache = KVCache.create(cfg, B, max_len, cache_dtype, dev, mesh)
 
     # a layer's keys come out as [prefix | pad | suffix] per row (the suffix
     # rows were left-padded); the cache wants [pad | prefix | suffix]: column
@@ -504,11 +708,11 @@ def prefill_with_prefix(
     j = torch.arange(P + S, device=dev)[None]
     gidx = torch.where(j < padlen[:, None] + P,
                        torch.clamp(j - padlen[:, None], 0, P - 1), j)  # (B, P+S)
-    Hkv, D = cfg.num_key_value_heads, cfg.head_dim
+    Hkv, D = kv_heads(cfg, mesh), cfg.head_dim
     gidx = gidx[:, None, :, None].expand(B, Hkv, P + S, D)
 
     for i in range(cfg.num_hidden_layers):
-        p = _layer(params, i)
+        p = _layer(params, i, tp)
         h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
         q, k, v = _qkv(p, h, cfg)
         q = apply_rope(q, cos, sin).contiguous()
@@ -519,11 +723,12 @@ def prefill_with_prefix(
                               kv_segment_ids=kv_seg, q_offset=P)
         cache.k[i, :, :, :P + S] = torch.gather(kf, 2, gidx).to(cache_dtype)
         cache.v[i, :, :, :P + S] = torch.gather(vf, 2, gidx).to(cache_dtype)
-        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo")
-        x = _mlp(p, x, cfg, policy)
+        x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo", tp)
+        x = _mlp(p, x, cfg, policy, tp)
+        del p
     x = rms_norm(x[:, -1:], params["norm"], cfg.rms_norm_eps, policy)
     cache.length = P + S
-    return _logits(params, x, policy, cfg)[:, 0], cache
+    return _logits(params, x, policy, cfg, tp)[:, 0], cache
 
 
 def decode_step_multislot(
@@ -536,6 +741,7 @@ def decode_step_multislot(
     lengths: torch.Tensor,  # (B,) tokens written per slot = this step's write position
     starts: Optional[torch.Tensor] = None,  # (B,) first attendable cache position
     policy: DTypePolicy = DEFAULT_POLICY,
+    mesh=None,
 ) -> torch.Tensor:
     """Continuous-batching decode: every slot advances one token at its own
     position -> logits (B, V). Each layer scatters the new K/V to
@@ -567,5 +773,5 @@ def decode_step_multislot(
 
     return decode_layers(
         params, cfg, input_ids=input_ids, positions=positions, kv_seq_len=max_len,
-        write_kv=write_kv, policy=policy,
-        attend=lambda i, q: flash_decode(q, cache_k, cache_v, i, kv_valid))
+        write_kv=write_kv, policy=policy, mesh=mesh,
+        attend=_decode_attend(cache_k, cache_v, kv_valid))

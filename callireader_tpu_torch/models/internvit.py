@@ -36,6 +36,27 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 VIT_LORA_MATS = ("qkv", "proj", "fc1", "fc2")
 
 
+def logical_axes(cfg: VisionConfig) -> Params:
+    """Logical sharding annotations, the tree of the params
+    (core/partition.py)."""
+    del cfg
+    lx = {
+        "norm1_scale": ("stack", "norm"), "norm1_bias": ("stack", "norm"),
+        "norm2_scale": ("stack", "norm"), "norm2_bias": ("stack", "norm"),
+        "qkv_kernel": ("stack", "vit_embed", "qkv"), "qkv_bias": ("stack", "qkv"),
+        "proj_kernel": ("stack", "qkv", "vit_embed"), "proj_bias": ("stack", "norm"),
+        "fc1_kernel": ("stack", "vit_embed", "vit_mlp"), "fc1_bias": ("stack", "vit_mlp"),
+        "fc2_kernel": ("stack", "vit_mlp", "vit_embed"), "fc2_bias": ("stack", "norm"),
+        "ls1": ("stack", "norm"), "ls2": ("stack", "norm"),
+    }
+    return {
+        "patch_embed": {"kernel": ("patch", "vit_embed"), "bias": ("norm",)},
+        "cls_token": (None, None, "vit_embed"),
+        "pos_embed": (None, None, "vit_embed"),
+        "layers": lx,
+    }
+
+
 def layer_norm(x, scale, bias, eps: float, policy: DTypePolicy) -> torch.Tensor:
     xf = x.to(policy.norm_dtype)
     mean = xf.mean(dim=-1, keepdim=True)

@@ -42,6 +42,13 @@ def init_projector(generator: torch.Generator, visual_hidden: int, llm_hidden: i
     return {"layers": layers}
 
 
+def projector_logical_axes(depth: int = 2) -> Params:
+    """Logical sharding annotations of ``init_projector``'s tree."""
+    return {"layers": [
+        {"kernel": ("embed", "mlp"), "bias": ("mlp",)} for _ in range(depth)
+    ]}
+
+
 def project(params: Params, feats: torch.Tensor) -> torch.Tensor:
     h = feats
     for i, layer in enumerate(params["layers"]):

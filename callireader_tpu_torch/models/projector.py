@@ -20,6 +20,16 @@ from callireader_tpu_torch.models.internvit import layer_norm
 Params = Dict[str, Any]
 
 
+def logical_axes(cfg: VLMConfig) -> Params:
+    """Logical sharding annotations (core/partition.py)."""
+    del cfg
+    return {
+        "ln_scale": ("norm",), "ln_bias": ("norm",),
+        "fc1_kernel": ("vit_mlp", "embed"), "fc1_bias": ("norm",),
+        "fc2_kernel": ("embed", "mlp"), "fc2_bias": ("norm",),
+    }
+
+
 def pixel_shuffle(x: torch.Tensor, scale_factor: float, ps_version: str = "v2") -> torch.Tensor:
     """x (N, W, H, C) -> (N, W*s, H*s, C/s^2), the reference's view/permute."""
     n, w, h, c = x.shape

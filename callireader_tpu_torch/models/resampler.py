@@ -25,6 +25,28 @@ LN_EPS = 1e-5
 LORA_MATS = ("to_q", "to_kv", "to_out", "ff1", "ff2")
 
 
+def logical_axes(cfg: ResamplerConfig) -> Params:
+    """Logical sharding annotations (core/partition.py)."""
+    out = {} if cfg.out_dim is None else {
+        "out_kernel": ("embed", None), "out_bias": (None,),
+    }
+    return {
+        **out,
+        "learns": (None, "embed"),
+        "layers": {
+            "norm_media_scale": ("stack", "norm"), "norm_media_bias": ("stack", "norm"),
+            "norm_learns_scale": ("stack", "norm"), "norm_learns_bias": ("stack", "norm"),
+            "to_q": ("stack", "embed", "qkv"),
+            "to_kv": ("stack", "embed", "qkv"),
+            "to_out": ("stack", "qkv", "embed"),
+            "ff_norm_scale": ("stack", "norm"), "ff_norm_bias": ("stack", "norm"),
+            "ff1": ("stack", "embed", "mlp"), "ff1_bias": ("stack", "mlp"),
+            "ff2": ("stack", "mlp", "embed"), "ff2_bias": ("stack", "norm"),
+        },
+        "norm_scale": ("norm",), "norm_bias": ("norm",),
+    }
+
+
 def forward(
     params: Params,
     cfg: ResamplerConfig,

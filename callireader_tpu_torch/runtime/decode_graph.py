@@ -18,6 +18,12 @@ how far each ``LaunchCount`` (kernels/_build.COUNTS: each kernel's count and
 the model's ``DECODE_STEPS``) moved during its capture, takes that off, and
 adds it back at each replay, so every count equals what ran.
 
+Under a mesh (``mesh=``) the function's collectives (the tensor-parallel
+``all_reduce`` / ``all_gather`` of models/internlm2.py on NCCL) are captured
+with the rest; before the first run every group of the mesh makes one
+collective outside any capture, so that no communicator is created inside
+one.
+
 ``GraphCache`` is a small LRU of graphs with their buffers, keyed by shapes
 and knobs and tied to the identity of the parameter tensors they read: an
 entry whose parameters die (a freed engine) is dropped at once, with its
@@ -57,14 +63,16 @@ class StepGraph:
     the graph so that each replay draws afresh. ``share``: another StepGraph
     whose memory pool this one's capture shares (never replayed at the same
     time). ``eager``: run ``fn`` every time, on the card too (for tests that
-    hold the graph against it)."""
+    hold the graph against it). ``mesh``: the mesh whose collectives ``fn``
+    runs."""
 
     def __init__(self, device: torch.device, *, generator: Optional[torch.Generator] = None,
-                 share: Optional["StepGraph"] = None, eager: bool = False):
+                 share: Optional["StepGraph"] = None, eager: bool = False, mesh=None):
         self.device = torch.device(device)
         self.generator = generator
         self.share = share
         self.eager = eager
+        self.mesh = mesh
         self.graph = None
         self.out = None
         self.counts: List[Tuple[Any, int]] = []
@@ -84,6 +92,11 @@ class StepGraph:
         return self.out
 
     def _run_and_capture(self, fn: Callable[[], Any]) -> Any:
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            for axis in self.mesh.axis_names:
+                dist.all_reduce(torch.zeros(1, device=self.device), group=self.mesh.group(axis))
         main = torch.cuda.current_stream(self.device)
         side = _capture_stream(self.device)
         side.wait_stream(main)

@@ -25,8 +25,16 @@ broadcast to RGB on the device; off: full RGB, the reference's crops) and
 except crops that would be downscaled, which take the host path; off: every
 crop takes the host path, the PIL-compatible antialiased bicubic in numpy).
 Every entry point that builds char canvases (``batch_calli_align``,
-``calli_align``, ``batch_build_rows``, ``chat_ocr``) follows both. Not
-ported: meshes.
+``calli_align``, ``batch_build_rows``, ``chat_ocr``) follows both.
+
+``mesh`` (core/partition.Mesh, one process per rank): the LLM runs tensor
+parallel on each rank's blocks (models/internlm2.py; a fused int8 tree is
+split back to wq / wk / wv and w1 / w3 first, and the vocabulary is padded to
+a multiple of 128 x tensor, so that each rank's share of the LM head stays a
+multiple of the int8 kernel's 128). The towers, projector, resampler,
+detector and OrderFormer stay whole on every rank. The batch API splits its
+rows over "data" (``shard_rows_over_data``): each data rank prefills and
+decodes its own rows and the token ids are gathered in row order.
 """
 
 from __future__ import annotations
@@ -42,10 +50,12 @@ import numpy as np
 import torch
 
 from callireader_tpu_torch.align import vq as vq_mod
+from callireader_tpu_torch.core import partition
 from callireader_tpu_torch.core.config import VLMConfig, get_config
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy, require_device
 from callireader_tpu_torch.models import detector as detector_mod
 from callireader_tpu_torch.models import internlm2, internvit, orderformer, projector, resampler
+from callireader_tpu_torch.parallel import spmd
 from callireader_tpu_torch.runtime import generate as gen
 from callireader_tpu_torch.runtime import quantize, weights
 from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
@@ -101,8 +111,12 @@ class CalliReaderEngine:
         device_tile_pages: bool = False,
         char_canvas: Optional[int] = None,
         char_window: Optional[int] = None,
+        mesh=None,
     ):
         self.device = require_device(device)
+        self.mesh = mesh
+        if mesh is not None and "llm" in params:
+            cfg, params = self._shard_llm(cfg, params, mesh)
         self.cfg = cfg
         self.params = params
         self.tok = tokenizer
@@ -146,6 +160,44 @@ class CalliReaderEngine:
         # decode steps batch_prepare enqueued after every row of their batch
         # was done (the pad steps of an enqueued decode)
         self.pad_steps = 0
+
+    @staticmethod
+    def _shard_llm(cfg: VLMConfig, params: Dict[str, Any], mesh):
+        """The LLM's tree -> this rank's blocks (the unfused layout, the
+        vocabulary padded to 128 x tensor where tensor > 1)."""
+        llm = quantize.unfuse_llm_int8(params["llm"], cfg.llm)
+        t = mesh.axis_size("tensor")
+        llm_cfg = cfg.llm
+        if t > 1:
+            llm, llm_cfg = internlm2.pad_vocab(llm, llm_cfg, 128 * t)
+        llm = spmd.shard_tree(llm, spmd.llm_logical_axes(llm_cfg, llm), mesh)
+        return dataclasses.replace(cfg, llm=llm_cfg), {**params, "llm": llm}
+
+    def shard_rows_over_data(self, rows: Dict[str, Any]) -> Dict[str, Any]:
+        """A batch_build_rows result -> this data rank's rows: the batch is
+        padded to a multiple of the "data" size (the last row repeated) and
+        split in order; ``rows["n"]`` keeps the true count, so that
+        ``_gather_rows`` drops the pad rows again."""
+        mesh = self.mesh
+        if mesh is None or mesh.axis_size("data") <= 1:
+            return rows
+        d = mesh.axis_size("data")
+        n = int(rows["embeds"].shape[0])
+        pad = (-n) % d
+        embeds, mask = rows["embeds"], np.asarray(rows["mask"])
+        if pad:
+            embeds = torch.cat([embeds, embeds[-1:].expand(pad, *embeds.shape[1:])])
+            mask = np.concatenate([mask, np.repeat(mask[-1:], pad, axis=0)], axis=0)
+        out = dict(rows)
+        out["embeds"] = partition.local_shard(embeds, ("data",), mesh)
+        out["mask"] = partition.local_shard(torch.from_numpy(mask), ("data",), mesh).numpy()
+        return out
+
+    def _gather_rows(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """Every data rank's rows of ``x`` in order, the pad rows dropped."""
+        if self.mesh is None or self.mesh.axis_size("data") <= 1:
+            return x
+        return spmd.all_gather(x, self.mesh, "data", 0)[:n]
 
     # ------------------------------------------------------------------ util
 
@@ -603,7 +655,8 @@ class CalliReaderEngine:
 
     def _build_embeds(self, input_ids: torch.Tensor, img_embeds, pseudo_embeds) -> torch.Tensor:
         """Token embed + double splice (<IMG_CONTEXT> = image, ALIGNED = pseudo)."""
-        embeds = internlm2.embed_tokens(self.params["llm"], input_ids, self.policy.compute_dtype)
+        embeds = internlm2.embed_tokens(self.params["llm"], input_ids, self.policy.compute_dtype,
+                                        self.mesh, self.cfg.llm)
         if img_embeds is not None:
             embeds = vq_mod.splice_embeds(embeds, input_ids, img_embeds,
                                           self.cfg.img_context_token_id)
@@ -740,6 +793,7 @@ class CalliReaderEngine:
             images, questions, histories=histories, use_p=use_p, drop_zero=drop_zero,
             hard_vq=hard_vq, ordered_lists=ordered_lists,
         )
+        rows = self.shard_rows_over_data(rows)
         gen_cfg = gen.GenerateConfig(
             max_new_tokens=max_new_tokens,
             eos_token_ids=(eos_token_ids if eos_token_ids is not None
@@ -752,8 +806,9 @@ class CalliReaderEngine:
             tokens, lengths = gen.generate_from_embeds(
                 self.params["llm"], self.cfg.llm, rows["embeds"], self._to_dev(rows["mask"]),
                 gen_cfg=gen_cfg, max_cache_len=rows["bucket"] + max_new_tokens,
-                policy=self.policy, overlap=overlap,
+                policy=self.policy, overlap=overlap, mesh=self.mesh,
             )
+            tokens, lengths = self._gather_rows(tokens, rows["n"]), self._gather_rows(lengths, rows["n"])
         if overlap:
             self.timings.add("generate_dispatch", time.perf_counter() - t0)
         return {"tokens": tokens, "lengths": lengths, "embeds": rows["embeds"],
@@ -833,7 +888,7 @@ class CalliReaderEngine:
         with self._span("generate"):
             tokens, lengths = gen_fn(self.params["llm"], self.cfg.llm, embeds, self._to_dev(mask),
                                      gen_cfg=gen_cfg, max_cache_len=bucket + gen_cfg.max_new_tokens,
-                                     policy=self.policy)
+                                     policy=self.policy, mesh=self.mesh)
         return tokens[0, :int(lengths[0])].tolist()
 
     def _page_tiles_host(self, img_np: np.ndarray) -> np.ndarray:
@@ -990,7 +1045,7 @@ class CalliReaderEngine:
         with self._span("generate"):
             tokens, lengths = gen.generate_from_embeds(
                 self.params["llm"], self.cfg.llm, embeds, self._to_dev(mask), gen_cfg=gen_cfg,
-                max_cache_len=bucket + max_new_tokens, policy=self.policy)
+                max_cache_len=bucket + max_new_tokens, policy=self.policy, mesh=self.mesh)
         tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
         return [self._respond(tokens[i, :lengths[i]].tolist(), conv_sep) for i in range(len(rows))]
 

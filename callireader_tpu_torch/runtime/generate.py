@@ -20,7 +20,10 @@ step costs replays instead of ~900 launches from Python. The host looks at
 ``done`` between chunks only (each look is a device sync), where the loop
 stops; rows already done keep emitting pad, so the extra steps of a chunk
 change no token. A ``max_new_tokens`` that is not a multiple of SYNC_EVERY
-ends with a tail graph of the remaining steps. ``eager=True`` runs the same
+ends with a tail graph of the remaining steps. Under a mesh (``mesh=``) the
+model runs tensor parallel and its KV cache holds the rank's heads; the
+graphs capture the collectives, and every rank of the tensor group, on the
+same logits, makes the same choices. ``eager=True`` runs the same
 chunks uncaptured on the card (tests and chip_smoke.py compare the two); on
 the CPU they always run uncaptured. Beam search stays host-stepped.
 """
@@ -128,10 +131,10 @@ class DecodeState:
 
     @classmethod
     def create(cls, cfg: LLMConfig, B: int, T: int, max_len: int, eos_ids, device,
-               logits_dtype) -> "DecodeState":
+               logits_dtype, mesh=None) -> "DecodeState":
         z = dict(device=device)
         return cls(
-            cache=internlm2.KVCache.create(cfg, B, max_len, torch.bfloat16, device),
+            cache=internlm2.KVCache.create(cfg, B, max_len, torch.bfloat16, device, mesh),
             logits=torch.zeros((B, cfg.vocab_size), dtype=logits_dtype, **z),
             seen=torch.zeros((B, cfg.vocab_size), dtype=torch.bool, **z),
             tokens=torch.zeros((B, T), dtype=torch.int32, **z),
@@ -160,7 +163,8 @@ class DecodeState:
 
 
 def _decode_chunk(st: DecodeState, params, cfg: LLMConfig, gen_cfg: GenerateConfig,
-                  policy: DTypePolicy, generator: Optional[torch.Generator], n: int) -> None:
+                  policy: DTypePolicy, generator: Optional[torch.Generator], n: int,
+                  mesh=None) -> None:
     """``n`` steps of the loop on ``st``, in place and without a host read:
     pick each row's token from the current logits, record it, then run the
     decode step that writes it at ``slot`` (JAX generate.py's step_fn)."""
@@ -176,7 +180,7 @@ def _decode_chunk(st: DecodeState, params, cfg: LLMConfig, gen_cfg: GenerateConf
         st.done.logical_or_(is_eos)
         st.logits.copy_(internlm2.decode_step_at(
             params, cfg, input_ids=next_tok[:, None], cache=st.cache, kv_valid=st.kv_valid,
-            slot=st.slot, policy=policy))
+            slot=st.slot, policy=policy, mesh=mesh))
         st.step.add_(1)
         st.slot.add_(1)
 
@@ -188,15 +192,17 @@ class _Graphs:
     die."""
 
     def __init__(self, st: DecodeState, chunk: Callable, device,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], mesh=None):
         self.st, self.chunk, self.device, self.generator = st, chunk, device, generator
+        self.mesh = mesh
         self.by_steps = {}
 
     def run(self, params, n: int) -> None:
         g = self.by_steps.get(n)
         if g is None:
             g = self.by_steps[n] = decode_graph.StepGraph(
-                self.device, generator=self.generator, share=self.by_steps.get(SYNC_EVERY))
+                self.device, generator=self.generator, share=self.by_steps.get(SYNC_EVERY),
+                mesh=self.mesh)
         g(lambda: self.chunk(params, n))
 
 
@@ -281,6 +287,7 @@ def start_generate(
     generator: Optional[torch.Generator] = None,
     policy: DTypePolicy = DEFAULT_POLICY,
     eager: bool = False,
+    mesh=None,
 ) -> DecodeRun:
     """The prefill, enqueued, and the decode loop ready to run -> a
     DecodeRun. On a CUDA device (unless ``eager``) the state and the chunk
@@ -289,7 +296,8 @@ def start_generate(
     a repeated call replays graphs captured by an earlier one, on the same
     state: run (or enqueue) a DecodeRun's chunks before the next call with
     the same key. ``generator`` drives the draws when ``gen_cfg.do_sample``
-    (default: seeded 0 anew on each call)."""
+    (default: seeded 0 anew on each call). ``mesh``: tensor parallel, the
+    parameters the rank's blocks (models/internlm2.py)."""
     B, S, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     T = gen_cfg.max_new_tokens
@@ -303,14 +311,14 @@ def start_generate(
     def build() -> _Graphs:
         gen = torch.Generator(device=dev) if own_generator else generator
         st = DecodeState.create(cfg, B, T, max_cache_len, gen_cfg.eos_token_ids, dev,
-                                policy.logits_dtype)
-        return _Graphs(st, lambda p, n: _decode_chunk(st, p, cfg, gen_cfg, policy, gen, n),
-                       dev, gen)
+                                policy.logits_dtype, mesh)
+        return _Graphs(st, lambda p, n: _decode_chunk(st, p, cfg, gen_cfg, policy, gen, n, mesh),
+                       dev, gen, mesh)
 
     graphed = dev.type == "cuda" and not eager
     if graphed:
         key = (cfg, B, max_cache_len, T, gen_cfg, policy, str(dev),
-               None if own_generator else id(generator))
+               None if own_generator else id(generator), id(mesh))
         g = GRAPHS.get(key, params, build)
     else:
         g = build()
@@ -318,7 +326,7 @@ def start_generate(
         g.generator.manual_seed(0)
     logits, _ = internlm2.prefill(
         params, cfg, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
-        max_len=max_cache_len, policy=policy, cache=g.st.cache,
+        max_len=max_cache_len, policy=policy, cache=g.st.cache, mesh=mesh,
     )
     g.st.reset(logits, attention_mask, gen_cfg.pad_token_id)
     run = g.run if graphed else g.chunk
@@ -339,6 +347,7 @@ def generate_from_embeds(
     policy: DTypePolicy = DEFAULT_POLICY,
     eager: bool = False,
     overlap: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens (B, max_new_tokens) int32, pad after eos; lengths (B,)
     int32, generated count including eos). ``generator`` drives the draws
@@ -350,7 +359,7 @@ def generate_from_embeds(
     done."""
     run = start_generate(params, cfg, inputs_embeds, attention_mask, gen_cfg=gen_cfg,
                          max_cache_len=max_cache_len, generator=generator, policy=policy,
-                         eager=eager)
+                         eager=eager, mesh=mesh)
     return run.enqueue_all() if overlap else run.finish()
 
 
@@ -364,6 +373,7 @@ def beam_generate_from_embeds(
     gen_cfg: GenerateConfig,
     max_cache_len: int,
     policy: DTypePolicy = DEFAULT_POLICY,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search over ``gen_cfg.num_beams`` fixed beam slots (HF generate
     with do_sample=False, length_penalty 1.0: the final ranking is
@@ -382,7 +392,7 @@ def beam_generate_from_embeds(
     attention_mask = attention_mask.to(dev, torch.int32)
     logits, cache = internlm2.prefill(
         params, cfg, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
-        max_len=max_cache_len, policy=policy,
+        max_len=max_cache_len, policy=policy, mesh=mesh,
     )
     cache = internlm2.KVCache(cache.k.repeat_interleave(k, dim=1),
                               cache.v.repeat_interleave(k, dim=1), cache.length)
@@ -429,7 +439,7 @@ def beam_generate_from_embeds(
         kv_valid[:, cache.length] = 1
         logits, cache = internlm2.decode_step(
             params, cfg, input_ids=tok[:, None], cache=cache, kv_valid_mask=kv_valid,
-            policy=policy,
+            policy=policy, mesh=mesh,
         )
     norm = scores / torch.clamp(lengths.float(), min=1.0)
     best = int(torch.argmax(norm))

@@ -12,7 +12,9 @@ per slot and layer at each decode step). On a CUDA device every decode goes
 through the paged kernel, whatever the page size; a page size the kernel
 lacks raises there. A tick's decode (one step, or the window of k steps)
 reads static inputs the host fills before each tick, the page table among
-them, and is a CUDA graph on the card, as in runtime/serving.py.
+them, and is a CUDA graph on the card, as in runtime/serving.py. Under a
+mesh (``mesh=``) the pools hold the rank's KV heads and the page tables are
+the same on every rank.
 """
 
 from __future__ import annotations
@@ -85,9 +87,11 @@ class PagedBatcher(PrefixCacheMixin):
         steps_per_sync: int = 1,
         alloc_watermark: Optional[int] = None,
         eager: bool = False,
+        mesh=None,
     ):
         self.params = llm_params
         self.cfg = cfg
+        self.mesh = mesh
         self.B = num_slots
         self.page = page_size
         self.P = max_pages_per_slot
@@ -102,7 +106,7 @@ class PagedBatcher(PrefixCacheMixin):
             raise ValueError("steps_per_sync must be <= page_size")
 
         self._pending: List[Any] = [None] * num_slots
-        L, Hkv, D = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+        L, Hkv, D = cfg.num_hidden_layers, internlm2.kv_heads(cfg, mesh), cfg.head_dim
         pool_shape = (L, num_pages, Hkv, page_size, D)
         self.kpool = torch.zeros(pool_shape, dtype=cache_dtype, device=self.device)
         self.vpool = torch.zeros(pool_shape, dtype=cache_dtype, device=self.device)
@@ -125,7 +129,7 @@ class PagedBatcher(PrefixCacheMixin):
         self._in = TickInputs(num_slots, self.device, table=torch.zeros(
             (num_slots, max_pages_per_slot), dtype=torch.int32, device=self.device))
         # the tick's CUDA graph (``eager``: uncaptured on the card too, for tests)
-        self._tick = decode_graph.StepGraph(self.device, eager=eager)
+        self._tick = decode_graph.StepGraph(self.device, eager=eager, mesh=mesh)
 
     @property
     def _cache_dtype(self):
@@ -139,7 +143,7 @@ class PagedBatcher(PrefixCacheMixin):
     def _prefill_fn(self, bucket: int) -> Callable:
         return lambda p, e, m: internlm2.prefill(
             p, self.cfg, inputs_embeds=e, attention_mask=m, max_len=bucket,
-            policy=self.policy, cache_dtype=self.kpool.dtype,
+            policy=self.policy, cache_dtype=self.kpool.dtype, mesh=self.mesh,
         )
 
     def _insert_pages(self, cache: torch.Tensor, pool: torch.Tensor, page_ids: torch.Tensor):
@@ -161,10 +165,13 @@ class PagedBatcher(PrefixCacheMixin):
             self.kpool[i][write_page, :, write_off] = k.to(self.kpool.dtype)
             self.vpool[i][write_page, :, write_off] = v.to(self.vpool.dtype)
 
+        def attend(i, q):
+            return paged_flash_decode(q, self.kpool, self.vpool, i, page_table, valid)
+
         return internlm2.decode_layers(
             self.params, self.cfg, input_ids=ids, positions=positions,
             kv_seq_len=self.P * self.page, write_kv=write_kv, policy=self.policy,
-            attend=lambda i, q: paged_flash_decode(q, self.kpool, self.vpool, i, page_table, valid))
+            mesh=self.mesh, attend=attend)
 
     def _derive_step_arrays(self, page_table, lengths, starts, active):
         """(B,) lengths/starts/active -> (valid (B, P, page), write_page,
@@ -233,7 +240,8 @@ class PagedBatcher(PrefixCacheMixin):
         req = slot.req
         if req.tokens:
             ids = torch.tensor([req.tokens], dtype=torch.int32, device=self.device)
-            emb = internlm2.embed_tokens(self.params, ids, torch.float32)[0].cpu().numpy()
+            emb = internlm2.embed_tokens(self.params, ids, torch.float32, self.mesh,
+                                         self.cfg)[0].cpu().numpy()
             req.embeds = np.concatenate([req.embeds, emb.astype(req.embeds.dtype)], axis=0)
             req.dev_embeds = None  # stale; uploaded again at re-admission
         self.pool.release(slot.pages)

@@ -11,8 +11,9 @@ and models/internvit dispatch on their presence. The arithmetic is the JAX
 package's (fp32 division by the scale, round half to even, clip to
 [-127, 127]), so the same fp32 tree quantizes to the same bits in both.
 
-Not ported here: the sharding-axis helpers (they wait for the port's
-parallel layer).
+``quantized_logical_axes`` / ``quantized_vit_logical_axes`` extend the
+models' sharding annotations over the quantized leaves; a mesh takes the
+unfused layout (``unfuse_llm_int8``).
 """
 
 from __future__ import annotations
@@ -120,6 +121,69 @@ def fuse_llm_int8(llm_params: Dict[str, Any]) -> Dict[str, Any]:
     if not changed:
         return llm_params
     out = dict(llm_params)
+    out["layers"] = layers
+    return out
+
+
+def unfuse_llm_int8(llm_params: Dict[str, Any], cfg: LLMConfig) -> Dict[str, Any]:
+    """Inverse of fuse_llm_int8: ``wqkv_q`` / ``w13_q`` (and their scales)
+    split back into wq/wk/wv and w1/w3 along the out axis, each a contiguous
+    copy (the layout a tensor mesh shards). The unfused products give the
+    same bits as the fused ones."""
+    layers = dict(llm_params["layers"])
+    if not any(f"{fused}_q" in layers for fused, _ in FUSED):
+        return llm_params
+    Hq, Hkv, D, M = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
+                     cfg.intermediate_size)
+    widths = {"wqkv": (Hq * D, Hkv * D, Hkv * D), "w13": (M, M)}
+    for fused, parts in FUSED:
+        for suffix in ("_q", "_scale"):
+            w = layers.pop(f"{fused}{suffix}", None)
+            if w is None:
+                continue
+            for p, piece in zip(parts, torch.split(w, widths[fused], dim=-1)):
+                layers[f"{p}{suffix}"] = piece.contiguous()
+            del w, piece
+    out = dict(llm_params)
+    out["layers"] = layers
+    return out
+
+
+def quantized_logical_axes(axes: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, Any]:
+    """Extend an LLM logical-axis tree for quantized leaves: ``{name}_q``
+    inherits the dense leaf's axes, its scale only the out-channel one; the
+    fused leaves' out axis crosses q/k/v (gate/up), so it stays unsharded."""
+    layers = dict(axes["layers"])
+    for name in QUANT_TARGETS:
+        if f"{name}_q" in params["layers"]:
+            base = layers.pop(name, ("stack", "embed", "mlp"))
+            layers[f"{name}_q"] = base
+            layers[f"{name}_scale"] = ("stack", None, base[-1])
+    for fused, dropped in FUSED:
+        if f"{fused}_q" in params["layers"]:
+            for p in dropped:
+                layers.pop(p, None)
+            layers[f"{fused}_q"] = ("stack", "embed", None)
+            layers[f"{fused}_scale"] = ("stack", None, None)
+    out = dict(axes)
+    out["layers"] = layers
+    for name in ("tok_embeddings", "output"):
+        if f"{name}_q" in params:
+            base = out.pop(name, ("vocab", "embed"))
+            out[f"{name}_q"] = base
+            out[f"{name}_scale"] = ("vocab", None)
+    return out
+
+
+def quantized_vit_logical_axes(axes: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, Any]:
+    """Extend a ViT logical-axis tree for quantized leaves."""
+    layers = dict(axes["layers"])
+    for name in VIT_QUANT_TARGETS:
+        if f"{name}_kernel_q" in params["layers"]:
+            base = layers.pop(f"{name}_kernel", ("stack", "vit_embed", None))
+            layers[f"{name}_kernel_q"] = base
+            layers[f"{name}_kernel_scale"] = ("stack", None, base[-1])
+    out = dict(axes)
     out["layers"] = layers
     return out
 

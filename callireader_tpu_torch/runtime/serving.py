@@ -23,7 +23,10 @@ buffers that the host fills with ``copy_`` (``TickInputs``) and is a CUDA
 graph on the card (runtime/decode_graph.py: its first tick runs eagerly and
 is captured, later ticks replay it), with one device-to-host copy of the
 picked ids at its end; on the CPU the same function runs uncaptured.
-Admission (prefill) runs eagerly.
+Admission (prefill) runs eagerly. Under a mesh (``mesh=``) the model runs
+tensor parallel on the rank's blocks of the params, and the slot cache (the
+page pool of runtime/paged_cache.py) holds the rank's KV heads; the
+bookkeeping, the page tables and the picks are the same on every rank.
 Everything that launches work runs inside ``torch.inference_mode()``, which is
 thread-local: ``submit``, ``register_prefix`` and ``step`` each enter it on
 the thread that calls them. All launches go to that thread's current stream;
@@ -228,7 +231,7 @@ class PrefixCacheMixin:
         suffix width: the callers consume exactly that region)."""
         return lambda p, e, m, pk, pv: internlm2.prefill_with_prefix(
             p, self.cfg, inputs_embeds=e, attention_mask=m, prefix_k=pk, prefix_v=pv,
-            max_len=max_len, policy=self.policy, cache_dtype=self._cache_dtype,
+            max_len=max_len, policy=self.policy, cache_dtype=self._cache_dtype, mesh=self.mesh,
         )
 
     def _group_admissions(self, reqs_with_buckets):
@@ -283,9 +286,11 @@ class ContinuousBatcher(PrefixCacheMixin):
         cache_dtype=torch.bfloat16,
         steps_per_sync: int = 1,
         eager: bool = False,
+        mesh=None,
     ):
         self.params = llm_params
         self.cfg = cfg
+        self.mesh = mesh
         self.B = num_slots
         self.max_len = max_len
         self.device = llm_params["norm"].device
@@ -295,7 +300,8 @@ class ContinuousBatcher(PrefixCacheMixin):
         # to K steps.
         self.steps_per_sync = max(1, steps_per_sync)
         self.policy = policy
-        shape = (cfg.num_hidden_layers, num_slots, cfg.num_key_value_heads, max_len, cfg.head_dim)
+        shape = (cfg.num_hidden_layers, num_slots, internlm2.kv_heads(cfg, mesh), max_len,
+                 cfg.head_dim)
         self.cache_k = torch.zeros(shape, dtype=cache_dtype, device=self.device)
         self.cache_v = torch.zeros(shape, dtype=cache_dtype, device=self.device)
         self.lengths = np.zeros(num_slots, np.int64)
@@ -312,7 +318,7 @@ class ContinuousBatcher(PrefixCacheMixin):
         self._init_prefix_cache()
         self._in = TickInputs(num_slots, self.device)
         # the tick's CUDA graph (``eager``: uncaptured on the card too, for tests)
-        self._tick = decode_graph.StepGraph(self.device, eager=eager)
+        self._tick = decode_graph.StepGraph(self.device, eager=eager, mesh=mesh)
 
     @property
     def _cache_dtype(self):
@@ -337,13 +343,14 @@ class ContinuousBatcher(PrefixCacheMixin):
         # that region into the slot, the rest of the slot is never read
         return lambda p, e, m: internlm2.prefill(
             p, self.cfg, inputs_embeds=e, attention_mask=m, max_len=bucket,
-            policy=self.policy, cache_dtype=self.cache_k.dtype,
+            policy=self.policy, cache_dtype=self.cache_k.dtype, mesh=self.mesh,
         )
 
     def _decode(self, tokens: torch.Tensor, lengths: torch.Tensor, starts: torch.Tensor):
         return internlm2.decode_step_multislot(
             self.params, self.cfg, input_ids=tokens[:, None], cache_k=self.cache_k,
             cache_v=self.cache_v, lengths=lengths, starts=starts, policy=self.policy,
+            mesh=self.mesh,
         )
 
     def _decode_k(self, first_tokens, lengths, active, starts, k: int, pens) -> torch.Tensor:

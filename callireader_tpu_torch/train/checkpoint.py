@@ -24,6 +24,7 @@ model in device or host memory.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -88,7 +89,7 @@ def restore_train_state(path: str, template: TrainState) -> TrainState:
     for k in opt_state:
         if not isinstance(opt_state[k], dict):
             opt_state[k] = int(counters[f"opt_state/{k}"])
-    return TrainState(template.trainable, opt_state, int(counters["step"]))
+    return dataclasses.replace(template, opt_state=opt_state, step=int(counters["step"]))
 
 
 def save_params(path: str, params: Any) -> None:

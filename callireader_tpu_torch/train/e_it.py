@@ -19,8 +19,19 @@ to every trainable leaf; MultiSteps keeps the running mean of the micro-batch
 gradients and advances the schedule once per ``grad_accum`` micro-batches.
 Unlike the JAX step, which returns new arrays, the update is written into
 the parameter and moment tensors in place (the 8b LoRA tree and its moments
-are ~5 GB). No mesh: the ZeRO sharding of the JAX trainer waits for the
-port's parallel layer.
+are ~5 GB).
+
+Under a mesh (``create_train_state(..., mesh=, axes=)``) each rank keeps its
+block of every trainable leaf and of its optimizer moments (ZeRO over the
+leaves' logical axes), and the frozen tree whole. A step takes the whole
+batch, computes on the rows of its (data, fsdp) coordinate
+(``shard_eit_batch``: the rows with their own tiles and pseudo tokens) with
+the trainable leaves gathered whole, adds the grads over data, fsdp and seq,
+clips by their global norm and updates its own blocks. The loss is
+normalised by the token count of the whole batch, so that the added grads
+are those of the unsharded step. With "seq" > 1 (``make_train_step(mesh=)``)
+each rank runs its part of the sequence and attention goes through Ulysses
+(parallel/ulysses.py).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from callireader_tpu_torch.align import vq as vq_mod
+from callireader_tpu_torch.core import partition
 from callireader_tpu_torch.core.config import VLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.models import internlm2, internvit, projector
@@ -100,6 +112,18 @@ def clone_tree(tree, requires_grad: bool):
     return tree.detach().clone().requires_grad_(requires_grad)
 
 
+def replace_leaves(tree, flat: Dict[str, Any], prefix: str = ""):
+    """``tree`` with each leaf at path p replaced by ``flat[p]`` (None holes
+    kept): the inverse of ``flatten``."""
+    if isinstance(tree, dict):
+        return {k: replace_leaves(v, flat, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replace_leaves(v, flat, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return None if tree is None else flat[prefix]
+
+
 def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     """Tree -> {"a/b/c": leaf}, None holes dropped."""
     if isinstance(tree, dict):
@@ -126,6 +150,8 @@ def eit_loss(
     *,
     policy: DTypePolicy = DEFAULT_POLICY,
     remat: bool = True,
+    mesh=None,
+    attn_override: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch (tensors on the model's device):
       input_ids   (B, S) int   right-padded with the pad id
@@ -134,7 +160,10 @@ def eit_loss(
       positions   (B, S) int
       pixel_values (T, H, W, 3) uint8 or normalised float: every tile of the batch in order
       pseudo_embeds (P, E)     every pseudo token of the batch in order
-    -> (loss, {"loss", "n_tokens"})."""
+    -> (loss, {"loss", "n_tokens"}). ``mesh``: the batch is a rank's rows
+    (``shard_eit_batch``); the loss is normalised by the tokens of all of
+    them (added over data, fsdp and seq), and with "seq" > 1 the rank runs
+    its part of the sequence through ``attn_override``."""
     input_ids = batch["input_ids"]
     labels = batch["labels"]
     embeds = internlm2.embed_tokens(params["llm"], input_ids, policy.compute_dtype)
@@ -149,16 +178,70 @@ def eit_loss(
     if "pseudo_embeds" in batch:
         embeds = vq_mod.splice_embeds(embeds, input_ids, batch["pseudo_embeds"], cfg.aligned_token_id)
 
+    seg, positions = batch.get("segment_ids"), batch.get("positions")
+    S = embeds.shape[1]
+    split = mesh is not None and mesh.axis_size("seq") > 1
+    if split:
+        from callireader_tpu_torch.parallel.ulysses import split_for_sequence_parallel
+
+        # each position's target is the next token (the last has none), cut
+        # with the rank's part of the sequence
+        shift_labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], IGNORE_INDEX)],
+                                 dim=1)
+        if positions is None:
+            positions = torch.arange(S, device=embeds.device)[None].expand(embeds.shape[0], S)
+        embeds, positions, shift_labels = (split_for_sequence_parallel(t, mesh)
+                                           for t in (embeds, positions, shift_labels))
+        seg = None  # the Ulysses attention is causal only (unpacked rows, pads at the end)
     logits = internlm2.forward(
-        params["llm"], cfg.llm, inputs_embeds=embeds, segment_ids=batch.get("segment_ids"),
-        positions=batch.get("positions"), policy=policy, remat=remat)
-    shift_labels = labels[:, 1:].long()
+        params["llm"], cfg.llm, inputs_embeds=embeds, segment_ids=seg, positions=positions,
+        policy=policy, remat=remat, attn_override=attn_override, rope_len=S)
+    if not split:
+        logits, shift_labels = logits[:, :-1], labels[:, 1:]
+    shift_labels = shift_labels.long()
     valid = shift_labels != IGNORE_INDEX
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     token_ll = torch.gather(logp, -1, torch.where(valid, shift_labels, 0)[..., None])[..., 0]
-    n_valid = valid.sum().clamp(min=1)
-    loss = -(token_ll * valid).sum() / n_valid
-    return loss, {"loss": loss, "n_tokens": n_valid}
+    loss_sum = -(token_ll * valid).sum()
+    n_valid = valid.sum()
+    if mesh is None:
+        n_valid = n_valid.clamp(min=1)
+        loss = loss_sum / n_valid
+        return loss, {"loss": loss, "n_tokens": n_valid}
+    import torch.distributed as dist
+
+    both = torch.stack([loss_sum.detach().float(), n_valid.float()])
+    for a in ("data", "fsdp", "seq"):
+        if mesh.axis_size(a) > 1:
+            dist.all_reduce(both, group=mesh.group(a))
+    n_all = both[1].clamp(min=1)
+    return loss_sum / n_all, {"loss": both[0] / n_all, "n_tokens": n_all.long()}
+
+
+def shard_eit_batch(batch: Dict[str, torch.Tensor], cfg: VLMConfig, mesh) -> Dict[str, torch.Tensor]:
+    """A whole e-IT batch -> the rows of this rank's (data, fsdp) coordinate
+    (of its data coordinate where data x fsdp does not divide the batch: the
+    fsdp ranks then run the same rows, which the loss's token count, added
+    over the same axes as the grads, makes up for), with the image tiles and
+    pseudo tokens those rows splice (the payloads are in row order: each row
+    takes as many as it has slots)."""
+    d, f = mesh.axis_size("data"), mesh.axis_size("fsdp")
+    ids = batch["input_ids"]
+    B = ids.shape[0]
+    if B % (d * f):
+        f = 1
+    if B % d:
+        raise ValueError(f"batch of {B} rows does not split over data={d}")
+    n = B // (d * f)
+    r0 = (mesh.rank("data") * f + (mesh.rank("fsdp") if f > 1 else 0)) * n
+    out = {k: v[r0:r0 + n] for k, v in batch.items() if k not in ("pixel_values", "pseudo_embeds")}
+    for key, token, per in (("pixel_values", cfg.img_context_token_id, cfg.num_image_token),
+                            ("pseudo_embeds", cfg.aligned_token_id, 1)):
+        if key in batch:
+            counts = ((ids == token).sum(dim=1) // per).tolist()
+            lo = sum(counts[:r0])
+            out[key] = batch[key][lo:lo + sum(counts[r0:r0 + n])]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -248,10 +331,12 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: Dict[str, Any],
-               params: Dict[str, torch.Tensor]) -> None:
+               params: Dict[str, torch.Tensor], norm_fn: Callable = global_norm) -> None:
+        """``norm_fn``: the global norm of a grads dict (a sharded tree's
+        needs its ranks: spmd.global_norm)."""
         k = self.grad_accum
         if k == 1:
-            self._apply(grads, state, params)
+            self._apply(grads, state, params, norm_fn)
             return
         n = state["mini_step"]
         for path, acc in state["acc_grads"].items():
@@ -259,16 +344,16 @@ class Optimizer:
         if n < k - 1:
             state["mini_step"] = n + 1
             return
-        self._apply(state["acc_grads"], state, params)
+        self._apply(state["acc_grads"], state, params, norm_fn)
         for acc in state["acc_grads"].values():
             acc.zero_()
         state["mini_step"] = 0
         state["gradient_step"] += 1
 
-    def _apply(self, grads, state, params) -> None:
+    def _apply(self, grads, state, params, norm_fn=global_norm) -> None:
         max_norm = self.grad_clip
         if max_norm is not None:
-            g_norm = global_norm(grads)
+            g_norm = norm_fn(grads)
             keep = g_norm < max_norm
         b1, b2 = self.betas
         count = state["count"] + 1
@@ -305,17 +390,76 @@ class TrainState:
     trainable: Any  # the params tree with None for every frozen leaf
     opt_state: Dict[str, Any]
     step: int  # micro-batches taken
+    mesh: Any = None  # under a mesh: the trainable leaves and moments are the rank's blocks
+    specs: Optional[Dict[str, Any]] = None  # flat path -> spec of each trainable leaf
 
 
-def create_train_state(params, train_cfg: TrainConfig):
+def create_train_state(params, train_cfg: TrainConfig, mesh=None, axes=None):
     """-> (state, frozen, optimizer). The trainable leaves are marked
-    ``requires_grad`` in place."""
+    ``requires_grad`` in place. ``mesh`` (with ``axes``, the logical axes of
+    ``params``, e.g. spmd.engine_logical_axes): the state holds this rank's
+    block of each trainable leaf and the moments shaped like it; the frozen
+    tree stays whole."""
     trainable, frozen = partition_params(params, train_cfg)
+    specs = None
+    if mesh is not None:
+        from callireader_tpu_torch.parallel import spmd
+
+        if axes is None:
+            raise ValueError("a mesh needs the params' logical axes (spmd.engine_logical_axes)")
+        specs = spmd.flat_specs(trainable, axes, mesh)
+        trainable = replace_leaves(trainable, {
+            k: partition.local_shard(v.detach(), specs[k], mesh).clone()
+            for k, v in flatten(trainable).items()})
     flat = flatten(trainable)
     for leaf in flat.values():
         leaf.requires_grad_(True)
     tx = make_optimizer(train_cfg)
-    return TrainState(trainable, tx.init(flat), 0), frozen, tx
+    return TrainState(trainable, tx.init(flat), 0, mesh, specs), frozen, tx
+
+
+def replicate_scalars(state: TrainState, mesh) -> TrainState:
+    """The JAX trainer pins its scalar state leaves to a replicated sharding;
+    here the counters are host integers, the same on every rank."""
+    del mesh
+    return state
+
+
+def gather_state(state: TrainState) -> TrainState:
+    """A sharded state -> the whole one (its trainable leaves and moments
+    gathered from every rank), for saving; a whole state as it is."""
+    if state.mesh is None:
+        return state
+    from callireader_tpu_torch.parallel import spmd
+
+    def whole(flat):
+        return {k: spmd.relayout(v.detach(), state.specs[k], (), state.mesh)
+                for k, v in flat.items()}
+
+    opt = {k: whole(v) if isinstance(v, dict) else v for k, v in state.opt_state.items()}
+    return TrainState(replace_leaves(state.trainable, whole(flatten(state.trainable))), opt,
+                      state.step)
+
+
+def shard_state(state: TrainState, template: TrainState) -> TrainState:
+    """A whole state (restored from a checkpoint) -> ``template``'s layout:
+    this rank's blocks, copied into the template's tensors."""
+    if template.mesh is None:
+        return state
+
+    def put(flat, into):
+        with torch.no_grad():
+            for k, v in flat.items():
+                into[k].copy_(partition.local_shard(v, template.specs[k], template.mesh))
+
+    put(flatten(state.trainable), flatten(template.trainable))
+    for k, v in state.opt_state.items():
+        if isinstance(v, dict):
+            put(v, template.opt_state[k])
+        else:
+            template.opt_state[k] = v
+    template.step = state.step
+    return template
 
 
 def make_step(loss_fn: Callable, tx: Optimizer) -> Callable:
@@ -328,6 +472,8 @@ def make_step(loss_fn: Callable, tx: Optimizer) -> Callable:
 
     def train_step(state: TrainState, frozen, batch: Dict[str, torch.Tensor]):
         flat = flatten(state.trainable)
+        if state.mesh is not None:
+            return _sharded_step(state, frozen, batch, flat)
         loss, metrics = loss_fn(merge_params(state.trainable, frozen), batch)
         grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True,
                                     materialize_grads=True)
@@ -338,7 +484,69 @@ def make_step(loss_fn: Callable, tx: Optimizer) -> Callable:
         metrics["grad_norm"] = global_norm(grads)
         return state, metrics
 
+    def _sharded_step(state, frozen, batch, flat):
+        from callireader_tpu_torch.parallel import spmd
+
+        mesh, specs = state.mesh, state.specs
+        loss, metrics, grads = sharded_grads(loss_fn, state, frozen, batch)
+        norm = global_norm(grads)  # whole grads, the same on every rank
+        local = {k: partition.local_shard(g, specs[k], mesh) for k, g in grads.items()}
+        tx.update(local, state.opt_state, flat,
+                  norm_fn=lambda g: spmd.global_norm(g, specs, mesh))
+        state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = norm
+        return state, metrics
+
     return train_step
+
+
+def sharded_grads(loss_fn: Callable, state: TrainState, frozen, batch):
+    """One micro-batch under the state's mesh -> (loss, metrics, the whole
+    grads of every trainable leaf, added over data, fsdp and seq: the
+    unsharded step's)."""
+    from callireader_tpu_torch.parallel import spmd
+
+    mesh, specs = state.mesh, state.specs
+    whole = {k: spmd.relayout(v.detach(), specs[k], (), mesh).requires_grad_(True)
+             for k, v in flatten(state.trainable).items()}
+    params = merge_params(replace_leaves(state.trainable, whole), frozen)
+    loss, metrics = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, list(whole.values()), allow_unused=True,
+                                materialize_grads=True)
+    grads = dict(zip(whole, grads))
+    spmd.reduce_grads(grads, mesh, ("data", "fsdp", "seq"))
+    return loss, metrics, grads
+
+
+def make_loss_fn(
+    cfg: VLMConfig,
+    train_cfg: TrainConfig,
+    *,
+    policy: DTypePolicy = DEFAULT_POLICY,
+    mesh=None,
+    use_flash: Optional[bool] = None,
+) -> Callable:
+    """``loss_fn(params, batch) -> (loss, metrics)`` of the e-IT step.
+    ``mesh`` (the state's): ``batch`` is the whole batch and the loss runs
+    this rank's rows (``shard_eit_batch``); with "seq" > 1 attention goes
+    through Ulysses, through the training kernels (``use_flash``, default on
+    the card) or the plain attention."""
+    if mesh is None:
+        return lambda params, batch: eit_loss(params, cfg, batch, policy=policy,
+                                              remat=train_cfg.remat)
+    attn_override = None
+    if mesh.axis_size("seq") > 1:
+        from callireader_tpu_torch.parallel import ulysses
+
+        flash = use_flash if use_flash is not None else mesh.device.type == "cuda"
+
+        def attn_override(q, k, v):
+            return ulysses.ulysses_attention(q, k, v, mesh, causal=True, use_flash=flash)
+
+    return lambda params, batch: eit_loss(
+        params, cfg, shard_eit_batch(batch, cfg, mesh), policy=policy, remat=train_cfg.remat,
+        mesh=mesh, attn_override=attn_override)
 
 
 def make_train_step(
@@ -347,7 +555,10 @@ def make_train_step(
     tx: Optimizer,
     *,
     policy: DTypePolicy = DEFAULT_POLICY,
+    mesh=None,
+    use_flash: Optional[bool] = None,
 ) -> Callable:
-    """The e-IT step: ``make_step`` over ``eit_loss``."""
-    return make_step(lambda params, batch: eit_loss(params, cfg, batch, policy=policy,
-                                                    remat=train_cfg.remat), tx)
+    """The e-IT step: ``make_step`` over ``make_loss_fn``'s loss (under a
+    mesh, the whole batch in, this rank's rows run)."""
+    return make_step(make_loss_fn(cfg, train_cfg, policy=policy, mesh=mesh,
+                                  use_flash=use_flash), tx)

@@ -5,8 +5,8 @@ Adapters are extra stacked leaves inside ``params["llm"]["layers"]``:
 ``{name}_lora_a`` (L, in, r), ``{name}_lora_b`` (L, r, out) and one
 ``lora_scale`` (L,) = alpha / r, which models/internlm2._proj picks up as
 ``y + ((h @ a) @ b) * scale``. No dropout: the JAX ``_proj`` has none.
-(``lora_logical_axes``, the sharding annotations, waits for the port's
-parallel layer.)
+``lora_logical_axes`` gives the leaves' sharding annotations
+(core/partition.py).
 """
 
 from __future__ import annotations
@@ -44,6 +44,20 @@ def add_lora(
         layers[f"{name}_lora_b"] = torch.zeros((L, rank, d_out), dtype=dtype, device=w.device)
     layers["lora_scale"] = torch.full((L,), alpha / rank, dtype=dtype, device=generator.device)
     out = dict(llm_params)
+    out["layers"] = layers
+    return out
+
+
+def lora_logical_axes(llm_axes: Dict[str, Any], targets: Sequence[str] = DEFAULT_TARGETS) -> Dict[str, Any]:
+    """Extend the LLM logical-axis tree with LoRA leaf annotations (the JAX
+    rule as it stands: the out dim of wq/wk/wv/wo's B is "qkv", of the
+    others "mlp")."""
+    layers = dict(llm_axes["layers"])
+    for name in targets:
+        layers[f"{name}_lora_a"] = ("stack", "embed", None)
+        layers[f"{name}_lora_b"] = ("stack", None, "qkv" if name in ("wq", "wk", "wv", "wo") else "mlp")
+    layers["lora_scale"] = ("stack",)
+    out = dict(llm_axes)
     out["layers"] = layers
     return out
 

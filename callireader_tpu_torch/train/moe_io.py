@@ -11,12 +11,17 @@ _merge_experts_weight, :49-58 _get_merged_param_name).
 The converters work on numpy arrays, as the JAX module's do, so a state dict
 crosses between the packages bit for bit. The stacked ``(L, X, ...)`` tree
 saves and restores through the port's own train/checkpoint.py
-(``save_params`` / ``restore_params``), where the JAX pair uses orbax; the
-port does not shard it over a mesh (ROADMAP queue A, parallelism).
+(``save_params`` / ``restore_params``), where the JAX pair uses orbax.
+Under an expert mesh ``save_sharded`` writes one file per expert shard in
+the merged layout (each writing rank its own X/expert experts) beside the
+dense leaves, and ``restore_sharded`` reassembles the shards it finds,
+whatever mesh wrote them, then cuts the restoring rank's block.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -136,12 +141,81 @@ def split_expert_shards(
     return out
 
 
-def save_sharded(path: str, params: Any) -> None:
-    """The MoE params tree as ``<path>/params.pt`` (train/checkpoint.py)."""
-    checkpoint.save_params(path, params)
+_EXPERT_LEAVES = ("w1", "w3", "w2")
+_SHARD_FILE = "experts-{:05d}-of-{:05d}.pt"
 
 
-def restore_sharded(path: str, template: Any) -> Any:
+def _writer(mesh, *axes) -> bool:
+    """The one rank of each ``axes`` coordinate that writes."""
+    return all(mesh.rank(a) == 0 for a in mesh.axis_names if a not in axes)
+
+
+def save_sharded(path: str, params: Any, cfg: MoEConfig = None, mesh=None) -> None:
+    """The MoE params tree under ``path``: whole as ``params.pt``
+    (train/checkpoint.py), or under an expert mesh the dense leaves as
+    ``params.pt`` (rank 0) and each expert rank's experts as
+    ``experts-<r>-of-<n>.pt`` in the merged layout (``merge_expert_shards``:
+    the shard index is the rank's)."""
+    if mesh is None:
+        checkpoint.save_params(path, params)
+        return
+    import dataclasses
+
+    import torch.distributed as dist
+
+    os.makedirs(path, exist_ok=True)
+    lay = params["layers"]
+    n_local = lay["w1"].shape[1]
+    r, n = mesh.rank("expert"), mesh.axis_size("expert")
+    if _writer(mesh, "expert"):
+        sd = moe_to_hf_experts(params, dataclasses.replace(cfg, num_experts=n_local))
+        merged = merge_expert_shards({k: v for k, v in sd.items() if ".experts." in k}, n_local)
+        merged = {k.replace(".experts.0.", f".experts.{r}."): torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in merged.items()}
+        torch.save(merged, os.path.join(path, _SHARD_FILE.format(r, n)))
+    if _writer(mesh):
+        dense = dict(params)
+        dense["layers"] = {k: v for k, v in lay.items() if k not in _EXPERT_LEAVES}
+        checkpoint.save_params(path, dense)
+    dist.barrier()
+
+
+def restore_sharded(path: str, template: Any, cfg: MoEConfig = None, mesh=None) -> Any:
     """A tree like ``template``, each leaf on its template leaf's device and
-    in its dtype."""
-    return checkpoint.restore_params(path, template)
+    in its dtype: the whole saved tree, or the expert shards of any mesh
+    reassembled (``split_expert_shards``), then this rank's blocks where
+    ``mesh`` is given."""
+    files = sorted(glob.glob(os.path.join(path, "experts-*-of-*.pt")))
+    if not files:
+        return checkpoint.restore_params(path, template)
+    from callireader_tpu_torch.models import moe
+    from callireader_tpu_torch.parallel import spmd
+
+    tree = checkpoint.load_params(path)
+    merged: Dict[str, np.ndarray] = {}
+    for f in files:
+        merged.update({k: v.numpy() for k, v in torch.load(f, weights_only=True).items()})
+    sd = split_expert_shards(merged, cfg.num_experts // len(files))
+    router = _np(tree["layers"]["router"])
+    for l in range(cfg.llm.num_hidden_layers):
+        sd[f"{_PREFIX.format(l=l)}.gate.weight"] = router[l].T
+    leaves = hf_experts_to_moe(sd, cfg)
+    for k in _EXPERT_LEAVES:
+        tree["layers"][k] = torch.from_numpy(leaves[k])
+    if mesh is not None:
+        tree = spmd.shard_tree(tree, moe.logical_axes(cfg), mesh)
+
+    def put(x, t):
+        if tuple(x.shape) != tuple(t.shape):
+            raise ValueError(f"restored {tuple(x.shape)} where the template holds {tuple(t.shape)}")
+        return x.to(t.device, t.dtype)
+
+    return _put_like(tree, template, put)
+
+
+def _put_like(tree, template, put):
+    if isinstance(template, dict):
+        return {k: _put_like(tree[k], v, put) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_put_like(a, b, put) for a, b in zip(tree, template))
+    return put(tree, template)

@@ -49,10 +49,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      deleted;
   5. main path, flagship: build_engine("callireader-8b", quant="int8",
      device_tile_pages=True) (24-
-     layer tile tower, 32-layer LLM with int8 weight-only fused projections
-     and a 128-padded int8 vocab) and batch_chat_ocr on the same pages with
-     256 new tokens. All counts zeroed before, read after: every kernel must
-     have launched, the (K, N) int8 kernel 4 x 32 times per decode step and
+     layer tile tower, the LLM at the 8b's widths cut to LAYERS_8B of its 32
+     layers, int8 weight-only fused projections and a 128-padded int8
+     vocab; phases 5-13, 20-21 and 29 run this engine) and batch_chat_ocr on
+     the same pages with 256 new tokens. All counts zeroed before, read
+     after: every kernel must have launched, the (K, N) int8 kernel 4 x L
+     times per decode step (L the LLM's layers) and
      the LM-head kernel once per step plus once in prefill; token ids below
      the real vocabulary. Spans, prefill time, time per decode step against
      the step's weight bytes, and peak memory are printed. The decode ran as
@@ -67,7 +69,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      kernels against the same 8b model with every kernel swapped for its
      plain version;
   7. attention kernels as in phase 4, at the shapes the 8b main path
-     launched them with (its 32-layer cache, the deepest layer);
+     launched them with (its L-layer cache, the deepest layer);
   8. int8 kernels: each against its plain version at the five main-path
      shapes (wqkv, wo, w13, w2 of the last layer; the LM head), timed with
      the weights cold in L2 (the (K, N) kernel walks the layers), beside
@@ -81,7 +83,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      PagedBatcher(num_slots=8, page_size=128, max_pages_per_slot=32,
      num_pages=257: the CLI's sizes for --slots 8 --max-len 4096) with 256 new
      tokens, once with steps_per_sync=1 and once with 8. Counts zeroed before,
-     read after: the paged kernel launched 32 times per decode step and
+     read after: the paged kernel launched L times per decode step and
      flash_decode not at all; every request finished with token ids below the
      real vocabulary; every page returned; the ticks, CUDA graphs, give the
      token ids, decode steps and launches of the same ticks run uncaptured.
@@ -130,6 +132,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      sums of the first layer's four products (torch._int_mm) equal an exact
      fp64 product over W8A8_EXACT_ROWS rows; the ViT kernel against its
      plain version at the char tower's shape;
+ 29. parallel (after phase 21, on the 8b int8 engine's weights in the
+     mesh's unfused layout): (a) the ``--mesh tensor=1`` route in a world of
+     1 under NCCL (parallel/spmd.py): one page x MESH_NEW_TOKENS through
+     batch_prepare equal, token for token, to the same weights without a
+     mesh, its decode graphs replaying with at least one tensor all_reduce
+     made inside their captures, every kernel launched as often as without
+     the mesh; (b) the prefill, decode,
+     paged decode and int8 kernels at the shard shapes of tensor = 2, 4, 8
+     at the 8b's widths (parallel/tp_attention.py; column, row and
+     vocab-parallel products): rank 0's block timed against its plain
+     version, rank t-1's held to it, the blocks joined against the whole
+     plain version and the whole kernel, the row-parallel partial sums
+     added against the whole product. Rows off the single-card path, 0
+     launches;
  14. train, e-IT, callireader-2b bf16 (TRAIN_PRESET: the 8b's widths, so the
      training kernels run at the 8b's shapes, at 12 ViT / 8 LLM layers):
      four synthetic pages become e-IT data the way a user prepares it
@@ -334,6 +350,9 @@ import numpy as np
 N_PAGES = 4
 MAX_NEW_TOKENS = 64
 MAX_NEW_TOKENS_8B = 256
+# phases 5-13, 20-21 and 29 run the 8b's widths with its LLM cut from 32 to
+# this many layers (card time: the script and the card tests keep inside 600 s)
+LAYERS_8B = 16
 SERVE_SLOTS, SERVE_PAGE, SERVE_PAGES_PER_SLOT = 8, 128, 32  # serve --slots 8 --max-len 4096
 SERVE_NEW_TOKENS = 256
 PRESSURE_FREE_PAGES, PRESSURE_NEW_TOKENS = 118, 160
@@ -362,6 +381,8 @@ REF_GRAD_CAP = 7e-2
 TRAIN_FROZEN = (("llm", "layers", "wq"), ("llm", "layers", "w2"), ("llm", "layers", "attn_norm"),
                 ("llm", "output"), ("vision", "layers", "fc1_kernel"))
 # phase 5: the sampled decode held graph against eager (3 chunks and a tail of 4)
+# phase 29: the --mesh route's page (a world of 1), new tokens
+MESH_NEW_TOKENS = 32
 SAMPLED_TOKENS = 28
 # phase 11: the contiguous server's ticks held graph against eager
 CONT_NEW_TOKENS = 24
@@ -2346,7 +2367,7 @@ def bench_phase(h, engine, batch_path):
         fail("[bench] the phased box stages and batch_sort_boxes gave other boxes")
     result = dict(run.result)
     n_tiles = result.pop("tiles_per_image")
-    result["workload"] = {"batch": 8, "preset": "callireader-8b", "quant": "int8",
+    result["workload"] = {"batch": 8, "preset": "callireader-8b", "llm_layers": L, "quant": "int8",
                           "page": "synthetic_clone", "detector": det_mode,
                           "chars_per_image": n_chars, "tiles_per_image": n_tiles,
                           "char_canvas": engine.char_canvas,
@@ -2432,6 +2453,361 @@ def w8a8_phase(h, engine):
     h.vit_rows("w8a8", shapes, launches)
     del vit8, tiles, canvases
     torch.cuda.empty_cache()
+
+
+def parallel_phase(h, engine, batch_path):
+    """Phase 29, the parallel layer. (a) The ``--mesh`` route in a world of 1
+    under NCCL (``tensor=1``; its all_reduce runs, and is captured, in every
+    decode graph): one page through ``batch_prepare`` on the 8b int8 engine's
+    weights in the mesh's unfused layout, against the same weights without a
+    mesh (token ids equal exactly, the decode graphs replayed, all_reduces
+    counted inside their captures), every kernel of the batch path launched
+    as often as without the mesh. (b) Each kernel at the shapes a rank of
+    tensor = 2, 4, 8 gives it at the 8b's widths (random bf16 / int8
+    inputs): rank 0's block timed against its plain version, rank t-1's held
+    to its plain version, the head blocks concatenated against the whole
+    kernel's output, the row-parallel partial sums added against the whole
+    product. These shapes are off the single-card path: their rows carry 0
+    launches."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from callireader_tpu_torch.core.partition import Mesh
+    from callireader_tpu_torch.kernels import attention as k_attn
+    from callireader_tpu_torch.kernels import decode_attention as k_dec
+    from callireader_tpu_torch.kernels import int8_matmul as k_i8
+    from callireader_tpu_torch.kernels import paged_decode as k_paged
+    from callireader_tpu_torch.kernels import tolerance
+    from callireader_tpu_torch.parallel import spmd
+    from callireader_tpu_torch.parallel.tp_attention import (
+        flash_attention_tp, flash_decode_tp, paged_flash_decode_tp)
+    from callireader_tpu_torch.runtime import decode_graph
+    from callireader_tpu_torch.runtime.engine import CalliReaderEngine
+    from callireader_tpu_torch.runtime.quantize import unfuse_llm_int8
+
+    t0 = time.time()
+    dev, rnd, row_for = h.dev, h.rnd, h.row_for
+    # ---- (a) the --mesh route, a world of 1 under NCCL
+    rank, world = spmd.init_distributed("cuda")
+    mesh = spmd.make_mesh(spmd.parse_mesh("tensor=1", world), device="cuda")
+    if (rank, world, dist.get_backend()) != (0, 1, "nccl"):
+        fail(f"[parallel] expected a world of 1 under NCCL, got rank {rank} of {world}, "
+             f"{dist.get_backend()}")
+    cfg = engine.cfg
+    params = {**engine.params, "llm": unfuse_llm_int8(engine.params["llm"], cfg.llm)}
+    page, boxes = make_page(0)
+    runs = {}
+    for label, m in (("unmeshed", None), ("mesh", mesh)):
+        eng = CalliReaderEngine(cfg, params, engine.tok, device=dev, device_tile_pages=True, mesh=m)
+        replays, reduces = [0], [0]  # graph replays; all_reduces made inside a capture
+        call, reduce = decode_graph.StepGraph.__call__, dist.all_reduce
+
+        def counted(graph, fn, _call=call):
+            replays[0] += graph.captured and not graph.eager
+            return _call(graph, fn)
+
+        def counted_reduce(*args, _reduce=reduce, **kwargs):
+            reduces[0] += torch.cuda.is_current_stream_capturing()
+            return _reduce(*args, **kwargs)
+
+        h.zero_counts()
+        with Swap(decode_graph.StepGraph, __call__=counted), Swap(dist, all_reduce=counted_reduce):
+            prep = eng.batch_prepare([page], [QUESTION], max_new_tokens=MESH_NEW_TOKENS,
+                                     repetition_penalty=1.5, ordered_lists=[boxes],
+                                     eos_token_ids=(-1,), overlap=False)
+            torch.cuda.synchronize()
+        runs[label] = (prep["tokens"].clone(), prep["lengths"].clone(), h.read_counts(),
+                       replays[0], reduces[0])
+        del eng, prep
+    (tok_u, len_u, launch_u, _, _), (tok_m, len_m, launch_m, replays_m, reduces_m) = (
+        runs["unmeshed"], runs["mesh"])
+    missing = [n for n in batch_path if launch_m[n] == 0]
+    if missing:
+        fail(f"[parallel] kernels never launched on the --mesh route: {missing}")
+    if launch_m != launch_u:
+        fail(f"[parallel] the --mesh route launched {launch_m}, the same weights without a mesh "
+             f"{launch_u}")
+    if not (torch.equal(tok_m, tok_u) and torch.equal(len_m, len_u)):
+        fail(f"[parallel] the --mesh route's token ids differ from the same weights' without a mesh")
+    if replays_m < 1:
+        fail("[parallel] the --mesh route's decode graphs never replayed")
+    if reduces_m < 1:
+        fail("[parallel] no all_reduce was captured in the --mesh route's decode graphs")
+    log(f"[parallel] --mesh tensor=1 ({mesh.shape}, world of 1, NCCL): 1 page x {MESH_NEW_TOKENS} "
+        f"token ids equal the unmeshed run's exactly, {replays_m} decode-graph replays, "
+        f"{reduces_m} tensor all_reduces captured in them; launches equal the unmeshed run's "
+        f"{launch_u}")
+    del params
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    t_a = time.time() - t0
+
+    # ---- (b) the shard shapes at the 8b's widths
+    Hq, Hkv, D, E, M = 32, 8, 128, 4096, 14336
+    ATOL = tolerance.ATOL
+
+    def vm(t, r):
+        return Mesh.virtual({"tensor": t}, {"tensor": r}, "cuda")
+
+    def within(name, got, want, what):
+        excess = tolerance.excess_error(got, want)
+        if excess > ATOL[name]:
+            fail(f"[parallel] {name} {what}: {excess:.3e} beyond bf16 rounding (tol {ATOL[name]})")
+        return excess
+
+    joined = {}
+
+    def joins(name, blocks, whole_k, whole_plain, what):
+        """The rank blocks joined: within the kernel's tolerance of the whole
+        plain version, and of the whole kernel's output allowing each of the
+        two outputs its bf16 rounding (a block's summation order, e.g. the
+        decode's runs of chunks, depends on its head count)."""
+        got = torch.cat(blocks, dim=1)
+        within(name, got, whole_plain, what + " against the whole plain version")
+        diff = (got.float() - whole_k.float()).abs()
+        allow = ATOL[name] + 2 * tolerance.BF16_ROUNDING * whole_k.float().abs()
+        if not bool((diff <= allow).all()):
+            fail(f"[parallel] {name} {what} against the whole kernel: beyond two bf16 roundings")
+        joined[f"{name} {what}"] = "bit-equal" if torch.equal(got, whole_k) \
+            else f"max diff {diff.max().item():.3e}"
+
+    def heads(x, t, r, dim=1):
+        n = x.shape[dim] // t
+        return x.narrow(dim, r * n, n).contiguous()
+
+    shard_ms = {}
+
+    def shard_row(name, t, desc, run_k, run_plain, lib, nbytes, flops, check_last):
+        r = row_for(name, f"[tp t={t} rank 0] {desc}", run_k, run_plain, lib, nbytes=nbytes,
+                    flops=flops)
+        h.results.setdefault(name, []).append(
+            (f"tp t={t} rank 0 {desc}, off the single-card path (a shard of tensor={t})", 0, r))
+        shard_ms[f"{name} t={t}: {desc}"] = (round(r[1], 4),
+                                            None if r[6] is None else round(r[6], 4))
+        check_last()
+
+    # prefill attention, B=1 S=3584
+    S = 3584
+    q, k, v = rnd((1, Hq, S, D)), rnd((1, Hkv, S, D)), rnd((1, Hkv, S, D))
+    seg = torch.zeros((1, S), dtype=torch.int32, device=dev)
+    seg[:, :256] = -1
+    whole = k_attn.flash_attention(q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    whole_plain = torch.cat([k_attn.attention_reference(
+        q[:, i:i + 8].float(), k[:, i // 4:i // 4 + 2].float(), v[:, i // 4:i // 4 + 2].float(),
+        causal=True, q_segment_ids=seg, kv_segment_ids=seg) for i in range(0, Hq, 8)], dim=1)
+    allowed = (seg[:, :, None] == seg[:, None, :]) & torch.ones((S, S), dtype=torch.bool,
+                                                                  device=dev).tril()
+    pairs = int(allowed.sum().item())
+    for t in (2, 4, 8):
+        def att(r, t=t):
+            return flash_attention_tp(heads(q, t, r), heads(k, t, r), heads(v, t, r), vm(t, r),
+                                      causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+
+        def att_plain(r, t=t):
+            return k_attn.attention_reference(heads(q, t, r).float(), heads(k, t, r).float(),
+                                              heads(v, t, r).float(), causal=True,
+                                              q_segment_ids=seg, kv_segment_ids=seg)
+
+        blocks = [att(r) for r in range(t)]
+        joins("flash_attention", blocks, whole, whole_plain, f"t={t} head blocks")
+        q0, k0, v0 = heads(q, t, 0), heads(k, t, 0), heads(v, t, 0)  # timed without the cut
+        shard_row("flash_attention", t, f"B=1 Hq={Hq // t} Hkv={Hkv // t} S={S} D={D}",
+                  lambda q0=q0, k0=k0, v0=v0, t=t: flash_attention_tp(
+                      q0, k0, v0, vm(t, 0), causal=True, q_segment_ids=seg, kv_segment_ids=seg),
+                  lambda: att_plain(0),
+                  lambda q0=q0, k0=k0, v0=v0: F.scaled_dot_product_attention(
+                      q0, k0, v0, attn_mask=allowed[:, None], enable_gqa=True),
+                  2 * (2 * q0.numel() + 2 * k0.numel()) + 8 * S, 4 * pairs * (Hq // t) * D,
+                  lambda t=t: within("flash_attention", att(t - 1), att_plain(t - 1),
+                                     f"t={t} rank {t - 1}"))
+        del blocks
+    del q, k, v, whole, whole_plain, allowed
+    torch.cuda.empty_cache()
+
+    # decode attention, B=4 S=3840 (the contiguous cache of the batch path)
+    B, S, L, lay = 4, 3840, 2, 1
+    qd, ck, cv = rnd((B, Hq, 1, D)), rnd((L, B, Hkv, S, D)), rnd((L, B, Hkv, S, D))
+    valid = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    for b, pad in enumerate((0, 300, 700, 1200)):
+        valid[b, pad:] = 1
+    n_valid = int(valid.sum().item())
+    whole = k_dec.flash_decode(qd, ck, cv, lay, valid)
+    whole_plain = k_dec.flash_decode_reference(qd.float(), ck, cv, lay, valid)
+    for t in (2, 4, 8):
+        def dec(r, t=t):
+            return flash_decode_tp(heads(qd, t, r), heads(ck, t, r, 2), heads(cv, t, r, 2), lay,
+                                   valid, vm(t, r))
+
+        def dec_plain(r, t=t):
+            return k_dec.flash_decode_reference(heads(qd, t, r).float(), heads(ck, t, r, 2),
+                                                heads(cv, t, r, 2), lay, valid)
+
+        joins("flash_decode", [dec(r) for r in range(t)], whole, whole_plain, f"t={t} head blocks")
+        q0, c0, d0 = heads(qd, t, 0), heads(ck, t, 0, 2), heads(cv, t, 0, 2)
+        shard_row("flash_decode", t, f"B={B} Hq={Hq // t} Hkv={Hkv // t} S={S} D={D} layer={lay}",
+                  lambda q0=q0, c0=c0, d0=d0, t=t: flash_decode_tp(q0, c0, d0, lay, valid,
+                                                                     vm(t, 0)),
+                  lambda: dec_plain(0),
+                  lambda q0=q0, c0=c0, d0=d0: F.scaled_dot_product_attention(
+                      q0, c0[lay], d0[lay], attn_mask=(valid > 0)[:, None, None, :],
+                      enable_gqa=True),
+                  2 * (2 * n_valid * (Hkv // t) * D + 2 * q0.numel()) + 4 * valid.numel(),
+                  4 * n_valid * (Hq // t) * D,
+                  lambda t=t: within("flash_decode", dec(t - 1), dec_plain(t - 1),
+                                     f"t={t} rank {t - 1}"))
+    del qd, ck, cv, whole, whole_plain
+    torch.cuda.empty_cache()
+
+    # paged decode on the serve pools: 8 slots, page 128, 32 pages a slot
+    Bs, page, P = SERVE_SLOTS, SERVE_PAGE, SERVE_PAGES_PER_SLOT
+    NP = Bs * P + 1
+    qd, kp, vp = rnd((Bs, Hq, 1, D)), rnd((L, NP, Hkv, page, D)), rnd((L, NP, Hkv, page, D))
+    g = torch.Generator(device="cpu").manual_seed(29)
+    table = (torch.randperm(NP - 1, generator=g)[:Bs * P] + 1).reshape(Bs, P).to(dev, torch.int32)
+    lengths = torch.randint(500, P * page, (Bs,), generator=g)
+    pos = torch.arange(P * page)
+    pvalid = (pos[None] < lengths[:, None]).reshape(Bs, P, page).to(dev, torch.int32)
+    n_valid = int(pvalid.sum().item())
+    whole = k_paged.paged_flash_decode(qd, kp, vp, lay, table, pvalid)
+    whole_plain = k_paged.paged_flash_decode_reference(qd.float(), kp, vp, lay, table, pvalid)
+    for t in (2, 4, 8):
+        def pgd(r, t=t):
+            return paged_flash_decode_tp(heads(qd, t, r), heads(kp, t, r, 2), heads(vp, t, r, 2),
+                                         lay, table, pvalid, vm(t, r))
+
+        def pgd_plain(r, t=t):
+            return k_paged.paged_flash_decode_reference(heads(qd, t, r).float(), heads(kp, t, r, 2),
+                                                        heads(vp, t, r, 2), lay, table, pvalid)
+
+        joins("paged_flash_decode", [pgd(r) for r in range(t)], whole, whole_plain,
+              f"t={t} head blocks")
+        q0, kp0, vp0 = heads(qd, t, 0), heads(kp, t, 0, 2), heads(vp, t, 0, 2)
+
+        def yardstick(q0=q0, kp0=kp0, vp0=vp0, t=t):
+            kg = kp0[lay][table.long()].permute(0, 2, 1, 3, 4).reshape(Bs, Hkv // t, P * page, D)
+            vg = vp0[lay][table.long()].permute(0, 2, 1, 3, 4).reshape(Bs, Hkv // t, P * page, D)
+            return F.scaled_dot_product_attention(q0, kg, vg, enable_gqa=True,
+                                                  attn_mask=(pvalid > 0).reshape(Bs, 1, 1, P * page))
+
+        shard_row("paged_flash_decode", t,
+                  f"B={Bs} Hq={Hq // t} Hkv={Hkv // t} page={page} P={P} NPAGES={NP} keys={n_valid}",
+                  lambda q0=q0, kp0=kp0, vp0=vp0, t=t: paged_flash_decode_tp(
+                      q0, kp0, vp0, lay, table, pvalid, vm(t, 0)),
+                  lambda: pgd_plain(0), yardstick,
+                  2 * (2 * n_valid * (Hkv // t) * D + 2 * q0.numel())
+                  + 4 * (pvalid.numel() + table.numel()),
+                  4 * n_valid * (Hq // t) * D,
+                  lambda t=t: within("paged_flash_decode", pgd(t - 1), pgd_plain(t - 1),
+                                     f"t={t} rank {t - 1}"))
+    del qd, kp, vp, whole, whole_plain
+    torch.cuda.empty_cache()
+
+    # the int8 products at the serve's 8 rows: column-parallel (wq, wk / wv,
+    # w1 / w3 at N/t), row-parallel (wo, w2 at K/t), vocab-parallel LM head
+    # (the vocabulary padded to 128 x 8 = 93,184 rows)
+    Mr, V = SERVE_SLOTS, 93184
+    gq = torch.Generator(device=dev).manual_seed(30)
+
+    def int8_weight(K, N):
+        qw = torch.randint(-127, 128, (K, N), generator=gq, device=dev, dtype=torch.int8)
+        return qw, torch.rand((N,), generator=gq, device=dev) * 1e-3 + 1e-4
+
+    for label, K, N in (("wq", E, Hq * D), ("wk", E, Hkv * D), ("w1", E, M)):
+        qw, sc = int8_weight(K, N)
+        x = rnd((Mr, K))
+        whole = k_i8.int8_matmul(x, qw, sc)
+        whole_plain = k_i8.int8_matmul_reference(x.float(), qw, sc)
+        for t in (2, 4, 8):
+            n = N // t
+
+            def col(r, n=n):
+                return k_i8.int8_matmul(x, qw[:, r * n:(r + 1) * n].contiguous(), sc[r * n:(r + 1) * n])
+
+            def col_plain(r, n=n):
+                return k_i8.int8_matmul_reference(x.float(), qw[:, r * n:(r + 1) * n],
+                                                  sc[r * n:(r + 1) * n])
+
+            joins("int8_matmul", [col(r) for r in range(t)], whole, whole_plain,
+                  f"{label} t={t} column blocks")
+            within("int8_matmul", col(t - 1), col_plain(t - 1), f"{label} t={t} rank {t - 1}")
+            if label == "w1":
+                w0 = (qw[:, :n].float() * sc[:n]).bfloat16()
+                q0, s0 = qw[:, :n].contiguous(), sc[:n].contiguous()
+                shard_row("int8_matmul", t, f"column-parallel {label} M={Mr} K={K} N={n}",
+                          lambda q0=q0, s0=s0: k_i8.int8_matmul(x, q0, s0), lambda: col_plain(0),
+                          lambda w0=w0: x @ w0, K * n + 4 * n + 2 * Mr * K + 2 * Mr * n,
+                          2 * Mr * K * n, lambda: None)
+            else:
+                within("int8_matmul", col(0), col_plain(0), f"{label} t={t} rank 0")
+        del qw, sc, whole, whole_plain
+    for label, K, N in (("wo", Hq * D, E), ("w2", M, E)):
+        qw, sc = int8_weight(K, N)
+        x = rnd((Mr, K))
+        plain_whole = k_i8.int8_matmul_reference(x.float(), qw, sc)
+        for t in (2, 4, 8):
+            kk = K // t
+
+            def row(r, kk=kk):
+                return k_i8.int8_matmul(x[:, r * kk:(r + 1) * kk].contiguous(),
+                                        qw[r * kk:(r + 1) * kk].contiguous(), sc)
+
+            def row_plain(r, kk=kk):
+                return k_i8.int8_matmul_reference(x[:, r * kk:(r + 1) * kk].float(),
+                                                  qw[r * kk:(r + 1) * kk], sc)
+
+            parts = [row(r) for r in range(t)]
+            plains = [row_plain(r) for r in range(t)]
+            err = (sum(p.float() for p in parts) - plain_whole).abs()
+            allow = sum(ATOL["int8_matmul"] + tolerance.BF16_ROUNDING * p.abs() for p in plains)
+            if not bool((err <= allow).all()):
+                fail(f"[parallel] {label} t={t}: the row-parallel partial sums, added, stray from "
+                     f"the whole product beyond each partial's bf16 rounding + ATOL")
+            within("int8_matmul", parts[-1], plains[-1], f"{label} t={t} rank {t - 1}")
+            if label == "w2":
+                w0 = (qw[:kk].float() * sc).bfloat16()
+                x0, q0 = x[:, :kk].contiguous(), qw[:kk].contiguous()
+                shard_row("int8_matmul", t, f"row-parallel {label} M={Mr} K={kk} N={N}",
+                          lambda x0=x0, q0=q0: k_i8.int8_matmul(x0, q0, sc), lambda: row_plain(0),
+                          lambda x0=x0, w0=w0: x0 @ w0, kk * N + 4 * N + 2 * Mr * kk + 2 * Mr * N,
+                          2 * Mr * kk * N, lambda: None)
+            else:
+                within("int8_matmul", parts[0], plains[0], f"{label} t={t} rank 0")
+            del parts, plains
+        del qw, sc
+    qv, _ = int8_weight(V, E)
+    sv = torch.rand((V,), generator=gq, device=dev) * 1e-3 + 1e-4  # one scale a vocabulary row
+    x = rnd((Mr, E))
+    whole = k_i8.int8_matmul_nt(x, qv, sv)
+    whole_plain = k_i8.int8_matmul_nt_reference(x.float(), qv, sv)
+    for t in (2, 4, 8):
+        n = V // t
+
+        def voc(r, n=n):
+            return k_i8.int8_matmul_nt(x, qv[r * n:(r + 1) * n], sv[r * n:(r + 1) * n])
+
+        def voc_plain(r, n=n):
+            return k_i8.int8_matmul_nt_reference(x.float(), qv[r * n:(r + 1) * n],
+                                                 sv[r * n:(r + 1) * n])
+
+        joins("int8_matmul_nt", [voc(r) for r in range(t)], whole, whole_plain,
+              f"LM head t={t} vocab blocks")
+        w0 = (qv[:n].float() * sv[:n, None]).bfloat16()
+        shard_row("int8_matmul_nt", t, f"vocab-parallel LM head M={Mr} K={E} N={n}",
+                  lambda n=n: k_i8.int8_matmul_nt(x, qv[:n], sv[:n]), lambda: voc_plain(0),
+                  lambda w0=w0: x @ w0.T,
+                  E * n + 4 * n + 2 * Mr * E + 2 * Mr * n, 2 * Mr * E * n,
+                  lambda t=t: within("int8_matmul_nt", voc(t - 1), voc_plain(t - 1),
+                                     f"LM head t={t} rank {t - 1}"))
+        del w0
+    del qv, sv, whole, whole_plain
+    torch.cuda.empty_cache()
+    log(f"[parallel] shard shapes at t = 2, 4, 8 on {h.smi}: ms per call (CUDA events, "
+        f"profiler device ms) {json.dumps(shard_ms)}; every block held to its plain version, "
+        f"the head / column / vocab blocks concatenated to the whole kernel's output, the "
+        f"row-parallel partial sums to the whole product; joined against the whole kernel: "
+        f"{json.dumps(joined)}")
+    log(f"[parallel] phase seconds: (a) {t_a:.1f}, (b) {time.time() - t0 - t_a:.1f}")
 
 
 def norm_rows(h):
@@ -2644,8 +3020,8 @@ def library_models_phase(h):
         seg[b, cut:] = 1
     routes, mlp = [], moe._moe_mlp
 
-    def recording_mlp(p, x, c, policy):
-        out, probs = mlp(p, x, c, policy)
+    def recording_mlp(p, x, c, policy, mesh=None):
+        out, probs = mlp(p, x, c, policy, mesh)
         routes[-1].append(torch.topk(probs, K, dim=-1).indices.sort(dim=-1).values)
         return out, probs
 
@@ -3581,7 +3957,15 @@ def main() -> int:
     # ---------------------------------------------------------- 5. main path, 8b int8
     phase("5-8 8b")
     t0 = time.time()
-    engine = build_engine("callireader-8b", device="cuda", quant="int8", device_tile_pages=True)
+    from callireader_tpu_torch.core.config import get_config
+    from callireader_tpu_torch.runtime import engine as engine_mod
+
+    full8 = get_config("callireader-8b")
+    cut8 = dataclasses.replace(full8, llm=dataclasses.replace(full8.llm, num_hidden_layers=LAYERS_8B))
+    with Swap(engine_mod, get_config=lambda name: cut8 if name == "callireader-8b"
+              else get_config(name)):
+        engine = build_engine("callireader-8b", device="cuda", quant="int8",
+                              device_tile_pages=True)
     torch.cuda.synchronize()
     cfg = engine.cfg.llm
     llm = engine.params["llm"]
@@ -3589,7 +3973,7 @@ def main() -> int:
     step_bytes = param_bytes({k: v for k, v in llm["layers"].items() if k.endswith(("_q", "_scale"))}) \
         + param_bytes([llm["output_q"], llm["output_scale"]])
     log(f"[8b] engine built in {time.time() - t0:.1f} s: ViT {engine.cfg.vision.num_hidden_layers} "
-        f"layers, LLM {L} layers int8 ({param_bytes(llm) / 1e9:.3f} GB, vocab {cfg.vocab_size} "
+        f"layers, LLM {L} of {full8.llm.num_hidden_layers} layers int8 ({param_bytes(llm) / 1e9:.3f} GB, vocab {cfg.vocab_size} "
         f"padded from {cfg.real_vocab_size}), device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     run8 = run_main_path(engine, MAX_NEW_TOKENS_8B, "8b")
@@ -4222,6 +4606,9 @@ def main() -> int:
     phase("20-21 bench, W8A8")
     bench_phase(h, engine, batch_path)
     w8a8_phase(h, engine)
+    # ---------------------------------------------------------- 29. the parallel layer
+    phase("29 parallel")
+    parallel_phase(h, engine, batch_path)
 
     # ---------------------------------------------------------- 14-16. training
     phase("14-16 train")

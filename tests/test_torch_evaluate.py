@@ -321,8 +321,14 @@ def test_evaluate_cli_refusals_and_batch_default(cli_engines, tmp_path, monkeypa
     base = ["--type", "full_page", "--preset", "callireader-tiny", "--random-init"]
     with pytest.raises(SystemExit):
         tevaluate.main([*base, "--device", "cpu", "--gray-chars", "--rgb-chars"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        tevaluate.main([*base, "--device", "cpu", "--mesh", "tensor=4"])
+    import torch.distributed as dist
+
+    try:  # a mesh whose size is not the world's (a world of 1 without torchrun)
+        with pytest.raises(ValueError, match="does not match 1 ranks"):
+            tevaluate.main([*base, "--device", "cpu", "--mesh", "tensor=4"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     seen = []
     monkeypatch.setattr(tbench, "test_full_page", lambda *a, **kw: seen.append(kw))
     tevaluate.main([*base, "--device", "cpu", "--splits", "easy", "--gray-chars",

@@ -271,12 +271,20 @@ def test_inference_cli_matches_jax(engines, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [["--mesh", "tensor=4"], []])
 def test_inference_cli_refuses_what_is_not_ported(tmp_path, capsys, flag):
+    """Without ``--random-init`` or a checkpoint the CLI exits; a ``--mesh``
+    whose size is not the world's (a world of 1 without torchrun) too."""
+    import torch.distributed as dist
+
     argv = ["--tgt", str(tmp_path), "--preset", "callireader-tiny", "--device", "cpu", *flag]
     if flag:
         argv.append("--random-init")
-    with pytest.raises(SystemExit):
-        tinf.main(argv)
-    assert ("not ported yet" if flag else "--random-init") in capsys.readouterr().err
+    try:
+        with pytest.raises(SystemExit):
+            tinf.main(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert ("does not match 1 ranks" if flag else "--random-init") in capsys.readouterr().err
 
 
 def test_stream_generate_matches_jax(engines, monkeypatch):

@@ -57,7 +57,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "configs.reward_internlm2", "configs.sft_internlm2_7b", "vision.native",
                  "models.llava", "models.moe", "train.moe_io", "train.detector_train",
                  "scripts", "scripts.train_orderformer", "scripts.train_detector",
-                 "train.callialign_train", "scripts.train_callialign"):
+                 "train.callialign_train", "scripts.train_callialign", "core.partition",
+                 "parallel", "parallel.spmd", "parallel.tp_attention", "parallel.ulysses",
+                 "parallel.dryrun"):
         assert f"callireader_tpu_torch.{name}" in res["modules"]
     assert res["jax"] == []
     assert res["jax_package"] == []

@@ -481,8 +481,7 @@ def test_train_config_sets_jax_flag_defaults(config, tmp_path, monkeypatch):
         with pytest.raises(_Parsed):
             main(["--data", "x.jsonl", "--config", config])
     want, got = parsed
-    assert {k: v for k, v in got.items() if k != "device"} == \
-        {k: v for k, v in want.items() if k != "mesh"}
+    assert {k: v for k, v in got.items() if k != "device"} == want
     assert ttrain_cli._load_recipe(config) == jtrain_cli._load_recipe(config)
 
 
