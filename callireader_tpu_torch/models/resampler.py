@@ -100,3 +100,70 @@ def forward(
     if cfg.out_dim is not None:
         learns = learns @ params["out_kernel"].to(cd) + params["out_bias"].to(cd)
     return learns
+
+
+# ---------------------------------------------------------------------------
+# MLP-resampler ablation variants (reference perceiver_resampler.py:102-154;
+# not on the main CalliAlign path, kept for checkpoint/ablation parity). The
+# ``init_*`` draw N(0, 0.02) in float32 from ``generator`` and cast;
+# from_jax_params carries the JAX package's trees of these as they are.
+# ---------------------------------------------------------------------------
+
+
+def init_ff2(generator: torch.Generator, input_dim: int, output_dim: int, mult: int = 4,
+             dtype=torch.float32, device="cpu") -> Params:
+    """FeedForward_2: LayerNorm -> Linear(in, in*mult) -> GELU -> Linear(in*mult, out)."""
+    def normal(shape):
+        return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=device) * 0.02).to(dtype)
+
+    return {
+        "norm_scale": torch.ones((input_dim,), dtype=dtype, device=device),
+        "norm_bias": torch.zeros((input_dim,), dtype=dtype, device=device),
+        "w1": normal((input_dim, input_dim * mult)),
+        "b1": torch.zeros((input_dim * mult,), dtype=dtype, device=device),
+        "w2": normal((input_dim * mult, output_dim)),
+        "b2": torch.zeros((output_dim,), dtype=dtype, device=device),
+    }
+
+
+def ff2(params: Params, x: torch.Tensor, *, policy: DTypePolicy = DEFAULT_POLICY) -> torch.Tensor:
+    h = layer_norm(x, params["norm_scale"], params["norm_bias"], LN_EPS, policy)
+    h = h @ params["w1"].to(h.dtype) + params["b1"].to(h.dtype)
+    h = F.gelu(h, approximate="none")
+    return h @ params["w2"].to(h.dtype) + params["b2"].to(h.dtype)
+
+
+def init_mlp_resampler(generator: torch.Generator, num_tokens: int = 256, mult: int = 4,
+                       dtype=torch.float32, device="cpu") -> Params:
+    """MLP variant: squeezes the 256 patch tokens down to 3 along the token
+    axis (reference :102-115 permutes, runs two FeedForward_2 over tokens)."""
+    return {
+        "ff1": init_ff2(generator, num_tokens, num_tokens, mult, dtype, device),
+        "ff2": init_ff2(generator, num_tokens, 3, mult, dtype, device),
+    }
+
+
+def mlp_resampler(params: Params, x: torch.Tensor, *,
+                  policy: DTypePolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """(B, N, E) -> (B, 3, E): token-axis MLP."""
+    h = x.transpose(1, 2)  # (B, E, N)
+    h = ff2(params["ff1"], h, policy=policy)
+    h = ff2(params["ff2"], h, policy=policy)
+    return h.transpose(1, 2)
+
+
+def init_mlp_6763(generator: torch.Generator, input_dim: int, output_dim: int, mult: int = 2,
+                  dtype=torch.float32, device="cpu") -> Params:
+    return {
+        "ff1": init_ff2(generator, input_dim, output_dim, mult, dtype, device),
+        "ff2": init_ff2(generator, output_dim, output_dim, mult, dtype, device),
+    }
+
+
+def mlp_6763(params: Params, x: torch.Tensor, *, policy: DTypePolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """(B, N, E) -> (B, output_dim): flatten then two FeedForward_2 blocks
+    (reference :117-128; classifier-style ablation head)."""
+    h = x.reshape(x.shape[0], -1)
+    h = ff2(params["ff1"], h, policy=policy)
+    return ff2(params["ff2"], h, policy=policy)

@@ -116,7 +116,7 @@ class CalliReaderEngine:
         self.device = require_device(device)
         self.mesh = mesh
         if mesh is not None and "llm" in params:
-            cfg, params = self._shard_llm(cfg, params, mesh)
+            cfg, params = self.shard_llm(cfg, params, mesh)
         self.cfg = cfg
         self.params = params
         self.tok = tokenizer
@@ -162,7 +162,7 @@ class CalliReaderEngine:
         self.pad_steps = 0
 
     @staticmethod
-    def _shard_llm(cfg: VLMConfig, params: Dict[str, Any], mesh):
+    def shard_llm(cfg: VLMConfig, params: Dict[str, Any], mesh):
         """The LLM's tree -> this rank's blocks (the unfused layout, the
         vocabulary padded to 128 x tensor where tensor > 1)."""
         llm = quantize.unfuse_llm_int8(params["llm"], cfg.llm)

@@ -44,6 +44,10 @@ def quantize_weight(w: torch.Tensor, axis: int = -1) -> Tuple[torch.Tensor, torc
     return _quant(w, tuple(i for i in range(w.ndim) if i != axis % w.ndim))
 
 
+def dequantize_weight(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
 def quantize_llm_int8(llm_params: Dict[str, Any]) -> Dict[str, Any]:
     """New LLM tree with int8 projections: the stacked (L, in, out) weights
     of ``QUANT_TARGETS`` get per-(layer, out) scales (L, 1, out); the vocab

@@ -298,3 +298,15 @@ class InternLM2Tokenizer:
 
     def convert_ids_to_tokens(self, tid: int) -> Optional[str]:
         return self._id_to_token.get(int(tid))
+
+
+_DEFAULT = None
+
+
+def default_tokenizer(model_path: str = DEFAULT_MODEL) -> InternLM2Tokenizer:
+    """The tokenizer of ``model_path``, built once per process: later calls
+    return the first one whatever path they name, as the JAX function does."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = InternLM2Tokenizer(model_path)
+    return _DEFAULT

@@ -508,6 +508,12 @@ class _HostInit(_Init):
                           lambda x: (2 * x - 1) * bound)
 
 
+def draw_llm(cfg: LLMConfig, seed: int, *, dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+    """The engine's bf16 LLM drawn for ``seed``: on the device, by its own
+    generator (``init_params``)."""
+    return init_llm(_Init(component_generator(seed, "llm", device), device, dtype), cfg)
+
+
 def draw_vision(cfg: VisionConfig, seed: int, *, dtype=torch.bfloat16, device="cuda",
                 name: str = "vision") -> Dict[str, Any]:
     """Component ``name`` (the tile tower, or ``char_vision``) of the
@@ -550,9 +556,9 @@ def init_params(cfg: VLMConfig, seed: int = 0, dtype=torch.bfloat16,
     trained it.
     ``llm_int8``: the LLM is drawn directly as int8 + scales in the fused
     layout (runtime/quantize.init_llm_int8), never as a bf16 tree."""
-    llm_gen = component_generator(seed, "llm", device)
-    llm = (quantize.init_llm_int8(cfg.llm, llm_gen, dtype=dtype, device=device) if llm_int8
-           else init_llm(_Init(llm_gen, device, dtype), cfg.llm))
+    llm = (quantize.init_llm_int8(cfg.llm, component_generator(seed, "llm", device), dtype=dtype,
+                                  device=device) if llm_int8
+           else draw_llm(cfg.llm, seed, dtype=dtype, device=device))
     V = cfg.llm.vocab_size
     host = lambda name: component_generator(seed, name, "cpu")  # noqa: E731
     out = {

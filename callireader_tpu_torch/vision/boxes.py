@@ -1,8 +1,9 @@
 """Box geometry for the slicing priors (host-side numpy), copied from
 callireader_tpu/vision/boxes.py.
 
-The port keeps the dependency-free 2-cluster k-means only (no scikit-learn)
-and leaves out the OpenCV drawing helper. Order-sensitive sequential code over
+The port keeps the dependency-free 2-cluster k-means only (no scikit-learn);
+the debugging overlay ``draw_boxes`` imports OpenCV inside the call, as the
+JAX function does. Order-sensitive sequential code over
 a few hundred boxes; it stays on the host.
 
 Box formats: "pair" = [[x1,y1],[x2,y2]]; "flat" = [x1,y1,x2,y2].
@@ -10,7 +11,7 @@ Box formats: "pair" = [[x1,y1],[x2,y2]]; "flat" = [x1,y1,x2,y2].
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -193,6 +194,33 @@ def mask_area(image_array: np.ndarray, coords: Sequence[Sequence[int]], color) -
     for x1, y1, x2, y2 in coords:
         image_array[y1:y2, x1:x2] = color
     return image_array
+
+
+def draw_boxes(
+    image: np.ndarray,
+    box_list: Sequence,
+    save_path: Optional[str] = None,
+    *,
+    numbered: bool = False,
+) -> np.ndarray:
+    """Overlay boxes (pair or flat format) for debugging
+    (utils.py:219-227 drawBoxes, models/model.py:476-486). OpenCV (``cv2``)
+    is imported inside the call: where it is not installed (the card's
+    machine) the call raises ImportError, as the JAX function's does."""
+    import cv2
+
+    frame = np.ascontiguousarray(image.copy())
+    for i, box in enumerate(box_list):
+        flat = pair_to_flat(box) if isinstance(box[0], (list, tuple, np.ndarray)) else box
+        x1, y1, x2, y2 = (int(v) for v in flat)
+        cv2.rectangle(frame, (x1, y1), (x2, y2), color=(255, 0, 0), thickness=2,
+                      lineType=cv2.LINE_AA)
+        if numbered:
+            cv2.putText(frame, str(i + 1), ((x1 + x2) // 2, (y1 + y2) // 2),
+                        cv2.FONT_HERSHEY_SIMPLEX, 1, (0, 0, 255), 1, cv2.LINE_AA)
+    if save_path:
+        cv2.imwrite(save_path, frame[:, :, ::-1])  # RGB -> BGR for imwrite
+    return frame
 
 
 def half_divide(image: np.ndarray, data: Dict) -> List:

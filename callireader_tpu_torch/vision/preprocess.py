@@ -4,8 +4,9 @@ callireader_tpu/vision/preprocess.py without PIL.
 Pages arrive as uint8 RGB arrays (``open_image`` reads them from ``.npy``
 files, or decodes other image files with PIL where it is installed). Tile-grid selection, the tile/char
 buckets, host dynamic tiling (``load_image``, what the server runs per page),
-the [200, 350] char-content rule and the host path for crops that would be
-downscaled live here; every resize is the PIL-compatible antialiased BICUBIC
+the [200, 350] char-content rule, the reference's whole char-slice pipeline
+(``load_char_slice``, normalized by ``to_tensor_normalized`` or kept uint8)
+and the host path for crops that would be downscaled live here; every resize is the PIL-compatible antialiased BICUBIC
 of vision/resample.py (PIL's default ``resize`` filter).
 """
 
@@ -97,6 +98,16 @@ def tile_grid(
     return find_closest_aspect_ratio(aspect, ratios, ow, oh, image_size)
 
 
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def to_tensor_normalized(img: np.ndarray, input_size: int) -> np.ndarray:
+    """Bicubic resize -> [0, 1] -> ImageNet normalize. Returns HWC f32."""
+    arr = to_tensor_uint8(img, input_size).astype(np.float32) / 255.0
+    return (arr - IMAGENET_MEAN) / IMAGENET_STD
+
+
 def to_tensor_uint8(img: np.ndarray, input_size: int) -> np.ndarray:
     """Bicubic resize to (input_size, input_size), uint8 HWC; ImageNet
     normalization happens on the device (models/internvit)."""
@@ -132,6 +143,25 @@ def load_image(
     img = as_rgb_array(image)
     tiles = dynamic_tile(img, image_size=input_size, use_thumbnail=use_thumbnail, max_num=max_num)
     return np.stack([to_tensor_uint8(t, input_size) for t in tiles])
+
+
+def load_char_slice(
+    image, input_size: int = 448, max_num: int = 12, as_uint8: bool = False
+) -> np.ndarray:
+    """Character-crop pipeline (reference load_image_2): scale longest edge into
+    [200, 350] (bounds scaled with input_size), center-pad white to input_size,
+    then tile (always 1 tile since the padded image is square input_size).
+    -> (num_tiles, H, W, C), f32 normalized or uint8 (``as_uint8``)."""
+    img = open_image(image)
+    h, w = img.shape[:2]
+    nw, nh = char_content_dims(w, h, input_size)
+    img = resample.pil_resize(img, (nw, nh), "bicubic")
+    canvas = np.full((input_size, input_size, 3), 255, np.uint8)
+    top, left = (input_size - nh) // 2, (input_size - nw) // 2
+    canvas[top:top + nh, left:left + nw] = img
+    tiles = dynamic_tile(canvas, image_size=input_size, use_thumbnail=True, max_num=max_num)
+    conv = to_tensor_uint8 if as_uint8 else to_tensor_normalized
+    return np.stack([conv(t, input_size) for t in tiles])
 
 
 def char_content_canvas(input_size: int = 448) -> int:

@@ -297,6 +297,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      8b's tile tower (24 layers at 448, the default resampler): 3 steps
      under remat at batch 8 (finite, the LoRA B factors move), the grads
      with and without remat at batch 2;
+ 30. the measurement scripts (callireader_tpu_torch/scripts/, the JAX
+     repository's scripts/ ported), each ``main(argv)`` in process at
+     SCRIPTS_PRESET with short counts, counts zeroed before each and read
+     after; each JSON line parses, carries the JAX script's keys (read from
+     scripts/<name>.py with ast) with the port's changes (``device`` = the
+     card's name and power limit, ``platform``, the H100's roofline key)
+     and finite, positive numbers, and every kernel of the script's path
+     launched, as often as its layers and steps make: bench_decode
+     (flash_decode L times a decode step; its row at that shape),
+     bench_serving (contiguous bf16, then paged int8 at steps_per_sync 8:
+     every request at its staggered length), bench_http (every request
+     answers 200), bench_prefix (the chunked prefill's last logits within
+     MODEL_REL_TOL of the full prefill's; the prefill kernel's rows at its
+     shapes, q_offset among them), bench_train_step, bench_vit --attn-impl
+     both (the kernel's encode within MODEL_REL_TOL of the plain one's),
+     bench_8b_int8 at the 8b's widths with LAYERS_8B layers on host draws
+     made ahead in a worker process during phases 14-28 (it fits the card),
+     mb_scan_int8 at MB_SCAN_L layers (stacked, unrolled and graph give the
+     same bits; the (K, N) kernel's row at its shape);
  19. the RMSNorm kernels against their plain versions at every path's shapes
      (E = 4096; 8b batch, serve, 2b CLI, beams: decode and prefill rows; train:
      2 x 2048 rows, forward and backward with dw on and off), both roundings:
@@ -321,7 +340,7 @@ spills (``-Xptxas -v``); phase 8 and 13 hold each row of the LM head's
 launch, and of the (K, N) kernel's at the w13 projection, to the same row
 launched alone, bit for bit, and the log compares the int8 kernels' and the
 paged kernel's device ms with their bounds across the paths' row counts.
-Phases run in the order 1-4, 22, 5-13, 20-21, 14-16, 24, 17-18, 23, 25-28, 19.
+Phases run in the order 1-4, 22, 5-13, 20-21, 29, 14-16, 24, 17-18, 23, 25-28, 30, 19.
 Prints the wall seconds of each phase, the card's name and power limit, the
 ``kernels`` JSON line (it fails if a kernel has no entry), then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA or without the
@@ -335,6 +354,7 @@ import gc
 import hashlib
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -350,9 +370,10 @@ import numpy as np
 N_PAGES = 4
 MAX_NEW_TOKENS = 64
 MAX_NEW_TOKENS_8B = 256
-# phases 5-13, 20-21 and 29 run the 8b's widths with its LLM cut from 32 to
-# this many layers (card time: the script and the card tests keep inside 600 s)
-LAYERS_8B = 16
+# phases 5-13, 20-21 and 29 and phase 30's bench_8b_int8 run the 8b's widths
+# with its LLM cut from 32 to this many layers (card time: the script and the
+# card tests keep inside 600 s; 16 until phase 30 came)
+LAYERS_8B = 8
 SERVE_SLOTS, SERVE_PAGE, SERVE_PAGES_PER_SLOT = 8, 128, 32  # serve --slots 8 --max-len 4096
 SERVE_NEW_TOKENS = 256
 PRESSURE_FREE_PAGES, PRESSURE_NEW_TOKENS = 118, 160
@@ -439,6 +460,9 @@ CA_SYNTH_CHARS, CA_SYNTH_VIEWS, CA_STEPS, CA_BATCH = 256, 4, 40, 96
 CA_CPU_BATCH, CA_CPU_LOSS_REL, CA_CPU_GRAD_REL = 8, 1e-5, 1e-3
 CA_READOUT = 64
 CA_V2_STEPS, CA_V2_BATCH, CA_V2_RANK, CA_V2_LR, CA_REMAT_REL = 3, 8, 16, 1e-3, 1e-4
+# phase 30: the measurement scripts at this preset (the 8b's widths, its
+# depth cut: 8 LLM layers), mb_scan_int8 over this many stacked layers
+SCRIPTS_PRESET, MB_SCAN_L = "callireader-2b", 16
 # H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s dense bf16 tensor cores (data sheet)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -3460,6 +3484,275 @@ def callialign_phase(h):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 30
+
+
+def draw_8b_int8(out_dir):
+    """In a worker process: bench_8b_int8's host draws at the 8b's widths
+    (numpy RandomState(0), ~1 G normal draws on one core), saved as .npy
+    under ``out_dir`` -> (the leaf names, the RandomState after the draws,
+    seconds)."""
+    from callireader_tpu_torch.core.config import callireader_8b
+    from callireader_tpu_torch.scripts import bench_8b_int8
+
+    t0 = time.time()
+    host, rng = bench_8b_int8.host_draws(callireader_8b().llm)
+    for name, (q, s) in host.items():
+        np.save(os.path.join(out_dir, f"{name}_q.npy"), q)
+        np.save(os.path.join(out_dir, f"{name}_scale.npy"), s)
+    return list(host), rng, time.time() - t0
+
+
+def draw_8b_ahead():
+    """bench_8b_int8's host draws for phase 30, in a worker process while
+    the device-bound phases 14-28 run -> (the pool, its future, the
+    directory of the draws)."""
+    import concurrent.futures
+    import multiprocessing
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_8b_draws_")
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(draw_8b_int8, out_dir), out_dir
+
+
+def jax_script_keys(name):
+    """The keys of the JSON line of the JAX repository's scripts/<name>.py,
+    read with ast (not run), with the port's changes: ``device`` and
+    ``platform`` added, the TPU's roofline key renamed to the H100's."""
+    import ast
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                           f"{name}.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    keys = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict) and any(
+                isinstance(k, ast.Constant) and k.value == "metric" for k in node.keys):
+            keys |= {k.value for k in node.keys}
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Subscript) \
+                and isinstance(node.targets[0].value, ast.Name) and node.targets[0].value.id == "out":
+            keys.add(node.targets[0].slice.value)
+    renamed = {"roofline_ms_at_800gbps": "roofline_ms_at_3350gbps"}
+    return {renamed.get(k, k) for k in keys} | {"device", "platform"}
+
+
+def scripts_phase(h, ahead):
+    """Phase 30: the repository's measurement scripts, ported
+    (callireader_tpu_torch/scripts/), each ``main(argv)`` in process at the
+    2b preset (the 8b's widths) with short counts, bench_8b_int8 at the
+    8b's widths with LAYERS_8B layers on draws made ahead, mb_scan_int8 at
+    MB_SCAN_L layers. Counts zeroed before each script, read after."""
+    import contextlib
+
+    from callireader_tpu_torch.core.config import get_config
+    from callireader_tpu_torch.scripts import (bench_8b_int8, bench_decode, bench_http,
+                                               bench_prefix, bench_serving, bench_train_step,
+                                               bench_vit, mb_scan_int8)
+
+    torch, dev, kernels = h.torch, h.dev, h.kernels
+    k_i8 = kernels["int8_matmul"].module
+    cfg = get_config(SCRIPTS_PRESET)
+    L, L_vit = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers
+    seconds = {}
+
+    def drive(label, mod, argv, path, keys=None, **kw):
+        """``mod.main(argv)`` with every count zeroed just before and read
+        just after -> (its JSON lines, launches, shape log, decode steps).
+        Each line parses, carries ``keys`` (default: the JAX script's, with
+        the port's changes) and finite numbers, the floats positive; every
+        kernel of ``path`` launched."""
+        h.zero_counts()
+        buf = io.StringIO()
+        t0 = time.time()
+        with ShapeLog(kernels) as shapes, contextlib.redirect_stdout(buf):
+            mod.main(argv, **kw)
+        torch.cuda.synchronize()
+        seconds[label] = round(time.time() - t0, 1)
+        launches, n_dec = h.read_counts(), h.decode_steps()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"[scripts {label}] {line}")
+        if not text.splitlines() or not text.splitlines()[-1].startswith("{"):
+            fail(f"[scripts {label}] the script's last line is not its JSON line")
+        lines = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+        want = keys or jax_script_keys(mod.__name__.rsplit(".", 1)[-1])
+        for line in lines:
+            if set(line) != want:
+                fail(f"[scripts {label}] keys {sorted(line)}, want {sorted(want)}")
+            if line["device"] != h.smi or line["platform"] != "cuda":
+                fail(f"[scripts {label}] device {line['device']!r} / {line['platform']!r}, want "
+                     f"{h.smi!r} / 'cuda'")
+            nums = {k: v for k, v in line.items()
+                    if isinstance(v, (int, float)) and not isinstance(v, bool)}
+            bad = {k: v for k, v in nums.items()
+                   if not math.isfinite(v) or v < 0 or (isinstance(v, float) and v <= 0)}
+            if bad:
+                fail(f"[scripts {label}] numbers not finite and positive: {bad}")
+        missing = [n for n in path if launches[n] == 0]
+        if missing:
+            fail(f"[scripts {label}] kernels of its path never launched: {missing} ({launches})")
+        log(f"[scripts {label}] {seconds[label]} s; {n_dec} decode steps; launches "
+            f"{ {n: c for n, c in launches.items() if c} }")
+        return lines, launches, shapes, n_dec
+
+    def want_launches(label, launches, want):
+        got = {n: launches[n] for n in want}
+        if got != want:
+            fail(f"[scripts {label}] launches {got}, want {want}")
+
+    # ---- bench_decode: the prefill twice alone, then generate twice
+    T = 32
+    (line,), launches, shapes, n_dec = drive(
+        "decode", bench_decode, ["--preset", SCRIPTS_PRESET, "--batch", "4", "--prompt", "1024",
+                                 "--tokens", str(T)],
+        ("flash_attention", "flash_decode", "rms_norm_fwd"))
+    want_launches("decode", launches, {"flash_decode": L * n_dec, "flash_attention": 4 * L,
+                                       "vit_attention": 0, "int8_matmul": 0})
+    h.check_norms("scripts decode", launches, L, 4 + n_dec)
+    if not line["use_flash"]:
+        fail("[scripts decode] the kernels did not run")
+    h.flash_decode_row("scripts decode", shapes, launches)
+    del shapes
+
+    # ---- bench_serving: the contiguous batcher in bf16, then paged int8 at k = 8
+    n_req, max_new = 8, 32
+    tokens_due = sum(bench_serving.Workload(n_req, 96, 0, max_new).lengths())
+    for label, extra, path, decode_kernel, n_i8 in (
+            ("serving", [], ("flash_attention", "flash_decode", "rms_norm_fwd"), "flash_decode", 0),
+            ("serving paged int8 k=8", ["--paged", "--quant", "int8", "--steps-per-sync", "8"],
+             ("flash_attention", "paged_flash_decode", "int8_matmul", "int8_matmul_nt",
+              "rms_norm_fwd"), "paged_flash_decode", 4)):
+        (line,), launches, _, n_dec = drive(label, bench_serving, [
+            "--preset", SCRIPTS_PRESET, "--requests", str(n_req), "--max-new", str(max_new),
+            "--slots", "8", "--max-len", "1024"] + extra, path)
+        if line["total_tokens"] != tokens_due:
+            fail(f"[scripts {label}] {line['total_tokens']} tokens, want {tokens_due}: every "
+                 f"request at its staggered length")
+        want_launches(label, launches, {decode_kernel: L * n_dec, "int8_matmul": n_i8 * L * n_dec})
+
+    # ---- bench_http: every request answers 200 (the script fails otherwise)
+    (line,), launches, _, n_dec = drive(
+        "http", bench_http, ["--preset", SCRIPTS_PRESET, "--requests", "8", "--max-tokens", "32",
+                             "--slots", "8", "--stream"],
+        ("flash_attention", "flash_decode", "rms_norm_fwd"))
+    want_launches("http", launches, {"flash_decode": L * n_dec, "vit_attention": 0})
+
+    # ---- bench_prefix: the chunked prefill's logits against the full prefill's
+    iters = 2
+    checks = {}
+    _, launches, shapes, _ = drive(
+        "prefix", bench_prefix, ["--preset", SCRIPTS_PRESET, "--rows", "4", "--prompt", "2048",
+                                 "--prefix", "1536", "--iters", str(iters)],
+        ("flash_attention", "rms_norm_fwd"), checks=checks)
+    rel = checks["logits_rel_err"]
+    log(f"[scripts prefix] the chunked prefill's last logits against the full prefill's: rel L2 "
+        f"{rel:.3e} (bound {MODEL_REL_TOL})")
+    if not rel <= MODEL_REL_TOL:
+        fail(f"[scripts prefix] the chunked prefill's logits are {rel:.3e} rel off")
+    want_launches("prefix", launches, {"flash_attention": L * (2 * (1 + iters) + 1)})
+    h.flash_attention_rows("scripts prefix", shapes, launches)
+    del shapes
+
+    # ---- bench_train_step: the e-IT step on the training kernels
+    steps = 1 + iters
+    _, launches, _, _ = drive(
+        "train step", bench_train_step, ["--preset", SCRIPTS_PRESET, "--batch", "2", "--seq",
+                                         "2048", "--iters", str(iters)],
+        ("vit_attention", "attn_train_fwd", "attn_train_dq", "attn_train_dkv", "rms_norm_fwd",
+         "rms_norm_bwd"))
+    want_launches("train step", launches, {
+        "attn_train_fwd": 2 * L * steps, "attn_train_dq": L * steps, "attn_train_dkv": L * steps,
+        "vit_attention": L_vit * steps, "flash_attention": 0})
+
+    # ---- bench_vit: the kernel's encode against the plain one's
+    lines, launches, _, _ = drive(
+        "vit", bench_vit, ["--preset", SCRIPTS_PRESET, "--tiles", "64", "--iters", str(iters),
+                           "--attn-impl", "both"], ("vit_attention",), checks=checks)
+    rel = checks["encode_rel_err"]
+    log(f"[scripts vit] the kernel's encode against the plain one's: rel L2 {rel:.3e} (bound "
+        f"{MODEL_REL_TOL}); {[x['attn_impl'] for x in lines]}")
+    if [x["attn_impl"] for x in lines] != ["auto=kernel", "reference=plain"] \
+            or not rel <= MODEL_REL_TOL:
+        fail(f"[scripts vit] the two routes did not both run, or disagree ({rel:.3e})")
+    want_launches("vit", launches, {"vit_attention": L_vit * (1 + 2 * iters)})
+
+    # ---- bench_8b_int8: the 8b's widths at LAYERS_8B layers, on the draws made ahead
+    pool, future, out_dir = ahead
+    t0 = time.time()
+    names, rng, draw_s = future.result()
+    pool.shutdown()
+    host = {n: (np.load(os.path.join(out_dir, f"{n}_q.npy")),
+                np.load(os.path.join(out_dir, f"{n}_scale.npy"))) for n in names}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[scripts 8b int8] host draws made ahead in {draw_s:.1f} s (waited {time.time() - t0:.1f} "
+        f"s for them)")
+    (line,), launches, _, n_dec = drive(
+        "8b int8", bench_8b_int8, [], ("flash_attention", "flash_decode", "int8_matmul",
+                                       "int8_matmul_nt", "rms_norm_fwd"),
+        num_layers=LAYERS_8B, draws=(host, rng))
+    del host
+    if line["fits_single_chip"] is not True:
+        fail("[scripts 8b int8] the run did not fit the card")
+    n_gen = 1 + 3 + 1  # the warm-up, three short runs, the timed run: a prefill each
+    # the prompt's 4096 rows take the int8 products' plain form, its last rows the LM head's kernel
+    want_launches("8b int8", launches, {"flash_decode": LAYERS_8B * n_dec,
+                                        "flash_attention": LAYERS_8B * n_gen,
+                                        "int8_matmul": 4 * LAYERS_8B * n_dec,
+                                        "int8_matmul_nt": n_dec + n_gen})
+
+    # ---- mb_scan_int8: the three variants at MB_SCAN_L layers give the same bits
+    env = {k: os.environ.get(k) for k in ("MB_L", "MB_WHICH")}
+    os.environ["MB_L"] = str(MB_SCAN_L)
+    os.environ.pop("MB_WHICH", None)
+    try:
+        (line,), launches, _, _ = drive(
+            "mb_scan_int8", mb_scan_int8, [], ("int8_matmul",),
+            keys={"metric", "L", "K", "N", "M", "bytes_per_pass", "variants", "same_bits",
+                  "device", "platform"})
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if not line["same_bits"] or list(line["variants"]) != list(mb_scan_int8.VARIANTS):
+        fail(f"[scripts mb_scan_int8] the variants {list(line['variants'])} disagree in bits")
+    passes = 1 + 20  # the first (for the graph: its run and capture), then 20 timed
+    want_launches("mb_scan_int8", launches, {"int8_matmul": 3 * MB_SCAN_L * passes})
+    # the kernel at its shape, against its plain version (a cold walk over the layers)
+    Lm, K, N, M = MB_SCAN_L, line["K"], line["N"], line["M"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    wq = torch.randint(-127, 128, (Lm, K, N), generator=g, dtype=torch.int8, device=dev)
+    ws = torch.rand((Lm, N), generator=g, dtype=torch.float32, device=dev) / 127.0
+    x = h.rnd((M, K))
+    walk, rot = [0], [0]
+    wd = [(wq[Lm - 1 - i].float() * ws[Lm - 1 - i]).bfloat16()
+          for i in range(max(1, -(-200_000_000 // (K * N * 2))))]
+
+    def time_k():
+        walk[0] = (walk[0] + 1) % Lm
+        return k_i8.int8_matmul(x, wq[walk[0]], ws[walk[0]])
+
+    def lib():  # the yardstick, cold: bf16 copies worth >= 200 MB
+        rot[0] = (rot[0] + 1) % len(wd)
+        return x @ wd[rot[0]]
+
+    r = h.row_for("int8_matmul", f"[scripts mb_scan_int8] M={M} K={K} N={N}",
+                  lambda: k_i8.int8_matmul(x, wq[Lm - 1], ws[Lm - 1]),
+                  lambda: k_i8.int8_matmul_reference(x.float(), wq[Lm - 1], ws[Lm - 1]), lib,
+                  nbytes=K * N + 4 * N + 2 * M * K + 2 * M * N, flops=2 * M * K * N, time_k=time_k)
+    h.results.setdefault("int8_matmul", []).append(
+        (f"scripts mb_scan_int8 {M}x{K}x{N}", launches["int8_matmul"], r))
+    for name, v in line["variants"].items():
+        log(f"[scripts mb_scan_int8] {name}: {v['ms']:.4f} ms a pass of {Lm} layers, "
+            f"{v['ms'] / Lm:.4f} ms a layer, {v['gbps']:.1f} GB/s of int8 weights, "
+            f"{v['share_of_3350gbps']:.1%} of 3.35 TB/s")
+    del wq, ws, wd
+    torch.cuda.empty_cache()
+    log(f"[scripts] seconds by script: {json.dumps(seconds)}")
+
+
+
 def main() -> int:
     import torch
 
@@ -4612,6 +4905,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- 14-16. training
     phase("14-16 train")
+    ahead_8b = draw_8b_ahead()  # phase 30's 8b host draws, made during phases 14-28
     work = tempfile.mkdtemp(prefix="chip_smoke_eit_")
     try:
         data = write_eit_data(engine, work)
@@ -4656,6 +4950,11 @@ def main() -> int:
     # ---------------------------------------------------------- 28. the CalliAlign trainer
     phase("28 callialign")
     callialign_phase(h)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------------- 30. the measurement scripts
+    phase("30 scripts")
+    scripts_phase(h, ahead_8b)
     gc.collect()
     torch.cuda.empty_cache()
     # ---------------------------------------------------------- 19. RMSNorm at every path's shapes

@@ -59,7 +59,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "scripts", "scripts.train_orderformer", "scripts.train_detector",
                  "train.callialign_train", "scripts.train_callialign", "core.partition",
                  "parallel", "parallel.spmd", "parallel.tp_attention", "parallel.ulysses",
-                 "parallel.dryrun"):
+                 "parallel.dryrun", "scripts.bench_common", "scripts.bench_decode",
+                 "scripts.bench_serving", "scripts.bench_http", "scripts.bench_prefix",
+                 "scripts.bench_train_step", "scripts.bench_vit", "scripts.bench_8b_int8",
+                 "scripts.mb_scan_int8"):
         assert f"callireader_tpu_torch.{name}" in res["modules"]
     assert res["jax"] == []
     assert res["jax_package"] == []
