@@ -240,6 +240,11 @@ def refuse_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
+    check_layout(t, name, dtype)
+
+
+def check_layout(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
+    """``t`` has ``dtype`` and is contiguous and 16-byte aligned."""
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():

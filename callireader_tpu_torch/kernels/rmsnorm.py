@@ -10,10 +10,12 @@ For x (..., E) and w (E,), with r = 1 / sqrt(mean(x^2) + eps) per row in fp32:
 
 On the H100 these are the hand-written CUDA kernels of csrc/rmsnorm.cu: the
 forward a block per row (the row read once into registers: sum of squares,
-then y), the backward a block per
-group of rows with dw as per-block fp32 partials that ``torch.sum`` adds (no
-atomics: the same bits on every run, as the JAX rule sums in XLA). What
-bounds them: bytes (x read, y written; x, dy read, dx written).
+then y), the backward a persistent grid of ``BWD_BLOCKS_PER_SM`` blocks an SM
+walking the rows (each row read once into registers, the next one loading
+while this one's sum is reduced, dw accumulated in registers) that finishes
+dw in the same launch: each block's fp32 partial, one grid barrier, the
+partials summed in a fixed order (no atomics: the same bits on every run).
+What bounds them: bytes (x read, y written; x, dy read, dx written).
 
 Two modes, two instantiations of each kernel:
 
@@ -33,25 +35,29 @@ backward computes dw only when the weight needs a gradient.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
 
-from callireader_tpu_torch.kernels._build import CudaKernel, check_cuda, ptr, refuse_grad
+from callireader_tpu_torch.kernels._build import CudaKernel, check_layout, ptr, refuse_grad
 
 SOURCE = "rmsnorm"
 _FWD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int]
-_BWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+_BWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
 KERNELS_FWD = {mode: CudaKernel(SOURCE, f"rmsnorm_fwd_{mode}_launch", _FWD_ARGS)
                for mode in ("model", "fused")}
 KERNELS_BWD = {mode: CudaKernel(SOURCE, f"rmsnorm_bwd_{mode}_launch", _BWD_ARGS)
                for mode in ("model", "fused")}
-# row widths the kernels take: 16-byte vectors across the row, and the
-# backward's dw accumulator (4 bytes a column) in a block's 48 KB of shared
-# memory. The presets' LLMs are 4096 (8b, 2b) and 64 (tiny) wide.
+# row widths the kernels take: 16-byte vectors across the row, at most 8 of
+# them a thread held in registers. The presets' LLMs are 4096 (8b, 2b) and 64
+# (tiny) wide.
 WIDTH_MULTIPLE, MAX_WIDTH = 8, 8192
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-BWD_ROWS_PER_BLOCK = 16  # rows a backward block walks when it accumulates dw
+# the backward's persistent grid, blocks an SM (never more blocks than rows;
+# with dw never more than the card holds at once: the kernel clamps); each
+# block with dw writes an (E,) fp32 partial
+BWD_BLOCKS_PER_SM = 2
 
 
 def _acc(x: torch.Tensor) -> torch.dtype:
@@ -136,10 +142,14 @@ def _row_args(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int, int, int
     return px, pw, x.numel() // E, E, code
 
 
+def _require_cuda(*tensors: torch.Tensor) -> None:
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("the RMSNorm kernels take CUDA tensors")
+
+
 def _launch_fwd(x: torch.Tensor, w: torch.Tensor, eps: float, mode: str, want_r: bool):
     """x (..., E) -> (y of x's shape, r fp32 (rows,) or None)."""
-    if not (x.is_cuda and w.is_cuda):
-        raise ValueError("the RMSNorm kernels take CUDA tensors")
+    _require_cuda(x, w)
     px, pw, rows, E, code = _row_args(x, w)
     y = torch.empty_like(x)
     r = torch.empty((rows,), dtype=torch.float32, device=x.device) if want_r else None
@@ -148,23 +158,44 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, eps: float, mode: str, want_r:
     return y, r
 
 
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_blocks(rows: int, device: torch.device) -> int:
+    """The backward's grid: at most ``BWD_BLOCKS_PER_SM`` blocks an SM, as few
+    as walk the rows in as many strides (so every block walks as many rows,
+    the last stride aside)."""
+    strides = -(-rows // (BWD_BLOCKS_PER_SM * _sm_count(device.index)))
+    return -(-rows // strides)
+
+
+def _bwd_buffers(x2: torch.Tensor, want_dw: bool):
+    """What the backward writes -> (dx like x2, dw fp32 (E,) or None, the
+    blocks' dw partials fp32 (blocks, E) or None, blocks)."""
+    rows, E = x2.shape
+    blocks = _bwd_blocks(rows, x2.device)
+    dx = torch.empty_like(x2)
+    if not want_dw:
+        return dx, None, None, blocks
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    return dx, torch.empty((E,), **f32), torch.empty((blocks, E), **f32), blocks
+
+
 def _launch_bwd(x2: torch.Tensor, w: torch.Tensor, r: torch.Tensor, dy2: torch.Tensor, mode: str,
                 want_dw: bool):
-    """-> (dx (rows, E), dw partials fp32 (blocks, E) or None)."""
-    if not (x2.is_cuda and w.is_cuda):
-        raise ValueError("the RMSNorm kernels take CUDA tensors")
+    """One launch -> (dx (rows, E), dw fp32 (E,) or None)."""
+    _require_cuda(x2, w, r, dy2)
     px, pw, rows, E, code = _row_args(x2, w)
-    check_cuda(dy2, "dy", x2.dtype)
-    check_cuda(r, "r", torch.float32)
+    check_layout(dy2, "dy", x2.dtype)
+    check_layout(r, "r", torch.float32)
     if dy2.shape != x2.shape or r.shape != (rows,):
         raise ValueError("dy must have x's shape and r one value a row")
-    rpb = BWD_ROWS_PER_BLOCK if want_dw else 1
-    dx = torch.empty_like(x2)
-    part = (torch.empty((-(-rows // rpb), E), dtype=torch.float32, device=x2.device)
-            if want_dw else None)
-    KERNELS_BWD[mode](px, pw, ptr(r), ptr(dy2), ptr(dx),
-                      None if part is None else ptr(part), rows, E, rpb, code)
-    return dx, part
+    dx, dw, part, blocks = _bwd_buffers(x2, want_dw)
+    KERNELS_BWD[mode](px, pw, ptr(r), ptr(dy2), ptr(dx), None if part is None else ptr(part),
+                      None if dw is None else ptr(dw), rows, E, blocks, code)
+    return dx, dw
 
 
 def _weight_for(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
@@ -197,9 +228,9 @@ def _bwd(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, dy: torch.Tensor, mo
     if x.is_cpu:
         return rms_norm_bwd_reference(x, w, r, dy, mode, want_dw)
     E = x.shape[-1]
-    dx, part = _launch_bwd(x.reshape(-1, E).contiguous(), _weight_for(x, w, mode), r,
-                           dy.reshape(-1, E).contiguous(), mode, want_dw)
-    return dx.reshape(x.shape), None if part is None else part.sum(dim=0)
+    dx, dw = _launch_bwd(x.reshape(-1, E).contiguous(), _weight_for(x, w, mode), r,
+                         dy.reshape(-1, E).contiguous(), mode, want_dw)
+    return dx.reshape(x.shape), dw
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, mode: str = "model") -> torch.Tensor:

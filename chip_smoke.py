@@ -322,7 +322,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      the one-rounding form (rms_norm_pallas's) within kernels/tolerance.py's
      rule, the model's two-rounding form within one bf16 ulp elementwise and
      few elements apart; the backward's bits equal in two runs; beside
-     torch.nn.functional.rms_norm (a yardstick the port never calls).
+     torch.nn.functional.rms_norm (a yardstick the port never calls). The
+     backward is timed on its whole route (``_bwd``) and held to one kernel
+     launch a call (torch.profiler's kernels), dw (E,) read from that launch
+     within 1e-5 of the sum of its terms' sizes, dx within one bf16 ulp of
+     the row-group kernel it replaced (tests/data/rmsnorm_bwd_rows.cu, built
+     in phase 1), whose route (plus torch.sum of its dw partials) is timed
+     beside it as the row's "was".
 Decode steps are counted by the model's ``DECODE_STEPS`` and launches by the
 kernels' counts, both kept true under graph replays (a capture's launches are
 taken off and added back at each replay), and the shape log records a
@@ -2834,6 +2840,36 @@ def parallel_phase(h, engine, batch_path):
     log(f"[parallel] phase seconds: (a) {t_a:.1f}, (b) {time.time() - t0 - t_a:.1f}")
 
 
+class RowKernel:
+    """The RMSNorm backward that the one-launch kernel replaced
+    (tests/data/rmsnorm_bwd_rows.cu: groups of 16 rows a block with dw, each
+    row read twice, dw as (blocks, E) fp32 partials that torch.sum adds),
+    built with the port's nvcc flags in phase 1 beside the port's kernels
+    (tools/norm_bwd_probe.py binds and launches it)."""
+
+    @classmethod
+    def start(cls, build):
+        from callireader_tpu_torch.tools import norm_bwd_probe
+
+        self = cls()
+        self.probe = norm_bwd_probe
+        self.so = build.BUILD_DIR / "rmsnorm_bwd_rows.so"
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.proc = subprocess.Popen(norm_bwd_probe.rows_kernel_command(self.so),
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return self
+
+    def wait(self):
+        out, _ = self.proc.communicate(timeout=900)
+        if self.proc.returncode:
+            fail(f"nvcc failed for {self.probe.ROWS_SOURCE}:\n{out}")
+        self.fns = self.probe.bind_rows(self.so)
+
+    def __call__(self, torch, x, w, r, dy, mode, want_dw):
+        """-> (dx, dw fp32 (E,) as the old route summed it, or None)."""
+        return self.probe.launch_rows(self.fns[mode], x, w, r, dy, want_dw)
+
+
 def norm_rows(h):
     """Phase 19: the RMSNorm kernels against their plain versions at every
     path's shapes (E = 4096), both roundings, forward and backward (dw on
@@ -2920,29 +2956,84 @@ def norm_rows(h):
                 if not torch.equal(runs[0][0], runs[1][0]) or (
                         dw and not torch.equal(runs[0][1], runs[1][1])):
                     fail(f"[{path}] RMSNorm backward ({mode}, dw {dw}) differs between two runs")
+                what = f"[{path}] rows={rows} {mode} dw {dw}"
+                # dx against the row-group kernel it replaced: within one
+                # bf16 ulp, few elements apart
+                ok, verdict = ulp_check(runs[0][0], h.rows_kernel(torch, x, w, rr, dy, mode, dw)[0],
+                                        slack=0.0, what="one bf16 ulp")
+                log(f"rms_norm_bwd {what}: dx against the row-group kernel: {verdict}")
+                if not ok:
+                    fail(f"{what}: RMSNorm backward dx off the row-group kernel's")
                 if dw:
+                    dw_k = runs[0][1]
                     dw_p = k_rms.rms_norm_bwd_reference(x, w, rr, dy, mode)[1]
                     u = (x.float() * rr[:, None]).bfloat16() if mode == "model" else x.float() * rr[:, None]
                     terms = (dy.float().abs() * u.float().abs()).sum(0)
-                    dw_err = ((runs[0][1].sum(0) - dw_p).abs() / terms).max().item()
-                    log(f"rms_norm_bwd [{path}] rows={rows} {mode}: dw (fp32 partials summed) max "
-                        f"err {dw_err:.3e} of the sum of its terms' sizes (tol 1e-5); the same "
-                        f"bits in two runs")
+                    if dw_k.shape != (E,):
+                        fail(f"{what}: dw {tuple(dw_k.shape)}, not ({E},)")
+                    dw_err = ((dw_k - dw_p).abs() / terms).max().item()
+                    log(f"rms_norm_bwd {what}: dw (E,) from the launch, max err {dw_err:.3e} of "
+                        f"the sum of its terms' sizes (tol 1e-5); the same bits in two runs")
                     if dw_err > 1e-5:
                         fail(f"[{path}] RMSNorm dw ({mode}) disagrees with its plain version")
                     del dw_p, u, terms
-                nbytes = 2 * 3 * x.numel() + 2 * E + 4 * rows \
-                    + (4 * E * -(-rows // k_rms.BWD_ROWS_PER_BLOCK) if dw else 0)
+                # one launch a call of the whole route, and nothing else: the
+                # wrapper's count, the profiler's device kernels (a trace late
+                # in the process may hold none of this kernel's events; a
+                # torch.sum's would show) and its host ops
+                route = (lambda mode=mode, rr=rr, dw=dw: k_rms._bwd(x, w, rr, dy, mode, dw))
+                counter = k_rms.KERNELS_BWD[mode]
+                route()
+                torch.cuda.synchronize()
+                for _ in range(3):  # the first trace of a row has held no device events
+                    before = counter.launches
+                    with torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        for _ in range(8):
+                            route()
+                        torch.cuda.synchronize()
+                    made = counter.launches - before
+                    on_device = [e.name for e in prof.events()
+                                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                    ops = sorted({e.name for e in prof.events() if e.name.startswith("aten::")})
+                    if on_device:
+                        break
+                summed = [o for o in ops if o in ("aten::sum", "aten::add", "aten::add_",
+                                                  "aten::copy_", "aten::fill_", "aten::zero_")]
+                log(f"rms_norm_bwd {what}: {made} launches for 8 calls of _bwd; the trace holds "
+                    f"{len(on_device)} device kernels, all rmsnorm_bwd: "
+                    f"{all('rmsnorm_bwd' in n for n in on_device)}; host ops {ops}")
+                if made != 8 or len(on_device) > 8 or summed \
+                        or any("rmsnorm_bwd" not in n for n in on_device):
+                    fail(f"{what}: the backward route is not one kernel launch a call")
+                # the kernel alone: CUDA events over direct launches on buffers made once
+                dx_b, dw_b, part_b, blocks = k_rms._bwd_buffers(x, dw)
+                args = (x.data_ptr(), w.data_ptr(), rr.data_ptr(), dy.data_ptr(), dx_b.data_ptr(),
+                        None if part_b is None else part_b.data_ptr(),
+                        None if dw_b is None else dw_b.data_ptr(), rows, E, blocks,
+                        k_rms.DTYPES[x.dtype])
+                kernel_ms = time_ms(lambda args=args, counter=counter: counter(*args), torch)
+                del dx_b, dw_b, part_b
+                # the function's bytes: x and dy read, dx written, w, r, dw
+                nbytes = 2 * 3 * x.numel() + 2 * E + 4 * rows + (4 * E if dw else 0)
                 lib_inputs = (xg, wg) if dw else (xg,)
                 # (fused: the fp32 plain version on the same values, unrounded)
                 ins = (x, w, dy) if mode == "model" else (x.float(), w.float(), dy.float())
                 r = h.row_for(
                     name, f"[{path}] rows={rows} E={E} {mode} rounding, dw {dw}",
-                    lambda mode=mode, rr=rr, dw=dw: k_rms._launch_bwd(x, w, rr, dy, mode, dw)[0],
+                    lambda route=route: route()[0],
                     lambda mode=mode, rr=rr, ins=ins: k_rms.rms_norm_bwd_reference(
                         ins[0], ins[1], rr, ins[2], mode, False)[0],
                     lambda ins=lib_inputs: torch.autograd.grad(lib_out, ins, dy, retain_graph=True),
                     nbytes=nbytes, flops=8 * x.numel(), check=check)
+                was = (lambda mode=mode, rr=rr, dw=dw: h.rows_kernel(torch, x, w, rr, dy, mode, dw))
+                was_ms, was_dev = time_ms(was, torch), device_ms(was, torch)[0]
+                log(f"rms_norm_bwd {what}: was (the row-group kernel"
+                    f"{' + torch.sum of its partials' if dw else ''}) {was_ms:.4f} ms, device "
+                    f"{was_dev if was_dev is None else round(was_dev, 4)} ms; now {r[1]:.4f} ms "
+                    f"(_bwd), {kernel_ms:.4f} ms (the kernel alone, {blocks} blocks), device "
+                    f"{r[6] if r[6] is None else round(r[6], 4)} ms; bound {r[4]:.4f} ms")
                 h.results.setdefault(name, []).append(
                     (f"{path} rows={rows} dw={'on' if dw else 'off'}"
                      + ("" if n_launch else ", off the path"), n_launch, r))
@@ -3820,11 +3911,11 @@ def main() -> int:
                                "rmsnorm.py:55 rms_norm_pallas, forward (:68), model rounding",
                                None),
         "rms_norm_bwd": kernel(k_rms, k_rms.KERNELS_BWD["model"], "_launch_bwd", "rmsnorm",
-                               "rmsnorm.py:99 _bwd_rule (:100), model rounding", None),
+                               "rmsnorm.py:93 _bwd_rule (:100), model rounding", None),
         "rms_norm_fwd_fused": kernel(k_rms, k_rms.KERNELS_FWD["fused"], "_launch_fwd", "rmsnorm",
                                      "rmsnorm.py:55 rms_norm_pallas, forward (:68)", "rms_norm"),
         "rms_norm_bwd_fused": kernel(k_rms, k_rms.KERNELS_BWD["fused"], "_launch_bwd", "rmsnorm",
-                                     "rmsnorm.py:99 _bwd_rule (:100)", "rms_norm"),
+                                     "rmsnorm.py:93 _bwd_rule (:100)", "rms_norm"),
     }
     path_2b = ("vit_attention", "flash_attention", "flash_decode", "rms_norm_fwd")
     batch_path = path_2b + ("int8_matmul", "int8_matmul_nt")  # batch_chat_ocr, 8b int8
@@ -3874,8 +3965,10 @@ def main() -> int:
     # ---------------------------------------------------------- 1. build
     phase("1 build")
     t0 = time.time()
+    rows_kernel = RowKernel.start(_build)
     logs = _build.build_all(sorted({k.counter.source for k in kernels.values()}) + ["charprep"],
                             force=True)
+    rows_kernel.wait()
     gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
                          check=True).stdout.splitlines()[0]
     log(f"built {len(logs)} libraries (the kernels with nvcc, the char-prep library with {gxx}) "
@@ -4212,6 +4305,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     h = types.SimpleNamespace(torch=torch, dev=dev, kernels=kernels, zero_counts=zero_counts,
+                              rows_kernel=rows_kernel,
                               read_counts=read_counts, rnd=rnd, bound=bound, row_for=row_for,
                               results=results, plain_rms=plain_rms, check_norms=check_norms,
                               flash_decode_row=flash_decode_row, vit_rows=vit_rows,

@@ -246,6 +246,68 @@ def test_launch_path_refuses_what_the_kernels_do_not_take(monkeypatch):
     assert not launched
 
 
+@pytest.mark.parametrize("want_dw", [False, True])
+def test_backward_launch_path_refuses_and_allocates(monkeypatch, want_dw):
+    """The backward's launch path with the device check and the kernels
+    stood in for (CPU tensors on a card of 132 SMs): it refuses dy of
+    another shape, dtype or alignment, r of another shape or dtype and rows
+    the kernels do not take; it hands the one launch dx, and with dw the
+    (E,) fp32 dw and the blocks' (blocks, E) fp32 partials, blocks being the
+    balanced grid; ``_bwd`` returns the launch's dw with no sum after it."""
+    launched, made = [], []
+    monkeypatch.setattr(k, "_require_cuda", lambda *t: None)
+    monkeypatch.setattr(k, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(k, "KERNELS_BWD", {m: lambda *a: launched.append(a) for m in k.KERNELS_BWD})
+    buffers = k._bwd_buffers
+    monkeypatch.setattr(k, "_bwd_buffers", lambda *a: made.append(buffers(*a)) or made[-1])
+    rows, E = 2560, 64
+    x, w, dy = (torch.randn(s).bfloat16() for s in ((rows, E), (E,), (rows, E)))
+    r = torch.rand(rows) + 0.5
+    dx, dw = k._launch_bwd(x, w, r, dy, "model", want_dw)
+    (b_dx, b_dw, part, blocks), = made
+    (args,) = launched
+    # 2560 rows over at most 2 x 132 blocks: 10 strides of 256 blocks
+    assert blocks == 256 and k._bwd_blocks(7, x.device) == 7 and k._bwd_blocks(4099, x.device) == 257
+    assert b_dx is dx and dx.shape == x.shape and dx.dtype == x.dtype
+    assert args[:5] == (x.data_ptr(), w.data_ptr(), r.data_ptr(), dy.data_ptr(), dx.data_ptr())
+    assert args[7:] == (rows, E, blocks, 0)
+    if want_dw:
+        assert b_dw is dw and dw.shape == (E,) and dw.dtype == torch.float32
+        assert part.shape == (blocks, E) and part.dtype == torch.float32
+        assert args[5:7] == (part.data_ptr(), dw.data_ptr())
+    else:
+        assert dw is None and part is None and args[5:7] == (None, None)
+    misaligned = torch.zeros(rows * E + 1).bfloat16()[1:].view(rows, E)
+    for bad, match in (
+            (dict(dy=dy.float()), "dy must be"),
+            (dict(dy=dy[:-1]), "x's shape"),
+            (dict(dy=misaligned), "dy must be 16-byte aligned"),
+            (dict(r=r[:-1]), "one value a row"),
+            (dict(r=r.double()), "r must be"),
+            (dict(x=x[:, :60].contiguous(), w=w[:60], dy=dy[:, :60].contiguous()), "width"),
+            (dict(x=misaligned), "aligned")):
+        args = dict(x2=x, w=w, r=r, dy2=dy)
+        args.update({("x2" if n == "x" else "dy2" if n == "dy" else n): t for n, t in bad.items()})
+        with pytest.raises(ValueError, match=match):
+            k._launch_bwd(args["x2"], args["w"], args["r"], args["dy2"], "model", want_dw)
+    assert len(launched) == 1
+
+    # _bwd on tensors off the CPU: the launch's dw as it is
+    got = {}
+
+    def fake_launch(x2, w_, r_, dy2, mode, need_dw):
+        got["dx"], got["dw"] = torch.empty_like(x2), torch.empty((E,), device=x2.device)
+        return got["dx"], got["dw"] if need_dw else None
+
+    monkeypatch.setattr(k, "_launch_bwd", fake_launch)
+    xm = torch.empty((2, 1280, E), device="meta", dtype=torch.bfloat16)
+    out_dx, out_dw = k._bwd(xm, torch.empty((E,), device="meta", dtype=torch.bfloat16),
+                            torch.empty((rows,), device="meta"), torch.empty_like(xm), "model",
+                            want_dw)
+    assert out_dx.shape == xm.shape
+    assert (out_dw is got["dw"]) if want_dw else out_dw is None
+
+
 # ---------------------------------------------------------------- card only
 
 
@@ -282,7 +344,7 @@ def test_cuda_matches_plain(cuda, rows, E, dtype, mode):
     u = bf16(x r) by one ulp, which w carries into y before y's own rounding."""
     x, w, dy = _cuda_inputs(rows, E, dtype, cuda)
     y, r = k._launch_fwd(x, w, EPS, mode, True)
-    dx, part = k._launch_bwd(x, w, r, dy, mode, True)
+    dx, dw = k._launch_bwd(x, w, r, dy, mode, True)
     torch.cuda.synchronize()
     ins = (x, w, dy) if mode == "model" else (x.float(), w.float(), dy.float())
     y_p, r_p = k.rms_norm_fused_reference(ins[0], ins[1], EPS, mode)
@@ -297,7 +359,42 @@ def test_cuda_matches_plain(cuda, rows, E, dtype, mode):
         assert tolerance.excess_error(dx, dx_p) <= tolerance.ATOL["rms_norm"]
     u = (x.float() * r[:, None]).to(dtype).float() if mode == "model" else x.float() * r[:, None]
     terms = (dy.float().abs() * u.abs()).sum(0)
-    assert ((part.sum(0) - dw_p).abs() <= 1e-5 * terms).all()
+    assert dw.shape == (E,) and dw.dtype == torch.float32
+    assert ((dw - dw_p).abs() <= 1e-5 * terms).all()
+
+
+def _dw_terms(x, r, dy, mode):
+    """The sum over the rows of |dy u|, u = x r as dw's terms take it."""
+    u = (x.float() * r[:, None]).to(x.dtype).float() if mode == "model" else x.float() * r[:, None]
+    return (dy.float().abs() * u.abs()).sum(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E", [64, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 131, 133, 2560, 4099])
+def test_cuda_backward_matches_plain(cuda, rows, E, dtype):
+    """The backward at grids of fewer rows than SMs, of one ragged stride
+    (131, 133 rows: blocks that walk one row and blocks that walk none past
+    the first stride) and at the training paths' 2560 rows, in both roundings,
+    dw on and off: dx as test_cuda_matches_plain holds it, the same bits with
+    dw on and off, dw (E,) from the one launch within 1e-5 of the sum of its
+    terms' sizes."""
+    x, w, dy = _cuda_inputs(rows, E, dtype, cuda, seed=rows * E)
+    for mode in ("model", "fused"):
+        r = k._launch_fwd(x, w, EPS, mode, True)[1]
+        dx, dw = k._launch_bwd(x, w, r, dy, mode, True)
+        dx_off, none = k._launch_bwd(x, w, r, dy, mode, False)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(dx, dx_off), mode
+        ins = (x, w, dy) if mode == "model" else (x.float(), w.float(), dy.float())
+        dx_p, dw_p = k.rms_norm_bwd_reference(ins[0], ins[1], r, ins[2], mode)
+        if mode == "model" and dtype == torch.bfloat16:
+            _check_bf16(dx, dx_p)
+        else:
+            assert tolerance.excess_error(dx, dx_p) <= tolerance.ATOL["rms_norm"], mode
+        assert dw.shape == (E,) and dw.dtype == torch.float32
+        assert ((dw - dw_p).abs() <= 1e-5 * _dw_terms(x, r, dy, mode)).all(), mode
 
 
 @pytest.mark.cuda
@@ -305,7 +402,29 @@ def test_cuda_backward_is_deterministic(cuda):
     x, w, dy = _cuda_inputs(4096, 4096, torch.bfloat16, cuda, seed=1)
     _, r = k._launch_fwd(x, w, EPS, "model", True)
     runs = [k._launch_bwd(x, w, r, dy, "model", True) for _ in range(2)]
+    assert runs[0][1].shape == (4096,)
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+def test_cuda_backward_is_one_launch(cuda):
+    """``_bwd`` with dw is one launch of the backward kernel and nothing else
+    on the device (torch.profiler's kernels; no sum after it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, dy = _cuda_inputs(2560, 4096, torch.bfloat16, cuda, seed=2)
+    _, r = k._launch_fwd(x, w, EPS, "model", True)
+    k._bwd(x, w, r, dy, "model", True)
+    torch.cuda.synchronize()
+    before = k.KERNELS_BWD["model"].launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            k._bwd(x, w, r, dy, "model", True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert k.KERNELS_BWD["model"].launches - before == 4
+    assert names and all("rmsnorm_bwd" in n for n in names) and len(names) <= 4, names
 
 
 @pytest.mark.cuda
@@ -365,3 +484,44 @@ def test_cuda_forward_bits_equal_the_two_pass_kernel(cuda, two_pass_forward, row
             y_old, r_old = two_pass_forward(x, w, mode)
             torch.cuda.synchronize()
             assert torch.equal(y, y_old) and torch.equal(r, r_old), (dtype, mode)
+
+
+@pytest.fixture(scope="module")
+def row_kernel_backward(tmp_path_factory):
+    """The backward of tests/data/rmsnorm_bwd_rows.cu (groups of rows a block,
+    each row read twice, dw as (blocks, E) partials) -> launch(x, w, r, dy,
+    mode, want_dw) -> dx."""
+    import subprocess
+
+    from callireader_tpu_torch.tools import norm_bwd_probe as probe
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    so = tmp_path_factory.mktemp("rmsnorm_bwd_rows") / "rmsnorm_bwd_rows.so"
+    subprocess.run(probe.rows_kernel_command(so), check=True, capture_output=True, text=True)
+    fns = probe.bind_rows(so)
+    return lambda x, w, r, dy, mode, want_dw: probe.launch_rows(fns[mode], x, w, r, dy, want_dw)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [64, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 133, 2560, 4099])
+def test_cuda_backward_dx_matches_the_row_kernel(cuda, row_kernel_backward, rows, E):
+    """Holding each row in registers keeps each thread's elements and the
+    order of the block's sum of g x: in fp32 dx is the bits of the kernel that
+    walked groups of rows and read each row twice, in both roundings, dw on
+    and off; in bf16 it is within one bf16 ulp of it, and apart on at most
+    1e-3 of the elements (on the card: 1 to 24 elements of 0.26 to 34
+    million, each one ulp)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, dy = _cuda_inputs(rows, E, dtype, cuda, seed=rows + E)
+        for mode in ("model", "fused"):
+            r = k._launch_fwd(x, w, EPS, mode, True)[1]
+            for want_dw in (False, True):
+                dx = k._launch_bwd(x, w, r, dy, mode, want_dw)[0]
+                dx_old = row_kernel_backward(x, w, r, dy, mode, want_dw)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    assert torch.equal(dx, dx_old), (mode, want_dw)
+                else:
+                    _check_bf16(dx, dx_old, slack=0.0)
