@@ -310,6 +310,7 @@ def measure(engine, page, protocol: Protocol, *, n_chars: int, profile_dir: Opti
     from callireader_tpu_torch.runtime import generate as gen
     from callireader_tpu_torch.runtime.conversation import build_chat_prompt
     from callireader_tpu_torch.runtime.engine import ALIGNED
+    from callireader_tpu_torch.utils.profiling import SPANS, STAGE_SPANS
     from callireader_tpu_torch.vision import preprocess
 
     cfg = engine.cfg
@@ -321,12 +322,6 @@ def measure(engine, page, protocol: Protocol, *, n_chars: int, profile_dir: Opti
     def sync_device():
         if on_cuda:
             torch.cuda.synchronize(engine.device)
-
-    def _timed(key, fn, *a):
-        t0 = time.time()
-        out = fn(*a)
-        engine.timings.add(key, time.time() - t0)
-        return out
 
     def build_row():
         """The single-image chat_ocr front half -> (embeds, mask)."""
@@ -342,10 +337,7 @@ def measure(engine, page, protocol: Protocol, *, n_chars: int, profile_dir: Opti
 
     def detect_boxes():
         """The unpipelined box stage (warm-up only)."""
-        t0 = time.time()
-        ordered = engine.batch_sort_boxes(pages_list)
-        engine.timings.add("yolo_orderformer", time.time() - t0)
-        return ordered
+        return engine.batch_sort_boxes(pages_list)
 
     def build_batch(ordered=None):
         return engine.batch_build_rows(pages_list, [QUESTION] * B, use_p=True,
@@ -393,20 +385,18 @@ def measure(engine, page, protocol: Protocol, *, n_chars: int, profile_dir: Opti
         # Schedule per interval (bench.py's): order dispatch (N+2), columns
         # (N+2), build (N+1), sync (N), order fetch (N+2), detector fetch
         # (N+3), launch (N+1), detector dispatch (N+4).
-        engine.timings.spans.clear()
+        SPANS.reset()
         state = {"ordered": detect_boxes()}
-        state["dets"] = _timed("box_fetch_nms", engine.detect_fetch, pages_list,
-                               _timed("box_dispatch", engine.detect_dispatch, pages_list))
+        state["dets"] = engine.detect_fetch(pages_list, engine.detect_dispatch(pages_list))
         prev = launch(build_batch(state["ordered"]))
-        state["handle"] = _timed("box_dispatch", engine.detect_dispatch, pages_list)
+        state["handle"] = engine.detect_dispatch(pages_list)
         sync_device()
         last = time.time()
         sync_waits: List[float] = []
 
         def pipeline_step():
             nonlocal prev, last
-            odisp = _timed("box_order_dispatch", engine.order_dispatch,
-                           _timed("box_columns", engine.columns_stage, pages_list, state["dets"]))
+            odisp = engine.order_dispatch(engine.columns_stage(pages_list, state["dets"]))
             rows = build_batch(state["ordered"])
             t_sync = time.time()
             sync(prev)
@@ -415,11 +405,10 @@ def measure(engine, page, protocol: Protocol, *, n_chars: int, profile_dir: Opti
             sync_waits.append(now - t_sync)
             iv = now - last
             last = now
-            state["ordered"] = _timed("box_order_fetch", engine.order_fetch, odisp)
-            state["dets"] = _timed("box_fetch_nms", engine.detect_fetch, pages_list,
-                                   state["handle"])
+            state["ordered"] = engine.order_fetch(odisp)
+            state["dets"] = engine.detect_fetch(pages_list, state["handle"])
             prev = launch(rows)
-            state["handle"] = _timed("box_dispatch", engine.detect_dispatch, pages_list)
+            state["handle"] = engine.detect_dispatch(pages_list)
             return iv
 
         warm_iv: List[float] = []
@@ -465,9 +454,12 @@ def measure(engine, page, protocol: Protocol, *, n_chars: int, profile_dir: Opti
     log(f"device wait inside interval: median {dev_wait:.2f}s of {med:.2f}s "
         f"({100 * dev_wait / max(med, 1e-9):.0f}%)")
     n_steps = len(warm_iv) + len(intervals) + n_prof
-    host_per_batch = {k: round(v / max(n_steps, 1), 3) for k, v in engine.timings.spans.items()}
-    log(f"host-stage s/batch (over {n_steps} pipeline steps): {host_per_batch} -> total "
-        f"{round(sum(host_per_batch.values()), 2)}s of {med:.2f}s interval")
+    host_per_batch = {k: round(SPANS.totals[k] / max(n_steps, 1), 3) for k in STAGE_SPANS
+                      if k in SPANS.totals}
+    blocked = sum(SPANS.totals.get(k, 0.0) for k in ("blocked.upload", "blocked.readback"))
+    log(f"host-stage s/batch (the engine's spans, over {n_steps} pipeline steps): {host_per_batch} "
+        f"-> total {round(sum(host_per_batch.values()), 2)}s of {med:.2f}s interval, "
+        f"{blocked / max(n_steps, 1):.3f}s of it blocked in uploads and readbacks")
     log(f"measured intervals: {[round(v, 2) for v in intervals]}s (median {med:.2f}, spread "
         f"{spread:.2f}) -> {B / med:.4f} imgs/s")
     result = {

@@ -19,7 +19,10 @@ GPU and to 1 (``chat_ocr`` a page) with ``--device cpu``. Without
 ``--checkpoint`` (default ``$CALLIREADER_CKPT``), ``--random-init`` draws
 seeded random weights. ``--mesh data=8`` splits the batch rows over a mesh
 (one process per rank under ``torchrun``, a world of 1 without it); rank 0
-alone prints and writes the result files.
+alone prints and writes the result files. ``--verbose`` prints the engine's
+spans (host s, of them blocked s, device s, calls) and counters at the end;
+``--spans-out PATH`` writes the span log as Chrome-trace JSON, on the clock
+of torch.profiler's events, to load beside a profiler export.
 """
 
 from __future__ import annotations
@@ -83,10 +86,14 @@ def main(argv=None):
     parser.add_argument("--no-trained-assets", action="store_true",
                         help="skip the in-repo trained detector/orderformer/CalliAlign overlays")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--spans-out", type=str, default=None,
+                        help="write the engine's span log (the last spans) to this path as "
+                        "Chrome-trace JSON")
     args = parser.parse_args(argv)
 
     from callireader_tpu_torch.cli import common
     from callireader_tpu_torch.evalx import callibench
+    from callireader_tpu_torch.utils import profiling
 
     engine = common.build_engine(
         preset=args.preset, checkpoint_dir=args.checkpoint, random_init_ok=args.random_init,
@@ -145,10 +152,11 @@ def main(argv=None):
                 json.dump({"accuracy": out["accuracy"]}, f)
         print(f"refcoco IoU@0.5 accuracy: {out['accuracy']:.4f}")
 
-    if args.verbose and engine.timings.spans:
-        print("[timings] per-stage totals (s):", file=sys.stderr)
-        for name, t in sorted(engine.timings.spans.items()):
-            print(f"  {name:24s} {t:8.2f}", file=sys.stderr)
+    if args.verbose:
+        print("[spans] per span (host s, blocked s, device s, calls):\n" + profiling.SPANS.report()
+              + "\n[counters]\n" + profiling.counters_report(), file=sys.stderr)
+    if args.spans_out:
+        profiling.SPANS.chrome_trace(args.spans_out)
 
 
 if __name__ == "__main__":

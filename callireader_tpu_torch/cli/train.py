@@ -200,7 +200,7 @@ def main(argv=None):
 
     step_fn = e_it.make_train_step(cfg, train_cfg, tx, policy=engine.policy, mesh=mesh)
     spans = Spans()
-    thr = TrainThroughput(cfg, seq_len=2048)
+    thr = TrainThroughput()
     loader = data_mod.data_loader(dataset, args.batch_size, shuffle_seed=args.seed)
     # state.step counts micro-batches; an iteration is one update of `accum`
     it = state.step

@@ -17,7 +17,12 @@ raw handle straight from PyTorch's C layer instead of building a
 ``CudaKernel``, and the model's count of decode steps) is listed in
 ``COUNTS``: a CUDA graph capture records launches that have not run, and
 runtime/decode_graph.py takes them off again and adds them back at each
-replay.
+replay. ``COUNTS`` is also the program's registry of its own counters
+(``Counter``: the span totals of utils/profiling.py, ``kernel_builds``,
+``graph_captures``, ``decode_pad_steps``), which captures leave alone. Every
+entry exists from its module's import on, under a name no other entry has, so
+that a snapshot of ``COUNTS`` by name taken before a stretch of work can be
+subtracted from one taken after it.
 """
 
 from __future__ import annotations
@@ -115,6 +120,7 @@ def build_all(names: Iterable[str], *, force: bool = False) -> Dict[str, str]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    KERNEL_BUILDS.add(len(procs) - len(failed))
     if failed:
         raise RuntimeError(
             "the build failed for " + ", ".join(failed) + "\n"
@@ -182,13 +188,27 @@ def load_library(name: str) -> ctypes.CDLL:
 class LaunchCount:
     """A count of launches that graph replays keep true (``COUNTS``)."""
 
+    replayed = True  # taken off at a graph capture, added back at each replay
+
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
         COUNTS.append(self)
 
 
+class Counter(LaunchCount):
+    """A count of the program's own, registered in ``COUNTS`` beside the
+    launch counts and read the same way (its value in ``launches``). A graph
+    capture leaves it alone: nothing a capture records moves it."""
+
+    replayed = False
+
+    def add(self, n: int) -> None:
+        self.launches += n
+
+
 COUNTS: List[LaunchCount] = []
+KERNEL_BUILDS = Counter("kernel_builds")  # sources compiled in this process
 
 
 class CudaKernel(LaunchCount):

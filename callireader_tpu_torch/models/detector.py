@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from callireader_tpu_torch.core.config import DetectorConfig
 from callireader_tpu_torch.core.dtypes import exact_fp32, require_device
+from callireader_tpu_torch.utils.profiling import SPANS, readback, upload
 from callireader_tpu_torch.vision import resample
 
 Params = Dict[str, Any]
@@ -295,7 +296,10 @@ def load_npz(path: str, device) -> Params:
 class Detector:
     """image array -> list of xyxy boxes, split into dispatch (letterbox +
     upload + forward, no readback), fetch (one readback) and postprocess
-    (conf filter + NMS + unletterbox on the host)."""
+    (conf filter + NMS + unletterbox on the host). Its spans
+    (utils/profiling.SPANS): ``detect_dispatch`` (device time: the
+    forward), ``nms``; ``batch`` and the engine's ``detect_fetch``
+    put the readback and ``nms`` in a ``detect_fetch`` span."""
 
     def __init__(self, params: Params, cfg: DetectorConfig, device):
         self.params = params
@@ -306,35 +310,40 @@ class Detector:
         return self.batch([image_array])[0]
 
     def dispatch(self, images: List[np.ndarray]):
-        metas = [letterbox(im, self.cfg.img_size) for im in images]
-        stack = torch.from_numpy(np.stack([m[0] for m in metas])).to(self.device)
-        boxes, scores = forward(self.params, self.cfg, stack)
+        with SPANS.span("detect_dispatch"):
+            metas = [letterbox(im, self.cfg.img_size) for im in images]
+            stack = upload(torch.from_numpy(np.stack([m[0] for m in metas])), self.device)
+            with SPANS.device("detect_dispatch"):
+                boxes, scores = forward(self.params, self.cfg, stack)
         return boxes, scores, metas
 
     def fetch(self, handle):
         boxes, scores, metas = handle
-        return boxes.cpu().numpy(), scores.cpu().numpy(), metas
+        return readback(boxes).numpy(), readback(scores).numpy(), metas
 
     def postprocess(self, images: List[np.ndarray], fetched) -> List[List[List[float]]]:
         cfg = self.cfg
         all_boxes, all_scores, metas = fetched
         out: List[List[List[float]]] = []
-        for i, (image_array, (_, scale, (px, py))) in enumerate(zip(images, metas)):
-            boxes, scores = all_boxes[i], all_scores[i]
-            m = scores >= cfg.conf_threshold
-            boxes, scores = boxes[m], scores[m]
-            if len(boxes) == 0:
-                out.append([])
-                continue
-            keep = nms_numpy(boxes, scores, cfg.iou_threshold, cfg.max_detections)
-            boxes = boxes[keep].copy()
-            boxes[:, [0, 2]] = (boxes[:, [0, 2]] - px) / scale
-            boxes[:, [1, 3]] = (boxes[:, [1, 3]] - py) / scale
-            h, w = image_array.shape[:2]
-            boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, w)
-            boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, h)
-            out.append(boxes.tolist())
+        with SPANS.span("nms"):
+            for i, (image_array, (_, scale, (px, py))) in enumerate(zip(images, metas)):
+                boxes, scores = all_boxes[i], all_scores[i]
+                m = scores >= cfg.conf_threshold
+                boxes, scores = boxes[m], scores[m]
+                if len(boxes) == 0:
+                    out.append([])
+                    continue
+                keep = nms_numpy(boxes, scores, cfg.iou_threshold, cfg.max_detections)
+                boxes = boxes[keep].copy()
+                boxes[:, [0, 2]] = (boxes[:, [0, 2]] - px) / scale
+                boxes[:, [1, 3]] = (boxes[:, [1, 3]] - py) / scale
+                h, w = image_array.shape[:2]
+                boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, w)
+                boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, h)
+                out.append(boxes.tolist())
         return out
 
     def batch(self, images: List[np.ndarray]) -> List[List[List[float]]]:
-        return self.postprocess(images, self.fetch(self.dispatch(images)))
+        handle = self.dispatch(images)
+        with SPANS.span("detect_fetch"):
+            return self.postprocess(images, self.fetch(handle))

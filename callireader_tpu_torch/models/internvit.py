@@ -27,6 +27,7 @@ from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.kernels.vit_attention import (
     attention_from_packed_qkv_nomax, vit_attention_reference,
 )
+from callireader_tpu_torch.utils.profiling import upload
 from callireader_tpu_torch.vision import resample
 
 Params = Dict[str, Any]
@@ -68,8 +69,8 @@ def layer_norm(x, scale, bias, eps: float, policy: DTypePolicy) -> torch.Tensor:
 
 def normalize_uint8(pixel_values: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """On-device ImageNet normalisation of raw uint8 NHWC tiles."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=pixel_values.device)
-    std = torch.tensor(IMAGENET_STD, dtype=dtype, device=pixel_values.device)
+    mean = upload(torch.tensor(IMAGENET_MEAN, dtype=dtype), pixel_values.device)
+    std = upload(torch.tensor(IMAGENET_STD, dtype=dtype), pixel_values.device)
     x = pixel_values.to(dtype) / 255.0
     return (x - mean) / std
 

@@ -22,6 +22,7 @@ from callireader_tpu_torch.core.config import OrderFormerConfig
 from callireader_tpu_torch.core.dtypes import FP32_POLICY, exact_fp32, require_device
 from callireader_tpu_torch.models.internvit import layer_norm
 from callireader_tpu_torch.train import e_it
+from callireader_tpu_torch.utils.profiling import SPANS, readback, upload
 
 Params = Dict[str, Any]
 LN_EPS = 1e-5
@@ -171,19 +172,22 @@ def _decode_result(scores_row, labels, w, h) -> Dict[int, List[float]]:
 
 
 def predict_batch_dispatch(params: Params, cfg: OrderFormerConfig, pages: List):
-    """Host input prep + one forward for all pages' column sets (no readback)."""
-    rows, metas = [], []
-    for shapes, w, h in pages:
-        if not shapes:
-            metas.append(None)
-            continue
-        row, labels = _prep_inputs(cfg, shapes, w, h)
-        metas.append((len(rows), labels, w, h))
-        rows.append(row)
-    scores = None
-    if rows:
-        dev = params["embed_kernel"].device
-        scores = forward(params, cfg, torch.from_numpy(np.stack(rows)).to(dev))
+    """Host input prep + one forward for all pages' column sets (no
+    readback), the span ``order_dispatch`` (device time: the forward)."""
+    with SPANS.span("order_dispatch"):
+        rows, metas = [], []
+        for shapes, w, h in pages:
+            if not shapes:
+                metas.append(None)
+                continue
+            row, labels = _prep_inputs(cfg, shapes, w, h)
+            metas.append((len(rows), labels, w, h))
+            rows.append(row)
+        scores = None
+        if rows:
+            x = upload(torch.from_numpy(np.stack(rows)), params["embed_kernel"].device)
+            with SPANS.device("order_dispatch"):
+                scores = forward(params, cfg, x)
     return scores, metas, len(pages)
 
 
@@ -192,7 +196,7 @@ def predict_batch_fetch(handle) -> List[Dict[int, List[float]]]:
     scores_dev, metas, n_pages = handle
     if scores_dev is None:
         return [{} for _ in range(n_pages)]
-    scores = scores_dev.cpu().numpy()
+    scores = readback(scores_dev).numpy()
     out = []
     for meta in metas:
         if meta is None:

@@ -16,7 +16,8 @@ to eager steps. On the CPU a StepGraph calls its function.
 Launch counts: a capture records launches that do not run. A StepGraph keeps
 how far each ``LaunchCount`` (kernels/_build.COUNTS: each kernel's count and
 the model's ``DECODE_STEPS``) moved during its capture, takes that off, and
-adds it back at each replay, so every count equals what ran.
+adds it back at each replay, so every count equals what ran. The program's
+own counters (``_build.Counter``: span totals, builds) are left alone.
 
 Under a mesh (``mesh=``) the function's collectives (the tensor-parallel
 ``all_reduce`` / ``all_gather`` of models/internlm2.py on NCCL) are captured
@@ -39,9 +40,10 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
 
-from callireader_tpu_torch.kernels._build import COUNTS
+from callireader_tpu_torch.kernels._build import COUNTS, Counter
 
 _CAPTURE_STREAMS: Dict[int, Any] = {}
+GRAPH_CAPTURES = Counter("graph_captures")  # GraphCache misses that built a graph
 
 
 def _capture_stream(device: torch.device):
@@ -107,7 +109,8 @@ class StepGraph:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         pool = self.share.graph.pool() if self.share is not None and self.share.captured else None
-        before = [c.launches for c in COUNTS]
+        tracked = [c for c in COUNTS if c.replayed]
+        before = [c.launches for c in tracked]
         # no cyclic garbage collection inside the capture: a finalizer that
         # frees CUDA objects (an old graph's memory pool) would make a call
         # the capture forbids (torch.cuda.graph collects just before it)
@@ -126,7 +129,7 @@ class StepGraph:
         finally:
             if collecting:
                 gc.enable()
-            moved = [(c, c.launches - b) for c, b in zip(COUNTS, before)]
+            moved = [(c, c.launches - b) for c, b in zip(tracked, before)]
             for c, n in moved:
                 c.launches -= n  # recorded, not run
         self.graph, self.out = graph, captured_out
@@ -159,6 +162,7 @@ class GraphCache:
             return hit[0]
         self.entries.pop(full, None)
         value = build()
+        GRAPH_CAPTURES.add(1)
         refs = [weakref.ref(t, lambda _r, k=full: self.entries.pop(k, None)) for t in leaves]
         self.entries[full] = (value, refs)
         while len(self.entries) > self.capacity:

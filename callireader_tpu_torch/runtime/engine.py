@@ -27,6 +27,15 @@ crop takes the host path, the PIL-compatible antialiased bicubic in numpy).
 Every entry point that builds char canvases (``batch_calli_align``,
 ``calli_align``, ``batch_build_rows``, ``chat_ocr``) follows both.
 
+Each stage runs inside a span of utils/profiling.SPANS, named as the stage
+(``detect_dispatch`` ... ``order_fetch``, ``page_tiling``, ``char_prep``,
+``char_route``, ``tile_encode``, ``tokenize``, ``embed_build``, then
+generate's ``prefill`` and ``decode``, then ``readback`` and
+``detokenize``), once a call of the batch route; the stages that run on the
+device also time it between CUDA events. No span synchronises: the host waits
+only in the blocking uploads and readbacks, each a ``blocked.upload`` /
+``blocked.readback`` span inside its stage's.
+
 ``mesh`` (core/partition.Mesh, one process per rank): the LLM runs tensor
 parallel on each rank's blocks (models/internlm2.py; a fused int8 tree is
 split back to wq / wk / wv and w1 / w3 first, and the vocabulary is padded to
@@ -39,11 +48,9 @@ decodes its own rows and the token ids are gathered in row order.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import re
 import sys
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +60,7 @@ from callireader_tpu_torch.align import vq as vq_mod
 from callireader_tpu_torch.core import partition
 from callireader_tpu_torch.core.config import VLMConfig, get_config
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy, require_device
+from callireader_tpu_torch.kernels._build import Counter
 from callireader_tpu_torch.models import detector as detector_mod
 from callireader_tpu_torch.models import internlm2, internvit, orderformer, projector, resampler
 from callireader_tpu_torch.parallel import spmd
@@ -60,6 +68,7 @@ from callireader_tpu_torch.runtime import generate as gen
 from callireader_tpu_torch.runtime import quantize, weights
 from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
 from callireader_tpu_torch.runtime.tokenizer import DEFAULT_MODEL, InternLM2Tokenizer
+from callireader_tpu_torch.utils.profiling import SPANS, readback, upload
 from callireader_tpu_torch.vision import boxes as boxes_mod
 from callireader_tpu_torch.vision import native, preprocess, resample
 from callireader_tpu_torch.vision.device_resize import CHAR_RAW_BUCKETS, bicubic_canvas
@@ -68,17 +77,9 @@ CHAR_BUCKETS = (8, 16, 32, 64, 96, 128, 192, 256)
 IMG_START, IMG_END, IMG_CONTEXT = "<img>", "</img>", "<IMG_CONTEXT>"
 ALIGNED = "[UNUSED_TOKEN_140]"
 BATCH_TILE_BUCKETS = (26, 39, 52, 65, 78, 91, 104, 156, 208)
-
-
-@dataclasses.dataclass
-class Timings:
-    """Wall seconds per stage; on CUDA each span ends with a device sync, so
-    the spans are device-inclusive."""
-
-    spans: Dict[str, float] = dataclasses.field(default_factory=dict)
-
-    def add(self, name: str, dt: float):
-        self.spans[name] = self.spans.get(name, 0.0) + dt
+# decode steps batch_prepare enqueued after every row of their batch was done
+# (the pad steps of an enqueued decode), counted by batch_decode
+DECODE_PAD_STEPS = Counter("decode_pad_steps")
 
 
 def _drop_zero_rows(pseudo: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -156,10 +157,6 @@ class CalliReaderEngine:
         self.char_window = int(char_window) if char_window else CHAR_BUCKETS[-1]
         self.detector = (detector_mod.Detector(params["detector"], cfg.detector, self.device)
                          if "detector" in params else None)
-        self.timings = Timings()
-        # decode steps batch_prepare enqueued after every row of their batch
-        # was done (the pad steps of an enqueued decode)
-        self.pad_steps = 0
 
     @staticmethod
     def shard_llm(cfg: VLMConfig, params: Dict[str, Any], mesh):
@@ -201,18 +198,8 @@ class CalliReaderEngine:
 
     # ------------------------------------------------------------------ util
 
-    @contextlib.contextmanager
-    def _span(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.timings.add(name, time.perf_counter() - t0)
-
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return upload(torch.from_numpy(np.ascontiguousarray(a)), self.device)
 
     # ------------------------------------------------------------ towers
 
@@ -271,18 +258,23 @@ class CalliReaderEngine:
     def _page_tiles(self, pages_u8: torch.Tensor, cols: int, rows: int, thumb: bool):
         """(B, H, W, 3) uint8 pages -> (B*T, S, S, 3) uint8 tiles on the
         device: jax-"cubic" resize to the grid, row-major split, thumbnail
-        appended per page."""
+        appended per page. The resize weights are uploaded first, so that the
+        ``page_tiling`` bracket holds the launches alone."""
         S = self.cfg.force_image_size
-        B = pages_u8.shape[0]
-        x = pages_u8.float()
-        grid = resample.jax_resize_hw(x, rows * S, cols * S)
-        tiles = (grid.reshape(B, rows, S, cols, S, 3).permute(0, 1, 3, 2, 4, 5)
-                 .reshape(B, rows * cols, S, S, 3))
-        if thumb:
-            tn = resample.jax_resize_hw(x, S, S)
-            tiles = torch.cat([tiles, tn[:, None]], dim=1)
-        tiles = torch.clamp(torch.round(tiles), 0, 255).to(torch.uint8)
-        return tiles.reshape(-1, S, S, 3)
+        B, H, W = pages_u8.shape[:3]
+        dev = pages_u8.device
+        w_grid = resample.jax_resize_hw_weights(H, W, rows * S, cols * S, dev)
+        w_thumb = resample.jax_resize_hw_weights(H, W, S, S, dev) if thumb else None
+        with SPANS.device("page_tiling"):
+            x = pages_u8.float()
+            grid = resample.jax_resize_hw(x, rows * S, cols * S, w_grid)
+            tiles = (grid.reshape(B, rows, S, cols, S, 3).permute(0, 1, 3, 2, 4, 5)
+                     .reshape(B, rows * cols, S, S, 3))
+            if thumb:
+                tn = resample.jax_resize_hw(x, S, S, w_thumb)
+                tiles = torch.cat([tiles, tn[:, None]], dim=1)
+            tiles = torch.clamp(torch.round(tiles), 0, 255).to(torch.uint8)
+            return tiles.reshape(-1, S, S, 3)
 
     def batch_tile_pages(self, imgs_np: Sequence[np.ndarray]) -> Tuple[torch.Tensor, List[int]]:
         """Pages grouped by (shape, grid), one device resize per group, tiles
@@ -382,12 +374,10 @@ class CalliReaderEngine:
             out.append((np.asarray(idxs, np.int64), self._luma_if_gray(stack)))
         return out
 
-    def _char_parts(self, raw_crops: List[np.ndarray], hard_vq: bool = False):
-        """One char pipeline per bucket group -> (parts_ps, parts_ix, counts,
-        original-index arrays). Without ``device_resize_chars`` every crop
-        takes the host path."""
-        parts_ps, parts_ix, ns, idx_order = [], [], [], []
-        t0 = time.perf_counter()
+    def _char_prep(self, raw_crops: List[np.ndarray]):
+        """The host half of the char route -> (raw groups for the device
+        resize, host-resized groups). Without ``device_resize_chars`` every
+        crop takes the host path."""
         if self.device_resize_chars:
             raw_groups, host_idx = self._prep_char_raw_groups(raw_crops)
         else:
@@ -397,37 +387,46 @@ class CalliReaderEngine:
             host_map = np.asarray(host_idx, np.int64)
             host_groups = [(host_map[idxs], stack) for idxs, stack in
                            self._prep_char_crop_groups([raw_crops[i] for i in host_idx])]
-        self.timings.add("char_crops", time.perf_counter() - t0)
-        with self._span("vit_resampler_vq"):
-            for idxs, raw, src, tgt in raw_groups:
-                raw_p, n = preprocess.pad_to_bucket(raw, CHAR_BUCKETS)
-                pad = raw_p.shape[0] - n
-                if pad:
-                    src = np.concatenate([src, np.ones((pad, 2), np.int32)])
-                    tgt = np.concatenate([tgt, np.ones((pad, 2), np.int32)])
-                ps, ix = self._char_pipeline_raw(self._to_dev(raw_p), self._to_dev(src),
-                                                 self._to_dev(tgt), hard_vq)
-                parts_ps.append(ps)
-                parts_ix.append(ix)
-                ns.append(n)
-                idx_order.append(idxs)
-            for idxs, stack in host_groups:
-                padded, n = preprocess.pad_to_bucket(stack, CHAR_BUCKETS)
-                ps, ix = self._char_pipeline(self._to_dev(padded), hard_vq)
-                parts_ps.append(ps)
-                parts_ix.append(ix)
-                ns.append(n)
-                idx_order.append(idxs)
+        return raw_groups, host_groups
+
+    def _char_parts(self, groups, hard_vq: bool = False):
+        """One char pipeline per bucket group of ``_char_prep`` -> (parts_ps,
+        parts_ix, counts, original-index arrays)."""
+        raw_groups, host_groups = groups
+        parts_ps, parts_ix, ns, idx_order = [], [], [], []
+        for idxs, raw, src, tgt in raw_groups:
+            raw_p, n = preprocess.pad_to_bucket(raw, CHAR_BUCKETS)
+            pad = raw_p.shape[0] - n
+            if pad:
+                src = np.concatenate([src, np.ones((pad, 2), np.int32)])
+                tgt = np.concatenate([tgt, np.ones((pad, 2), np.int32)])
+            raw_d, src_d, tgt_d = self._to_dev(raw_p), self._to_dev(src), self._to_dev(tgt)
+            with SPANS.device("char_route"):
+                ps, ix = self._char_pipeline_raw(raw_d, src_d, tgt_d, hard_vq)
+            parts_ps.append(ps)
+            parts_ix.append(ix)
+            ns.append(n)
+            idx_order.append(idxs)
+        for idxs, stack in host_groups:
+            padded, n = preprocess.pad_to_bucket(stack, CHAR_BUCKETS)
+            content = self._to_dev(padded)
+            with SPANS.device("char_route"):
+                ps, ix = self._char_pipeline(content, hard_vq)
+            parts_ps.append(ps)
+            parts_ix.append(ix)
+            ns.append(n)
+            idx_order.append(idxs)
         return parts_ps, parts_ix, ns, idx_order
 
     def _reorder(self, parts_ps, parts_ix, ns, idx_parts):
         """Strip count padding, concatenate, permute into reading order."""
         n_learns = self.cfg.resampler.num_learns
         E = parts_ps[0].shape[-1]
-        perm = torch.from_numpy(np.argsort(np.concatenate(idx_parts))).to(self.device)
-        ps = torch.cat([p.reshape(-1, n_learns, E)[:n] for p, n in zip(parts_ps, ns)])
-        ix = torch.cat([x[:n] for x, n in zip(parts_ix, ns)])
-        return ps[perm].reshape(-1, E), ix[perm]
+        perm = self._to_dev(np.argsort(np.concatenate(idx_parts)))
+        with SPANS.device("char_route"):
+            ps = torch.cat([p.reshape(-1, n_learns, E)[:n] for p, n in zip(parts_ps, ns)])
+            ix = torch.cat([x[:n] for x, n in zip(parts_ix, ns)])
+            return ps[perm].reshape(-1, E), ix[perm]
 
     # -------------------------------------------------- slicing priors
 
@@ -465,14 +464,17 @@ class CalliReaderEngine:
         char_boxes = self.iterative_detect(image)
         if not char_boxes:
             return []
-        data = boxes_mod.char2col_with_kmeans(char_boxes, w, h)
-        col_order = orderformer.predict(self.params["orderformer"], self.cfg.orderformer,
-                                        data["shapes"], w, h)
-        return self._order_columns(char_boxes, col_order, thres)
+        with SPANS.span("columns"):
+            data = boxes_mod.char2col_with_kmeans(char_boxes, w, h)
+        handle = orderformer.predict_batch_dispatch(self.params["orderformer"], self.cfg.orderformer,
+                                                    [(data["shapes"], w, h)])
+        with SPANS.span("order_fetch"):
+            (col_order,) = orderformer.predict_batch_fetch(handle)
+            return self._order_columns(char_boxes, col_order, thres)
 
     # The batched box stage in phases, for a caller that schedules them around
-    # a decode in flight (bench.py): only the phases that read the device back
-    # (detect_fetch, order_fetch) wait for the work queued before them.
+    # a decode in flight (bench.py): the phases wait for the work queued
+    # before them in their readbacks and in their blocking uploads.
     #
     #   detect_dispatch  letterbox + upload + detector forward, no readback
     #   detect_fetch     one readback + host NMS
@@ -499,7 +501,8 @@ class CalliReaderEngine:
         kind, payload = handle
         if kind == "dets":
             return payload
-        return self.detector.postprocess(list(images), self.detector.fetch(payload))
+        with SPANS.span("detect_fetch"):
+            return self.detector.postprocess(list(images), self.detector.fetch(payload))
 
     def columns_stage(self, images: Sequence[np.ndarray], dets, thres: float = 0.8):
         """Host: int-truncate, IoU dedup, k-means/merge columns. Saturated
@@ -507,21 +510,22 @@ class CalliReaderEngine:
         results: List[Optional[List[List[float]]]] = [None] * len(images)
         pages, page_owner, saturated = [], [], []
         char_boxes_per: List[Any] = [None] * len(images)
-        for i, (img, flat) in enumerate(zip(images, dets)):
-            if len(flat) > 250:
-                saturated.append((i, img))
-                continue
-            h, w = img.shape[:2]
-            pair = [[[max(int(b[0]), 0), max(int(b[1]), 0)],
-                     [min(int(b[2]), w), min(int(b[3]), h)]] for b in flat]
-            char_boxes = boxes_mod.dedup_boxes_iou(pair, 0.8)
-            if not char_boxes:
-                results[i] = []
-                continue
-            data = boxes_mod.char2col_with_kmeans(char_boxes, w, h)
-            pages.append((data["shapes"], w, h))
-            page_owner.append(i)
-            char_boxes_per[i] = char_boxes
+        with SPANS.span("columns"):
+            for i, (img, flat) in enumerate(zip(images, dets)):
+                if len(flat) > 250:
+                    saturated.append((i, img))
+                    continue
+                h, w = img.shape[:2]
+                pair = [[[max(int(b[0]), 0), max(int(b[1]), 0)],
+                         [min(int(b[2]), w), min(int(b[3]), h)]] for b in flat]
+                char_boxes = boxes_mod.dedup_boxes_iou(pair, 0.8)
+                if not char_boxes:
+                    results[i] = []
+                    continue
+                data = boxes_mod.char2col_with_kmeans(char_boxes, w, h)
+                pages.append((data["shapes"], w, h))
+                page_owner.append(i)
+                char_boxes_per[i] = char_boxes
         return {"results": results, "pages": pages, "page_owner": page_owner,
                 "char_boxes_per": char_boxes_per, "saturated": saturated, "thres": thres}
 
@@ -536,16 +540,19 @@ class CalliReaderEngine:
 
     def order_fetch(self, st, thres: float = 0.8):
         """The score readback and the per-column y-sort -> reading-ordered
-        flat box lists; saturated pages take the serial masking path here."""
+        flat box lists; saturated pages take the serial masking path here,
+        first (its box-stage spans beside this one's, none inside
+        another)."""
         inter = st["inter"]
         results = inter["results"]
         for i, img in inter["saturated"]:
             results[i] = self.sort_boxes(img, inter["thres"])
-        if st["handle"] is not None:
-            orders = orderformer.predict_batch_fetch(st["handle"])
-            for owner, col_order in zip(inter["page_owner"], orders):
-                results[owner] = self._order_columns(inter["char_boxes_per"][owner],
-                                                     col_order, thres)
+        with SPANS.span("order_fetch"):
+            if st["handle"] is not None:
+                orders = orderformer.predict_batch_fetch(st["handle"])
+                for owner, col_order in zip(inter["page_owner"], orders):
+                    results[owner] = self._order_columns(inter["char_boxes_per"][owner],
+                                                         col_order, thres)
         return results
 
     def order_stage(self, inter, thres: float = 0.8):
@@ -572,35 +579,35 @@ class CalliReaderEngine:
         ``drop_zero`` drops the pseudo rows whose VQ index is 0, ``hard_vq``
         replaces low-confidence rows by their table rows."""
         if ordered_lists is None:
-            with self._span("yolo_orderformer"):
-                ordered_lists = self.batch_sort_boxes(images)
-        t0 = time.perf_counter()
-        all_crops: List[np.ndarray] = []
-        counts = []
-        for img, ordered in zip(images, ordered_lists):
-            n0 = len(all_crops)
-            for x1, y1, x2, y2 in ordered or []:
-                x1, y1, x2, y2 = int(x1), int(y1), int(x2), int(y2)
-                if x2 <= x1 or y2 <= y1:
-                    continue
-                all_crops.append(img[y1:y2, x1:x2])
-            counts.append(len(all_crops) - n0)
-        self.timings.add("char_crops", time.perf_counter() - t0)
+            ordered_lists = self.batch_sort_boxes(images)
+        # windows of at most char_window crops bound the char tower's live
+        # activations; the small pseudo outputs reassemble in one reorder
+        win = self.char_window
+        with SPANS.span("char_prep"):
+            all_crops: List[np.ndarray] = []
+            counts = []
+            for img, ordered in zip(images, ordered_lists):
+                n0 = len(all_crops)
+                for x1, y1, x2, y2 in ordered or []:
+                    x1, y1, x2, y2 = int(x1), int(y1), int(x2), int(y2)
+                    if x2 <= x1 or y2 <= y1:
+                        continue
+                    all_crops.append(img[y1:y2, x1:x2])
+                counts.append(len(all_crops) - n0)
+            windows = [(lo, self._char_prep(all_crops[lo:lo + win]))
+                       for lo in range(0, len(all_crops), win)]
         if not all_crops:
             return [(None, None)] * len(images)
 
         n_learns = self.cfg.resampler.num_learns
         parts_ps, parts_ix, ns, idx_parts = [], [], [], []
-        # windows of at most char_window crops bound the char tower's live
-        # activations; the small pseudo outputs reassemble in one reorder
-        win = self.char_window
-        for lo in range(0, len(all_crops), win):
-            pp, pi, nn, ii = self._char_parts(all_crops[lo:lo + win], hard_vq)
-            parts_ps += pp
-            parts_ix += pi
-            ns += nn
-            idx_parts += [i + lo for i in ii]
-        with self._span("vit_resampler_vq"):
+        with SPANS.span("char_route"):
+            for lo, groups in windows:
+                pp, pi, nn, ii = self._char_parts(groups, hard_vq)
+                parts_ps += pp
+                parts_ix += pi
+                ns += nn
+                idx_parts += [i + lo for i in ii]
             pseudo_all, idx_all = self._reorder(parts_ps, parts_ix, ns, idx_parts)
 
         out = []
@@ -621,21 +628,19 @@ class CalliReaderEngine:
         device, or (None, None) when the detector finds no character.
         ``drop_zero`` drops the pseudo rows whose VQ index is 0, ``hard_vq``
         replaces low-confidence rows by their table rows."""
-        with self._span("yolo_orderformer"):
-            ordered = self.sort_boxes(image)
-        t0 = time.perf_counter()
-        raw_crops = []
-        for x1, y1, x2, y2 in ordered:
-            x1, y1, x2, y2 = int(x1), int(y1), int(x2), int(y2)
-            if x2 <= x1 or y2 <= y1:
-                continue
-            raw_crops.append(image[y1:y2, x1:x2])
-        self.timings.add("char_crops", time.perf_counter() - t0)
+        ordered = self.sort_boxes(image)
+        with SPANS.span("char_prep"):
+            raw_crops = []
+            for x1, y1, x2, y2 in ordered:
+                x1, y1, x2, y2 = int(x1), int(y1), int(x2), int(y2)
+                if x2 <= x1 or y2 <= y1:
+                    continue
+                raw_crops.append(image[y1:y2, x1:x2])
+            groups = self._char_prep(raw_crops)
         if not raw_crops:
             return None, None
-        parts = self._char_parts(raw_crops, hard_vq)
-        with self._span("vit_resampler_vq"):
-            pseudo, indices = self._reorder(*parts)
+        with SPANS.span("char_route"):
+            pseudo, indices = self._reorder(*self._char_parts(groups, hard_vq))
         if drop_zero:
             pseudo = _drop_zero_rows(pseudo, indices)
         if verbose:
@@ -676,7 +681,9 @@ class CalliReaderEngine:
         mask = np.zeros((1, bucket), np.int32)
         mask[0, bucket - S:] = 1
         img = None if img_embeds is None else img_embeds.reshape(-1, img_embeds.shape[-1])
-        return self._build_embeds(self._to_dev(padded_ids), img, pseudo_embeds), mask
+        ids_dev = self._to_dev(padded_ids)
+        with SPANS.device("embed_build"):
+            return self._build_embeds(ids_dev, img, pseudo_embeds), mask
 
     def batch_build_rows(
         self,
@@ -697,7 +704,7 @@ class CalliReaderEngine:
             histories = [None] * len(images)
         conv_sep = get_conv_template(self.cfg.template).sep
         imgs_np = [preprocess.as_rgb_array(im) for im in images]
-        with self._span("page_tiling"):
+        with SPANS.span("page_tiling"):
             if self.device_tile_pages:
                 tile_cat, tile_counts = self.batch_tile_pages(imgs_np)
             else:
@@ -709,23 +716,22 @@ class CalliReaderEngine:
         aligned = (self.batch_calli_align(imgs_np, drop_zero=drop_zero, hard_vq=hard_vq,
                                           ordered_lists=ordered_lists)
                    if use_p else [(None, None)] * len(images))
-        with self._span("tile_encode"):
+        with SPANS.span("tile_encode"), SPANS.device("tile_encode"):
             all_feats = self.encode_image_tiles(tile_cat)
 
-        t0 = time.perf_counter()
-        rows, out_questions = [], []
-        for i, (question, history) in enumerate(zip(questions, histories)):
-            pseudo = aligned[i][0]
-            q = "<image>\n" + question if "<image>" not in question else question
-            if history is None and use_p and pseudo is not None and ALIGNED not in q:
-                q = q + ALIGNED * pseudo.shape[0]
-            out_questions.append(q)
-            conv = build_chat_prompt(q, history)
-            query = self._expand_image_tokens(conv.get_prompt(), [tile_counts[i]])
-            rows.append((self._tokenize_prompt(query), pseudo))
-        self.timings.add("tokenize", time.perf_counter() - t0)
+        with SPANS.span("tokenize"):
+            rows, out_questions = [], []
+            for i, (question, history) in enumerate(zip(questions, histories)):
+                pseudo = aligned[i][0]
+                q = "<image>\n" + question if "<image>" not in question else question
+                if history is None and use_p and pseudo is not None and ALIGNED not in q:
+                    q = q + ALIGNED * pseudo.shape[0]
+                out_questions.append(q)
+                conv = build_chat_prompt(q, history)
+                query = self._expand_image_tokens(conv.get_prompt(), [tile_counts[i]])
+                rows.append((self._tokenize_prompt(query), pseudo))
 
-        with self._span("embed_build"):
+        with SPANS.span("embed_build"):
             bucket = gen.bucket_length(max(len(r[0]) for r in rows))
             B = len(rows)
             padded_ids = np.full((B, bucket), self.tok.pad_token_id, np.int32)
@@ -742,20 +748,21 @@ class CalliReaderEngine:
             )
             ids_dev = self._to_dev(padded_ids)
             E = all_feats.shape[-1]
-            if batched_ok:
-                pseudo_parts = [ps for _, ps in rows if ps is not None]
-                embeds = self._build_embeds(
-                    ids_dev, all_feats.reshape(-1, E),
-                    torch.cat(pseudo_parts, dim=0) if pseudo_parts else None)
-            else:
-                # per-row splice when a row's slot count differs from its
-                # replacement rows (e.g. a history turn without ALIGNED slots)
-                off, built = 0, []
-                for i, (_, ps) in enumerate(rows):
-                    img = all_feats[off:off + tile_counts[i]].reshape(-1, E)
-                    off += tile_counts[i]
-                    built.append(self._build_embeds(ids_dev[i:i + 1], img, ps))
-                embeds = torch.cat(built, dim=0)
+            with SPANS.device("embed_build"):
+                if batched_ok:
+                    pseudo_parts = [ps for _, ps in rows if ps is not None]
+                    embeds = self._build_embeds(
+                        ids_dev, all_feats.reshape(-1, E),
+                        torch.cat(pseudo_parts, dim=0) if pseudo_parts else None)
+                else:
+                    # per-row splice when a row's slot count differs from its
+                    # replacement rows (e.g. a history turn without ALIGNED slots)
+                    off, built = 0, []
+                    for i, (_, ps) in enumerate(rows):
+                        img = all_feats[off:off + tile_counts[i]].reshape(-1, E)
+                        off += tile_counts[i]
+                        built.append(self._build_embeds(ids_dev[i:i + 1], img, ps))
+                    embeds = torch.cat(built, dim=0)
         return {"embeds": embeds, "mask": mask, "bucket": bucket,
                 "out_questions": out_questions, "histories": histories,
                 "conv_sep": conv_sep, "n": B}
@@ -785,8 +792,9 @@ class CalliReaderEngine:
         and ``lengths`` of the result are device tensors the decode fills.
         An enqueued decode cannot stop early: the chunks after every row is
         done run as pad steps (no token changes; batch_decode counts them in
-        ``pad_steps``). ``overlap=False`` (batch_chat_ocr, where nothing
-        overlaps the decode): the decode runs here, looking at ``done``
+        the result's ``pad_steps`` and in ``DECODE_PAD_STEPS``).
+        ``overlap=False`` (batch_chat_ocr, where nothing overlaps the
+        decode): the decode runs here, looking at ``done``
         between chunks and stopping at the first boundary where every row is
         done, as chat_ocr's does."""
         rows = prepared_rows if prepared_rows is not None else self.batch_build_rows(
@@ -801,16 +809,13 @@ class CalliReaderEngine:
             pad_token_id=self.tok.pad_token_id,
             repetition_penalty=repetition_penalty,
         )
-        t0 = time.perf_counter()
-        with (contextlib.nullcontext() if overlap else self._span("generate")):
-            tokens, lengths = gen.generate_from_embeds(
-                self.params["llm"], self.cfg.llm, rows["embeds"], self._to_dev(rows["mask"]),
-                gen_cfg=gen_cfg, max_cache_len=rows["bucket"] + max_new_tokens,
-                policy=self.policy, overlap=overlap, mesh=self.mesh,
-            )
-            tokens, lengths = self._gather_rows(tokens, rows["n"]), self._gather_rows(lengths, rows["n"])
-        if overlap:
-            self.timings.add("generate_dispatch", time.perf_counter() - t0)
+        tokens, lengths = gen.generate_from_embeds(
+            self.params["llm"], self.cfg.llm, rows["embeds"],
+            torch.from_numpy(np.ascontiguousarray(rows["mask"])),
+            gen_cfg=gen_cfg, max_cache_len=rows["bucket"] + max_new_tokens,
+            policy=self.policy, overlap=overlap, mesh=self.mesh,
+        )
+        tokens, lengths = self._gather_rows(tokens, rows["n"]), self._gather_rows(lengths, rows["n"])
         return {"tokens": tokens, "lengths": lengths, "embeds": rows["embeds"],
                 "mask": rows["mask"], "bucket": rows["bucket"], "gen_cfg": gen_cfg,
                 "overlap": overlap, "out_questions": rows["out_questions"],
@@ -820,25 +825,23 @@ class CalliReaderEngine:
         """Back half of batch_chat_ocr: wait for the decode of batch_prepare
         (the device-to-host read of its tokens), then token ids -> response
         text (and histories)."""
-        t0 = time.perf_counter()
-        tokens = prepared["tokens"].cpu().numpy()
-        lengths = prepared["lengths"].cpu().numpy()
-        self.timings.add("generate_wait", time.perf_counter() - t0)
+        with SPANS.span("readback"):
+            tokens = readback(prepared["tokens"]).numpy()
+            lengths = readback(prepared["lengths"]).numpy()
         if prepared.get("overlap"):
             prepared["pad_steps"] = gen.pad_steps(tokens, lengths,
                                                   prepared["gen_cfg"].eos_token_ids)
-            self.pad_steps += prepared["pad_steps"]
-        t0 = time.perf_counter()
-        conv_sep = prepared["conv_sep"]
-        out, new_histories = [], []
-        for i in range(prepared["n"]):
-            text = self.tok.decode(tokens[i, :lengths[i]].tolist(), skip_special_tokens=True)
-            resp = text.split(conv_sep)[0].strip()
-            out.append(resp)
-            h = list(prepared["histories"][i] or [])
-            h.append((prepared["out_questions"][i], resp))
-            new_histories.append(h)
-        self.timings.add("detokenize", time.perf_counter() - t0)
+            DECODE_PAD_STEPS.add(prepared["pad_steps"])
+        with SPANS.span("detokenize"):
+            conv_sep = prepared["conv_sep"]
+            out, new_histories = [], []
+            for i in range(prepared["n"]):
+                text = self.tok.decode(tokens[i, :lengths[i]].tolist(), skip_special_tokens=True)
+                resp = text.split(conv_sep)[0].strip()
+                out.append(resp)
+                h = list(prepared["histories"][i] or [])
+                h.append((prepared["out_questions"][i], resp))
+                new_histories.append(h)
         return (out, new_histories) if return_histories else out
 
     def batch_chat_ocr(
@@ -883,22 +886,25 @@ class CalliReaderEngine:
         """One prompt -> its generated token ids (beam search when
         ``gen_cfg.num_beams > 1``)."""
         bucket = gen.bucket_length(len(input_ids))
-        embeds, mask = self._build_row_embeds(input_ids, img_embeds, pseudo_embeds, bucket)
+        with SPANS.span("embed_build"):
+            embeds, mask = self._build_row_embeds(input_ids, img_embeds, pseudo_embeds, bucket)
         gen_fn = gen.beam_generate_from_embeds if gen_cfg.num_beams > 1 else gen.generate_from_embeds
-        with self._span("generate"):
-            tokens, lengths = gen_fn(self.params["llm"], self.cfg.llm, embeds, self._to_dev(mask),
-                                     gen_cfg=gen_cfg, max_cache_len=bucket + gen_cfg.max_new_tokens,
-                                     policy=self.policy, mesh=self.mesh)
+        tokens, lengths = gen_fn(self.params["llm"], self.cfg.llm, embeds, torch.from_numpy(mask),
+                                 gen_cfg=gen_cfg, max_cache_len=bucket + gen_cfg.max_new_tokens,
+                                 policy=self.policy, mesh=self.mesh)
+        with SPANS.span("readback"):
+            tokens, lengths = readback(tokens), readback(lengths)
         return tokens[0, :int(lengths[0])].tolist()
 
     def _page_tiles_host(self, img_np: np.ndarray) -> np.ndarray:
         cfg = self.cfg
-        with self._span("page_tiling"):
+        with SPANS.span("page_tiling"):
             return preprocess.load_image(img_np, cfg.force_image_size, cfg.max_dynamic_patch,
                                          cfg.use_thumbnail)
 
     def _respond(self, out_tokens: List[int], conv_sep: str) -> str:
-        return self.tok.decode(out_tokens, skip_special_tokens=True).split(conv_sep)[0].strip()
+        with SPANS.span("detokenize"):
+            return self.tok.decode(out_tokens, skip_special_tokens=True).split(conv_sep)[0].strip()
 
     def chat_ocr(
         self,
@@ -943,11 +949,14 @@ class CalliReaderEngine:
             question = question + ALIGNED * pseudo.shape[0]
         conv = build_chat_prompt(question, history)
         n_tiles = [] if pixel_values is None else [pixel_values.shape[0]]
-        input_ids = self._tokenize_prompt(self._expand_image_tokens(conv.get_prompt(), n_tiles))
+        with SPANS.span("tokenize"):
+            input_ids = self._tokenize_prompt(self._expand_image_tokens(conv.get_prompt(), n_tiles))
         img_embeds = None
         if pixel_values is not None:
-            with self._span("tile_encode"):
-                img_embeds = self.encode_image_tiles(self._to_dev(pixel_values))
+            with SPANS.span("tile_encode"):
+                tiles = self._to_dev(pixel_values)
+                with SPANS.device("tile_encode"):
+                    img_embeds = self.encode_image_tiles(tiles)
         gen_cfg = self._gen_cfg(conv.sep, max_new_tokens=max_new_tokens,
                                 repetition_penalty=repetition_penalty, num_beams=num_beams)
         response = self._respond(self._generate(input_ids, img_embeds, pseudo, gen_cfg), conv.sep)
@@ -993,8 +1002,10 @@ class CalliReaderEngine:
         pixel_values = self._page_tiles_host(preprocess.open_image(image))
         n_tiles = pixel_values.shape[0]
         padded, n = preprocess.pad_to_bucket(pixel_values)
-        with self._span("tile_encode"):
-            pseudo, _ = self._resample_vq(self._vision_encode(self._to_dev(padded)))
+        with SPANS.span("tile_encode"):
+            tiles = self._to_dev(padded)
+            with SPANS.device("tile_encode"):
+                pseudo, _ = self._resample_vq(self._vision_encode(tiles))
         n_learns = self.cfg.resampler.num_learns
         pseudo = pseudo[:n * n_learns]
 
@@ -1033,20 +1044,24 @@ class CalliReaderEngine:
             q = "<image>\n" + question if "<image>" not in question else question
             query = self._expand_image_tokens(build_chat_prompt(q, None).get_prompt(),
                                               [pixel_values.shape[0]])
-            with self._span("tile_encode"):
-                feats = self.encode_image_tiles(self._to_dev(pixel_values))
-            rows.append((self._tokenize_prompt(query), feats))
+            with SPANS.span("tile_encode"):
+                tiles = self._to_dev(pixel_values)
+                with SPANS.device("tile_encode"):
+                    feats = self.encode_image_tiles(tiles)
+            with SPANS.span("tokenize"):
+                rows.append((self._tokenize_prompt(query), feats))
         bucket = gen.bucket_length(max(len(ids) for ids, _ in rows))
-        built = [self._build_row_embeds(ids, feats, None, bucket) for ids, feats in rows]
-        embeds = torch.cat([e for e, _ in built], dim=0)
+        with SPANS.span("embed_build"):
+            built = [self._build_row_embeds(ids, feats, None, bucket) for ids, feats in rows]
+            embeds = torch.cat([e for e, _ in built], dim=0)
         mask = np.concatenate([m for _, m in built], axis=0)
         gen_cfg = self._gen_cfg(conv_sep, max_new_tokens=max_new_tokens,
                                 repetition_penalty=repetition_penalty)
-        with self._span("generate"):
-            tokens, lengths = gen.generate_from_embeds(
-                self.params["llm"], self.cfg.llm, embeds, self._to_dev(mask), gen_cfg=gen_cfg,
-                max_cache_len=bucket + max_new_tokens, policy=self.policy, mesh=self.mesh)
-        tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+        tokens, lengths = gen.generate_from_embeds(
+            self.params["llm"], self.cfg.llm, embeds, torch.from_numpy(mask), gen_cfg=gen_cfg,
+            max_cache_len=bucket + max_new_tokens, policy=self.policy, mesh=self.mesh)
+        with SPANS.span("readback"):
+            tokens, lengths = readback(tokens).numpy(), readback(lengths).numpy()
         return [self._respond(tokens[i, :lengths[i]].tolist(), conv_sep) for i in range(len(rows))]
 
 

@@ -26,6 +26,12 @@ graphs capture the collectives, and every rank of the tensor group, on the
 same logits, makes the same choices. ``eager=True`` runs the same
 chunks uncaptured on the card (tests and chip_smoke.py compare the two); on
 the CPU they always run uncaptured. Beam search stays host-stepped.
+
+Every route times its ``prefill`` (the mask's upload, the state, the
+prefill) and its ``decode`` (the chunks run or enqueued) as spans of
+utils/profiling.SPANS, with their device time between CUDA events: the
+prefill's around it, the decode's around each chunk, so that the device time
+leaves out the gaps in which the device waits for the host's next chunk.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from callireader_tpu_torch.core.config import LLMConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.models import internlm2
 from callireader_tpu_torch.runtime import decode_graph
+from callireader_tpu_torch.utils.profiling import SPANS, readback, upload
 
 SYNC_EVERY = 8  # decode steps between host checks of `done`: a chunk, one graph
 # decode graphs with their state kept between calls; each holds its KV cache
@@ -235,7 +242,8 @@ class DecodeRun:
             return False
         n, fn = self.plan[self.next]
         try:
-            fn()
+            with SPANS.device("decode"):
+                fn()
         except Exception:
             self.on_error()
             raise
@@ -252,7 +260,7 @@ class DecodeRun:
         return self._result()
 
     def finish(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        while not (self.steps and bool(self.st.done.all())) and self.step():
+        while not (self.steps and bool(readback(self.st.done.all()))) and self.step():
             pass
         return self._result()
 
@@ -303,7 +311,6 @@ def start_generate(
     T = gen_cfg.max_new_tokens
     if gen_cfg.num_beams > 1:
         raise ValueError("beam search is beam_generate_from_embeds")
-    attention_mask = attention_mask.to(dev, torch.int32)
     own_generator = gen_cfg.do_sample and generator is None
     if not gen_cfg.do_sample:
         generator = None
@@ -316,19 +323,22 @@ def start_generate(
                        dev, gen, mesh)
 
     graphed = dev.type == "cuda" and not eager
-    if graphed:
-        key = (cfg, B, max_cache_len, T, gen_cfg, policy, str(dev),
-               None if own_generator else id(generator), id(mesh))
-        g = GRAPHS.get(key, params, build)
-    else:
-        g = build()
-    if own_generator:
-        g.generator.manual_seed(0)
-    logits, _ = internlm2.prefill(
-        params, cfg, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
-        max_len=max_cache_len, policy=policy, cache=g.st.cache, mesh=mesh,
-    )
-    g.st.reset(logits, attention_mask, gen_cfg.pad_token_id)
+    with SPANS.span("prefill"):
+        attention_mask = upload(attention_mask, dev, torch.int32)
+        if graphed:
+            key = (cfg, B, max_cache_len, T, gen_cfg, policy, str(dev),
+                   None if own_generator else id(generator), id(mesh))
+            g = GRAPHS.get(key, params, build)
+        else:
+            g = build()
+        if own_generator:
+            g.generator.manual_seed(0)
+        with SPANS.device("prefill"):
+            logits, _ = internlm2.prefill(
+                params, cfg, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
+                max_len=max_cache_len, policy=policy, cache=g.st.cache, mesh=mesh,
+            )
+            g.st.reset(logits, attention_mask, gen_cfg.pad_token_id)
     run = g.run if graphed else g.chunk
     plan = [(n, lambda n=n: run(params, n)) for n in _plan(T)]
     return DecodeRun(g.st, plan, on_error=lambda: GRAPHS.discard(g))
@@ -360,7 +370,8 @@ def generate_from_embeds(
     run = start_generate(params, cfg, inputs_embeds, attention_mask, gen_cfg=gen_cfg,
                          max_cache_len=max_cache_len, generator=generator, policy=policy,
                          eager=eager, mesh=mesh)
-    return run.enqueue_all() if overlap else run.finish()
+    with SPANS.span("decode"):
+        return run.enqueue_all() if overlap else run.finish()
 
 
 @torch.inference_mode()
@@ -389,61 +400,65 @@ def beam_generate_from_embeds(
     dev = inputs_embeds.device
     T = gen_cfg.max_new_tokens
     neg_inf = -1e30
-    attention_mask = attention_mask.to(dev, torch.int32)
-    logits, cache = internlm2.prefill(
-        params, cfg, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
-        max_len=max_cache_len, policy=policy, mesh=mesh,
-    )
-    cache = internlm2.KVCache(cache.k.repeat_interleave(k, dim=1),
-                              cache.v.repeat_interleave(k, dim=1), cache.length)
-    logits = logits.repeat(k, 1)
-    V = logits.shape[-1]
-    kv_valid = torch.zeros((k, max_cache_len), dtype=torch.int32, device=dev)
-    kv_valid[:, :S] = attention_mask
-    eos = torch.tensor(gen_cfg.eos_token_ids, dtype=torch.int32, device=dev)
-    pad_col = torch.arange(V, device=dev) == gen_cfg.pad_token_id
-    seen = torch.zeros((k, V), dtype=torch.bool, device=dev)
-    # only beam 0 is live at step 0 (all beams hold the same prompt)
-    scores = torch.full((k,), neg_inf, dtype=torch.float32, device=dev)
-    scores[0] = 0.0
-    tokens = torch.full((k, T), gen_cfg.pad_token_id, dtype=torch.int32, device=dev)
-    done = torch.zeros((k,), dtype=torch.bool, device=dev)
-    lengths = torch.zeros((k,), dtype=torch.int32, device=dev)
-    rows = torch.arange(k, device=dev)
+    with SPANS.span("prefill"):
+        attention_mask = upload(attention_mask, dev, torch.int32)
+        with SPANS.device("prefill"):
+            logits, cache = internlm2.prefill(
+                params, cfg, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
+                max_len=max_cache_len, policy=policy, mesh=mesh,
+            )
+    with SPANS.span("decode"):
+        eos = upload(torch.tensor(gen_cfg.eos_token_ids, dtype=torch.int32), dev)
+        with SPANS.device("decode"):
+            cache = internlm2.KVCache(cache.k.repeat_interleave(k, dim=1),
+                                      cache.v.repeat_interleave(k, dim=1), cache.length)
+            logits = logits.repeat(k, 1)
+            V = logits.shape[-1]
+            kv_valid = torch.zeros((k, max_cache_len), dtype=torch.int32, device=dev)
+            kv_valid[:, :S] = attention_mask
+            pad_col = torch.arange(V, device=dev) == gen_cfg.pad_token_id
+            seen = torch.zeros((k, V), dtype=torch.bool, device=dev)
+            # only beam 0 is live at step 0 (all beams hold the same prompt)
+            scores = torch.full((k,), neg_inf, dtype=torch.float32, device=dev)
+            scores[0] = 0.0
+            tokens = torch.full((k, T), gen_cfg.pad_token_id, dtype=torch.int32, device=dev)
+            done = torch.zeros((k,), dtype=torch.bool, device=dev)
+            lengths = torch.zeros((k,), dtype=torch.int32, device=dev)
+            rows = torch.arange(k, device=dev)
 
-    for i in range(T):
-        if i % SYNC_EVERY == 0 and i > 0 and bool(done.all()):
-            break
-        lp = torch.log_softmax(
-            _apply_repetition_penalty(logits.float(), seen, gen_cfg.repetition_penalty), dim=-1)
-        # live beams fan out over the vocab; a finished beam offers one
-        # candidate, itself extended by pad at its frozen score
-        cand = torch.where(done[:, None],
-                           torch.where(pad_col[None, :], scores[:, None], neg_inf),
-                           scores[:, None] + lp)
-        top_scores, top_idx = torch.topk(cand.reshape(-1), k)
-        parent = top_idx // V
-        tok = (top_idx % V).to(torch.int32)
-        cache.k = cache.k.index_select(1, parent)
-        cache.v = cache.v.index_select(1, parent)
-        seen, tokens, done = seen[parent], tokens[parent], done[parent]
-        lengths, kv_valid = lengths[parent], kv_valid[parent]
+            for i in range(T):
+                if i % SYNC_EVERY == 0 and i > 0 and bool(readback(done.all())):
+                    break
+                lp = torch.log_softmax(
+                    _apply_repetition_penalty(logits.float(), seen, gen_cfg.repetition_penalty), dim=-1)
+                # live beams fan out over the vocab; a finished beam offers one
+                # candidate, itself extended by pad at its frozen score
+                cand = torch.where(done[:, None],
+                                   torch.where(pad_col[None, :], scores[:, None], neg_inf),
+                                   scores[:, None] + lp)
+                top_scores, top_idx = torch.topk(cand.reshape(-1), k)
+                parent = top_idx // V
+                tok = (top_idx % V).to(torch.int32)
+                cache.k = cache.k.index_select(1, parent)
+                cache.v = cache.v.index_select(1, parent)
+                seen, tokens, done = seen[parent], tokens[parent], done[parent]
+                lengths, kv_valid = lengths[parent], kv_valid[parent]
 
-        is_eos = (tok[:, None] == eos[None, :]).any(dim=-1)
-        tok = torch.where(done, torch.full_like(tok, gen_cfg.pad_token_id), tok)
-        lengths = torch.where(done, lengths, lengths + 1)
-        tokens[:, i] = tok
-        seen[rows, tok.long()] = seen[rows, tok.long()] | ~done
-        done = done | is_eos
-        scores = top_scores
-        kv_valid[:, cache.length] = 1
-        logits, cache = internlm2.decode_step(
-            params, cfg, input_ids=tok[:, None], cache=cache, kv_valid_mask=kv_valid,
-            policy=policy, mesh=mesh,
-        )
-    norm = scores / torch.clamp(lengths.float(), min=1.0)
-    best = int(torch.argmax(norm))
-    return tokens[best][None], lengths[best][None]
+                is_eos = (tok[:, None] == eos[None, :]).any(dim=-1)
+                tok = torch.where(done, torch.full_like(tok, gen_cfg.pad_token_id), tok)
+                lengths = torch.where(done, lengths, lengths + 1)
+                tokens[:, i] = tok
+                seen[rows, tok.long()] = seen[rows, tok.long()] | ~done
+                done = done | is_eos
+                scores = top_scores
+                kv_valid[:, cache.length] = 1
+                logits, cache = internlm2.decode_step(
+                    params, cfg, input_ids=tok[:, None], cache=cache, kv_valid_mask=kv_valid,
+                    policy=policy, mesh=mesh,
+                )
+        norm = scores / torch.clamp(lengths.float(), min=1.0)
+        best = int(readback(torch.argmax(norm)))
+        return tokens[best][None], lengths[best][None]
 
 
 def pad_embeds_left(embeds_list, pad_embed, bucket: Optional[int] = None):

@@ -8,7 +8,7 @@ scripts/bench_train_step.py).
 Runs the e-IT train step (train/e_it.make_train_step: LoRA on the LLM's
 seven projections over the frozen towers, the e-IT recipe's remat) on a
 synthetic batch and prints ONE JSON line: seconds a step, tokens/s and
-model TFLOP/s (utils/profiling.TrainThroughput). The towers and the LLM
+model TFLOP/s (``step_flops``: the step's own products). The towers and the LLM
 are the engine's seed-0 draws (runtime/weights.init_params, the components
 the step reads); ids, labels and pixels from numpy ``RandomState(0)`` in the
 JAX script's order. ``--mesh``: the step over ``torch.distributed`` (a world
@@ -24,6 +24,30 @@ import json
 import os
 import sys
 import time
+
+
+def step_flops(cfg, B: int, S: int, tiles: int, rank: int) -> float:
+    """Model operations of one step on the synthetic batch (one causal
+    segment a row): the LLM's products and the LM head forward and their
+    input gradients through the frozen base (2x the forward); attention over
+    the causal pairs (the forward, and the backward's five products: 10/4 of
+    it); the LoRA products with their input and weight gradients (3x); the
+    frozen tile tower's forward; the projector's forward and weight gradient.
+    The recompute of remat is not counted."""
+    llm, v = cfg.llm, cfg.vision
+    E, D, L = llm.hidden_size, llm.head_dim, llm.num_hidden_layers
+    q, kv, inner = llm.num_attention_heads * D, llm.num_key_value_heads * D, llm.intermediate_size
+    shapes = {"wq": (E, q), "wk": (E, kv), "wv": (E, kv), "wo": (q, E),
+              "w1": (E, inner), "w3": (E, inner), "w2": (inner, E)}
+    n = B * S
+    base = 2 * (2.0 * n * (L * sum(a * b for a, b in shapes.values()) + E * llm.vocab_size))
+    attention = (1 + 10 / 4) * 4.0 * L * B * S * (S + 1) / 2 * q
+    lora = 3 * 2.0 * n * L * rank * sum(a + b for a, b in shapes.values())
+    Ev, t = v.hidden_size, (v.image_size // v.patch_size) ** 2 + 1
+    tower = tiles * v.num_hidden_layers * (2.0 * t * (4 * Ev * Ev + 2 * Ev * v.intermediate_size)
+                                           + 4.0 * t * t * Ev)
+    projector = 2 * 2.0 * tiles * cfg.num_image_token * (4 * Ev * E + E * E)
+    return base + attention + lora + tower + projector
 
 
 def main(argv=None):
@@ -46,7 +70,6 @@ def main(argv=None):
     from callireader_tpu_torch.runtime import weights
     from callireader_tpu_torch.scripts import bench_common as bc
     from callireader_tpu_torch.train import e_it, lora
-    from callireader_tpu_torch.utils.profiling import TrainThroughput
 
     dev = require_device(args.device)
     cfg = get_config(args.preset)
@@ -93,7 +116,6 @@ def main(argv=None):
     # the whole batch on the device (under a mesh the step takes this rank's rows)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
 
-    thr = TrainThroughput(cfg, seq_len=S)
     state, m = step(state, frozen, batch)
     float(m["loss"])  # sync
     print("[bench_train] warmup done", file=sys.stderr)
@@ -110,7 +132,8 @@ def main(argv=None):
         "unit": "s/step",
         "tokens_per_sec": tps,
         "batch": B, "seq": S, "mesh": shape,
-        "model_tflops_per_sec": tps * thr.flops_per_token / 1e12,
+        "model_tflops_per_sec": (step_flops(cfg, B, S, B * args.tiles_per_sample, args.lora_rank)
+                                 / dt / 1e12),
         "loss": loss,
         "device": bc.device_line(dev),
         "platform": dev.type,

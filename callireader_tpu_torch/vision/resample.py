@@ -35,6 +35,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from callireader_tpu_torch.utils.profiling import upload
+
 # ---------------------------------------------------------------- (a) jax
 
 
@@ -69,17 +71,25 @@ def jax_resize_weights_np(in_size: int, out_size: int) -> np.ndarray:
 def jax_resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     if in_size == out_size:  # jax skips unchanged dims (identity)
         return torch.eye(in_size, dtype=torch.float32, device=device)
-    return torch.from_numpy(jax_resize_weights_np(in_size, out_size)).to(device)
+    return upload(torch.from_numpy(jax_resize_weights_np(in_size, out_size)), device)
 
 
-def jax_resize_hw(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """(B, H, W, C) float32 -> (B, out_h, out_w, C) with jax "cubic" resize."""
+def jax_resize_hw_weights(H: int, W: int, out_h: int, out_w: int, device):
+    """(wy, wx) of ``jax_resize_hw`` on the device; None for a dim left
+    unchanged."""
+    return (None if H == out_h else jax_resize_weights(H, out_h, device),
+            None if W == out_w else jax_resize_weights(W, out_w, device))
+
+
+def jax_resize_hw(x: torch.Tensor, out_h: int, out_w: int, weights=None) -> torch.Tensor:
+    """(B, H, W, C) float32 -> (B, out_h, out_w, C) with jax "cubic" resize.
+    ``weights``: ``jax_resize_hw_weights``' pair, made beforehand (then the
+    call uploads nothing)."""
     B, H, W, C = x.shape
-    if H != out_h:
-        wy = jax_resize_weights(H, out_h, x.device)
+    wy, wx = weights if weights is not None else jax_resize_hw_weights(H, W, out_h, out_w, x.device)
+    if wy is not None:
         x = torch.einsum("yh,bhwc->bywc", wy, x)
-    if W != out_w:
-        wx = jax_resize_weights(W, out_w, x.device)
+    if wx is not None:
         x = torch.einsum("xw,bywc->byxc", wx, x)
     return x
 

@@ -270,7 +270,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      phase 1) over the full_page run's raw char crops, against the plain
      numpy route: within 3/255 a pixel, both white outside the content's place,
      the same bytes at 1 and 8 threads, its resize within 2/255; ms a crop
-     on both routes, and phase 23's char_crops seconds;
+     on both routes, and phase 23's char_prep seconds;
  26. library models: models/moe.forward at the default MoEConfig widths
      (E=4096, M=14336, 8 experts, top-2, 32/8 heads of 128, vocab 92553)
      cut to 4 layers, B=2 S=2048 with two segments a row, counted and held
@@ -952,13 +952,6 @@ def train_phases(h, data):
     from callireader_tpu_torch.train import checkpoint as ckpt_mod
     from callireader_tpu_torch.train import data as data_mod
     from callireader_tpu_torch.train import e_it
-    from callireader_tpu_torch.utils.profiling import llm_flops_per_token as flops_per_token
-
-    def llm_flops_per_token(cfg, seq_len):
-        llm = cfg.llm
-        return flops_per_token(llm.hidden_size, llm.intermediate_size, llm.num_hidden_layers,
-                               llm.vocab_size, llm.num_attention_heads, llm.num_key_value_heads,
-                               llm.head_dim, seq_len, causal=True, backward=True)
 
     dev = h.dev
 
@@ -1103,15 +1096,12 @@ def train_phases(h, data):
         recs = [json.loads(line) for line in f]
     step_ms = [1e3 * st[0] for st in steps]
     tok_s = sum(sum(st[3]) for st in steps[1:]) / (sum(step_ms[1:]) / 1e3)
-    flops_tok = llm_flops_per_token(cfg, float(np.mean([r for st in steps for r in st[3]])))
     log(f"[train] losses {[round(st[1], 4) for st in steps]}; grad norms "
         f"{[r['grad_norm'] for r in recs]}; ms per micro-step: first {step_ms[0]:.1f}, then "
         f"{[round(t, 1) for t in step_ms[1:]]} (host clock, a device sync at each end); "
-        f"TrainThroughput at the last update (supervised tokens only, model flops at S=2048, "
-        f"first step's time left out): {recs[-1]['tokens_per_sec']} tokens/s, "
-        f"{recs[-1]['tflops_per_sec']} TFLOP/s; over micro-steps 2-{n_micro}, every real token: "
-        f"{tok_s:.1f} tokens/s, {tok_s * flops_tok / 1e12:.1f} model TFLOP/s (forward + backward, "
-        f"the remat recompute not counted); LoRA b leaves moved in every layer, "
+        f"TrainThroughput at the last update (supervised tokens only, first step's time left "
+        f"out): {recs[-1]['tokens_per_sec']} tokens/s; over micro-steps 2-{n_micro}, every real "
+        f"token: {tok_s:.1f} tokens/s; LoRA b leaves moved in every layer, "
         f"{len(TRAIN_FROZEN)} frozen leaves unchanged bit for bit, the final checkpoint restores")
     fn = functools.partial(last["step"], state, frozen, last["batch"])
     t0 = time.perf_counter()
@@ -1525,6 +1515,7 @@ def cli_phases(h, final_dir, work):
     from callireader_tpu_torch.runtime import generate as gen_mod
     from callireader_tpu_torch.runtime import quantize as quant_mod
     from callireader_tpu_torch.runtime import weights
+    from callireader_tpu_torch.utils.profiling import SPANS
 
     page_path = os.path.join(work, "page.npy")
     np.save(page_path, make_page(0)[0])
@@ -1567,7 +1558,7 @@ def cli_phases(h, final_dir, work):
         just after; its printout captured."""
         engine = kept.get("engine")
         if engine is not None:
-            engine.timings.spans.clear()
+            SPANS.reset()
         gens.clear()
         h.zero_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1598,13 +1589,13 @@ def cli_phases(h, final_dir, work):
         toks = [t[0, :int(n[0])] for t, n in gens]
         if len(toks) != n_pre or not all(((t >= 0) & (t < vocab)).all() for t in toks):
             fail(f"[{label}] token ids outside the vocabulary ({vocab}) or a missing generate")
-        spans = engine.timings.spans
-        step_ms = (spans["generate"] - steps.seconds["prefill"]) / n_dec * 1e3
+        spans = SPANS.totals
+        step_ms = spans["decode"] / n_dec * 1e3
         lines = out.getvalue().splitlines()
         log(f"[{label}] {wall:.3f} s wall (engine build {kept['build_s']:.3f} s in the first call); "
             f"{n_pre} prompt(s) of {[int(t.numel()) for t in toks]} new tokens; prefill "
             f"{steps.seconds['prefill'] / n_pre:.4f} s each; {n_dec} decode steps at {step_ms:.3f} ms "
-            f"a step (host clock, generate spans minus prefills); cache slots "
+            f"a step (host clock, the decode spans); cache slots "
             f"{[tuple(c[1])[3] for c in shapes.calls['flash_decode'][-1:]]}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; spans (s) "
             + json.dumps({k: round(v, 4) for k, v in spans.items()}) + f"; launches {launches}; "
@@ -1867,7 +1858,7 @@ def evaluate_phase(h, ahead):
     tiles made ahead (``tile_ahead``: the full_page run reads them); the
     engine it built then runs region_wise, choice, bilingual, intent,
     mmbench and refcoco -> (the full_page run's raw char crops, the engine's
-    char content size, its char_crops seconds) for phase 25."""
+    char content size, its char_prep seconds) for phase 25."""
     import torch
 
     from callireader_tpu_torch.cli import common as cli_common
@@ -1875,7 +1866,9 @@ def evaluate_phase(h, ahead):
     from callireader_tpu_torch.evalx import callibench, mmbench, refcoco
     from callireader_tpu_torch.evalx.metrics import t2s
     from callireader_tpu_torch.models import internlm2
+    from callireader_tpu_torch.runtime import engine as engine_mod
     from callireader_tpu_torch.runtime.engine import CalliReaderEngine
+    from callireader_tpu_torch.utils.profiling import SPANS
     from callireader_tpu_torch.vision import preprocess
 
     tasks, mm_rows, ref_samples = eval_tasks()
@@ -1972,10 +1965,10 @@ def evaluate_phase(h, ahead):
             f"{run['kw']['batch_size']}), {seconds['cli']:.3f} s with the engine build; engine "
             f"options gray_chars={engine.gray_chars} device_resize_chars={engine.device_resize_chars} "
             f"device_tile_pages={engine.device_tile_pages}; {n_pre} prefills, {n_dec} decode steps "
-            f"({engine.pad_steps} pad steps); spans (s) "
-            + json.dumps({k: round(v, 4) for k, v in engine.timings.spans.items()})
+            f"({engine_mod.DECODE_PAD_STEPS.launches} pad steps); spans (s) "
+            + json.dumps({k: round(v, 4) for k, v in SPANS.totals.items()})
             + f"; launches {launches}")
-        char_crops_s = engine.timings.spans["char_crops"]
+        char_crops_s = SPANS.totals["char_prep"]
         if (engine.gray_chars, engine.device_resize_chars, engine.device_tile_pages) != \
                 (False, False, False) or run["kw"]["batch_size"] != 8:
             fail("[evaluate] the CLI's engine left the harness's defaults (RGB chars, host char "
@@ -2357,6 +2350,8 @@ def bench_phase(h, engine, batch_path):
 
     from callireader_tpu_torch import bench
     from callireader_tpu_torch.models import internlm2
+    from callireader_tpu_torch.runtime import engine as engine_mod
+    from callireader_tpu_torch.utils.profiling import SPANS
 
     page, gt = bench.make_page()
     saved = engine.detector, engine.params["detector"]
@@ -2365,7 +2360,7 @@ def bench_phase(h, engine, batch_path):
     # one warm interval (the first after the primed batch), then 3 measured
     protocol = bench.Protocol(batch=8, n_batches=BENCH_SHORT_BATCHES, n_ttft=2,
                               max_warm_batches=1)
-    engine.timings.spans.clear()
+    SPANS.reset()
     h.zero_counts()
     t0 = time.time()
     with ShapeLog(h.kernels) as shapes, CallCount(internlm2, ("prefill",)) as st:
@@ -2415,7 +2410,7 @@ def bench_phase(h, engine, batch_path):
     log(f"[bench] combined line ({len(line)} characters): {line}")
     log(f"[bench] device wait inside an interval (the decode the host's work did not hide): "
         f"median {result['device_wait_s']} s of {result['batches']} s intervals; "
-        f"pad steps {engine.pad_steps}")
+        f"pad steps {engine_mod.DECODE_PAD_STEPS.launches}")
     h.flash_decode_row("bench", shapes, launches)
 
 
@@ -3049,7 +3044,7 @@ def charprep_phase(h, crops, size, char_crops_s):
     bytes at 1 and 8 threads, and
     ``resize_bicubic`` within RESIZE_TOL of the PIL-compatible resize
     (vision/resample.py); ms a crop on both routes, and phase 23's
-    char_crops seconds against the plain route's. The geometry is held
+    char_prep seconds against the plain route's. The geometry is held
     where it is defined: both routes white outside the content's place."""
     from callireader_tpu_torch.vision import native, preprocess, resample
 
@@ -3092,7 +3087,7 @@ def charprep_phase(h, crops, size, char_crops_s):
         f"({saturated} content pixels 255 in one route only), 1 and 8 threads byte-equal "
         f"{threads}; resize_bicubic on {min(n, RESIZE_CROPS)} crops max {r_worst}/255 (tol "
         f"{RESIZE_TOL}); {lib_s * 1e3 / n:.4f} ms a crop native ({lib_s:.3f} s), "
-        f"{plain_s * 1e3 / n:.4f} ms plain ({plain_s:.3f} s); phase 23's char_crops span "
+        f"{plain_s * 1e3 / n:.4f} ms plain ({plain_s:.3f} s); phase 23's char_prep span "
         f"{char_crops_s:.3f} s (the native route, grouping included); host clock, card: {h.smi}")
     if worst > CHARPREP_TOL or not pads or not threads or r_worst > RESIZE_TOL:
         fail("[char prep] the native library disagrees with the plain route")
@@ -3867,6 +3862,7 @@ def main() -> int:
         from callireader_tpu_torch.runtime.conversation import build_chat_prompt, get_conv_template
         from callireader_tpu_torch.runtime.engine import ALIGNED, CalliReaderEngine, build_engine
         from callireader_tpu_torch.runtime.quantize import param_bytes
+        from callireader_tpu_torch.utils.profiling import SPANS
         from callireader_tpu_torch.vision import preprocess
     except ImportError as e:
         print(f"[chip_smoke] the port is not importable here: {e}", file=sys.stderr)
@@ -4072,7 +4068,7 @@ def main() -> int:
         else:
             log(f"detector + OrderFormer: {[len(d) for d in dets]} ordered char boxes per page")
         zero_counts()
-        engine.timings.spans.clear()
+        SPANS.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         with ShapeLog(kernels) as shapes, CallCount(internlm2, ("prefill",), timed=("prefill",),
@@ -4090,7 +4086,7 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[{label}] batch_chat_ocr on {N_PAGES} pages: {wall:.3f} s wall, peak memory {peak:.2f} GiB")
         log(f"[{label}] stage timings (s): "
-            + json.dumps({k: round(v, 4) for k, v in engine.timings.spans.items()}))
+            + json.dumps({k: round(v, 4) for k, v in SPANS.totals.items()}))
         log(f"[{label}] launches: {launches}")
         char_calls = [a for a in shapes.calls["vit_attention"]
                       if a[0][-1] // 3 // a[1] != engine.cfg.vision.head_dim]
@@ -4114,7 +4110,7 @@ def main() -> int:
         check_norms(label, launches, engine.cfg.llm.num_hidden_layers, steps.n["prefill"] + n_dec)
         return types.SimpleNamespace(prepared=prepared, shapes=shapes, launches=launches, wall=wall,
                                      peak=peak, steps=steps, n_dec=n_dec, ordered=ordered,
-                                     spans=dict(engine.timings.spans))
+                                     spans=dict(SPANS.totals))
 
     # ---------------------------------------------------------- 2. main path, 2b
     phase("2-4 2b")
@@ -4377,11 +4373,10 @@ def main() -> int:
     if launches_8b["int8_matmul_nt"] != n_steps + 1:
         fail(f"[8b] LM-head int8 launches {launches_8b['int8_matmul_nt']} != {n_steps} + 1")
     prefill_s = run8.steps.seconds["prefill"]
-    decode_ms = (run8.spans["generate_dispatch"] + run8.spans["generate_wait"] - prefill_s) \
-        / n_steps * 1e3
+    decode_ms = (run8.spans["decode"] + run8.spans["readback"]) / n_steps * 1e3
     floor_ms = step_bytes / PEAK_BYTES_S * 1e3
     log(f"[8b] prefill {prefill_s:.4f} s; {n_steps} decode steps at {decode_ms:.3f} ms a step "
-        f"(host clock, batch_prepare's dispatch and batch_decode's wait minus prefill); the "
+        f"(host clock, the decode's enqueue and batch_decode's readback); the "
         f"step's int8 weights are "
         f"{step_bytes / 1e9:.4f} GB, a floor of {floor_ms:.3f} ms at 3.35 TB/s")
 

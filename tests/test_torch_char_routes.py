@@ -178,7 +178,7 @@ def test_char_parts_route_as_jax(params, t_params, built, monkeypatch, gray, dev
                         lambda raw, *a: seen["raw"].append(tuple(raw.shape)) or raw_fn(raw, *a))
     monkeypatch.setattr(teng, "_char_pipeline",
                         lambda c, *a: seen["host"].append(tuple(c.shape)) or host_fn(c, *a))
-    tps, tix = teng._reorder(*teng._char_parts(crops))
+    tps, tix = teng._reorder(*teng._char_parts(teng._char_prep(crops)))
     jps, jix = jeng._encode_chars_fused(crops)
     if device_resize:
         assert len(seen["raw"]) >= 1 and len(seen["host"]) == 1

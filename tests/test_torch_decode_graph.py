@@ -295,7 +295,9 @@ def card():
 
 
 def _counts():
-    return {c.name: c.launches for c in COUNTS}
+    """The launch counts (the program's own counters, span totals among
+    them, are no launches)."""
+    return {c.name: c.launches for c in COUNTS if c.replayed}
 
 
 def _zero():

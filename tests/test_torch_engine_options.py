@@ -272,8 +272,8 @@ def test_char_window_gives_the_default_pseudo_tokens(params):
     _, tdef = _engines(params)
     assert tdef.char_window == 256
     calls = []
-    parts = teng._char_parts
-    teng._char_parts = lambda crops, hard_vq=False: calls.append(len(crops)) or parts(crops, hard_vq)
+    prep = teng._char_prep
+    teng._char_prep = lambda crops: calls.append(len(crops)) or prep(crops)
     got = teng.batch_calli_align(pages, ordered_lists=ordered)
     assert calls == [4, 4, 4, 1]
     want = tdef.batch_calli_align(pages, ordered_lists=ordered)
