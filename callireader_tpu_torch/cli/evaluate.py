@@ -20,7 +20,8 @@ GPU and to 1 (``chat_ocr`` a page) with ``--device cpu``. Without
 seeded random weights. ``--mesh data=8`` splits the batch rows over a mesh
 (one process per rank under ``torchrun``, a world of 1 without it); rank 0
 alone prints and writes the result files. ``--verbose`` prints the engine's
-spans (host s, of them blocked s, device s, calls) and counters at the end;
+spans (host s, of them blocked s, device s, calls) and counters (each
+kernel's launches and the decode steps among them) at the end;
 ``--spans-out PATH`` writes the span log as Chrome-trace JSON, on the clock
 of torch.profiler's events, to load beside a profiler export.
 """

@@ -26,7 +26,8 @@ autograd differentiates; ``remat=True`` recomputes each layer in the
 backward), ``prefill`` (prompt -> last logits + a fresh or caller-owned
 cache; attention through kernels.attention.flash_attention) and
 ``decode_step`` (one token; kernels.decode_attention.flash_decode over the
-stacked cache). The KV cache is one preallocated (L, B, Hkv, max_len, D)
+stacked cache, the token's RoPE and cache write one kernels.rope_kv launch a
+layer). The KV cache is one preallocated (L, B, Hkv, max_len, D)
 buffer per K and V that both entry points write IN PLACE: prefill fills
 [0, S), each decode step writes slot ``cache.length`` of every layer.
 ``decode_step_at`` is the same step with its slot in a device tensor, so a
@@ -75,6 +76,7 @@ from callireader_tpu_torch.kernels.attention import flash_attention
 from callireader_tpu_torch.kernels.attention_bwd import flash_attention_trainable
 from callireader_tpu_torch.kernels.decode_attention import flash_decode
 from callireader_tpu_torch.kernels.int8_matmul import BLOCK, MAX_ROWS, int8_matmul, int8_matmul_nt
+from callireader_tpu_torch.kernels.rope_kv import apply_rope, rope_kv
 from callireader_tpu_torch.parallel import spmd
 
 Params = Dict[str, Any]
@@ -167,16 +169,6 @@ def prepare_long_context(cfg: LLMConfig, max_length: int) -> LLMConfig:
     factor = float(math.ceil(max_length / cfg.max_position_embeddings))
     return dataclasses.replace(cfg, rope_scaling_type="linear", rope_scaling_factor=factor,
                                max_position_embeddings=max_length)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x (B, H, S, D); cos/sin (B, S, D); rotate-half, in fp32."""
-    cos = cos[:, None].float()
-    sin = sin[:, None].float()
-    xf = x.float()
-    half = x.shape[-1] // 2
-    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
-    return (xf * cos + rotated * sin).to(x.dtype)
 
 
 @dataclasses.dataclass
@@ -570,17 +562,22 @@ def decode_layers(
     input_ids: torch.Tensor,  # (B, 1)
     positions: torch.Tensor,  # (B, 1) RoPE position of each row's token
     kv_seq_len: int,  # cache capacity (the dynamic-NTK rule reads it)
-    write_kv: Callable[[int, torch.Tensor, torch.Tensor], None],
+    cache_k: torch.Tensor,  # (L, N, Hkv, T, D), written in place
+    cache_v: torch.Tensor,
+    write_rows: torch.Tensor,  # (B,) int64: the cache row of each row's token
+    write_pos: torch.Tensor,  # (B,) int64: its position in that row
     attend: Callable[[int, torch.Tensor], torch.Tensor],
     policy: DTypePolicy = DEFAULT_POLICY,
     mesh=None,
 ) -> torch.Tensor:
     """The decoder stack for one new token per row -> logits (B, V). What
-    differs between the decode entry points is where the cache lives:
-    ``write_kv(layer, k, v)`` stores the token's RoPE'd key and its value
-    (each (B, Hkv, D)) and ``attend(layer, q)`` maps the RoPE'd query
-    (B, Hq, 1, D) to the context of the same shape, reading what was just
-    written. Under ``mesh`` the heads are the rank's (tensor parallel)."""
+    differs between the decode entry points is where the cache lives: each
+    layer's one ``rope_kv`` launch rotates the token's query and key and
+    writes the key and its value to ``(layer, write_rows[b], :,
+    write_pos[b])`` of ``cache_k`` / ``cache_v``, and ``attend(layer, q)``
+    maps the RoPE'd query (B, Hq, 1, D) to the context of the same shape,
+    reading what was just written. Under ``mesh`` the heads are the rank's
+    (tensor parallel)."""
     DECODE_STEPS.launches += 1
     tp = _tp(params, cfg, mesh)
     x = embed_tokens(params, input_ids, policy.compute_dtype, mesh, cfg)
@@ -590,9 +587,7 @@ def decode_layers(
         p = _layer(params, i, tp)
         h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps, policy)
         q, k, v = _qkv(p, h, cfg)
-        q = apply_rope(q, cos, sin).contiguous()
-        k = apply_rope(k, cos, sin)
-        write_kv(i, k[:, :, 0], v[:, :, 0])
+        q = rope_kv(q, k, v, cos, sin, cache_k[i], cache_v[i], write_rows, write_pos)
         ctx = attend(i, q)
         x = x + _proj(p, ctx.transpose(1, 2).reshape(B, S, -1), "wo", tp)
         x = _mlp(p, x, cfg, policy, tp)
@@ -650,15 +645,11 @@ def decode_step_at(
     host's bookkeeping and is left alone."""
     B = input_ids.shape[0]
     kv_valid.index_fill_(1, slot, 1)  # the freshly written position
-
-    def write_kv(i, k, v):  # in-place single-slot cache write
-        cache.k[i].index_copy_(2, slot, k[:, :, None].to(cache.k.dtype))
-        cache.v[i].index_copy_(2, slot, v[:, :, None].to(cache.v.dtype))
-
     return decode_layers(
         params, cfg, input_ids=input_ids, positions=slot.view(1, 1).expand(B, 1),
-        kv_seq_len=cache.max_len, write_kv=write_kv, policy=policy, mesh=mesh,
-        attend=_decode_attend(cache.k, cache.v, kv_valid))
+        kv_seq_len=cache.max_len, cache_k=cache.k, cache_v=cache.v,
+        write_rows=torch.arange(B, device=slot.device), write_pos=slot.expand(B), policy=policy,
+        mesh=mesh, attend=_decode_attend(cache.k, cache.v, kv_valid))
 
 
 def _decode_attend(cache_k, cache_v, kv_valid):
@@ -763,15 +754,8 @@ def decode_step_multislot(
         valid = valid & (slot_pos >= starts[:, None])
         positions = (lengths - starts)[:, None]
     kv_valid = valid.to(torch.int32)
-    batch_idx = torch.arange(B, device=dev)
-
-    def write_kv(i, k, v):
-        # the two index tensors are split by a slice, so the indexed dim comes
-        # first: the target is (B, Hkv, D), which k and v already are
-        cache_k[i][batch_idx, :, lengths] = k.to(cache_k.dtype)
-        cache_v[i][batch_idx, :, lengths] = v.to(cache_v.dtype)
-
     return decode_layers(
         params, cfg, input_ids=input_ids, positions=positions, kv_seq_len=max_len,
-        write_kv=write_kv, policy=policy, mesh=mesh,
+        cache_k=cache_k, cache_v=cache_v, write_rows=torch.arange(B, device=dev),
+        write_pos=lengths, policy=policy, mesh=mesh,
         attend=_decode_attend(cache_k, cache_v, kv_valid))

@@ -159,19 +159,14 @@ class PagedBatcher(PrefixCacheMixin):
         the new token's K/V into (layer, page, :, offset) of the pools per
         slot (inactive slots all write page 0, offset 0: the trash page,
         whichever write wins) and attends through the paged kernel."""
-        def write_kv(i, k, v):
-            # index tensors on dims 0 and 2 of (NPAGES, Hkv, page, D), a slice
-            # between them: the indexed dim comes first, target (B, Hkv, D)
-            self.kpool[i][write_page, :, write_off] = k.to(self.kpool.dtype)
-            self.vpool[i][write_page, :, write_off] = v.to(self.vpool.dtype)
-
         def attend(i, q):
             return paged_flash_decode(q, self.kpool, self.vpool, i, page_table, valid)
 
         return internlm2.decode_layers(
             self.params, self.cfg, input_ids=ids, positions=positions,
-            kv_seq_len=self.P * self.page, write_kv=write_kv, policy=self.policy,
-            mesh=self.mesh, attend=attend)
+            kv_seq_len=self.P * self.page, cache_k=self.kpool, cache_v=self.vpool,
+            write_rows=write_page, write_pos=write_off, policy=self.policy, mesh=self.mesh,
+            attend=attend)
 
     def _derive_step_arrays(self, page_table, lengths, starts, active):
         """(B,) lengths/starts/active -> (valid (B, P, page), write_page,

@@ -265,9 +265,10 @@ SPANS = Spans(publish=True)
 
 
 def counters_report() -> str:
-    """The program's counters other than the span totals, one a line."""
+    """The program's counters other than the span totals, and each kernel's
+    launches and the decode steps run, one a line."""
     return "\n".join(f"{c.name:24s} {c.launches}" for c in _build.COUNTS
-                     if isinstance(c, _build.Counter) and not c.name.startswith("span."))
+                     if not c.name.startswith("span."))
 
 
 def _blocks(t: torch.Tensor, device) -> bool:

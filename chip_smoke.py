@@ -64,12 +64,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      device ms and the device's idle share of a decode step, its chunks
      replayed as graphs and run uncaptured, in turns, and of the host-stepped
      ``decode_step`` with the RMSNorm kernel and with the plain norm, in
-     turns;
+     turns, then with the RoPE + KV-write kernel (kernels/rope_kv.py) and
+     with its plain form (the sixteen eager ops a layer it replaced), in
+     turns. Every main path launches the RoPE + KV-write kernel L times a
+     decode step;
   6. reference: one 128-token row, prefill plus one decode step through the
      kernels against the same 8b model with every kernel swapped for its
      plain version;
   7. attention kernels as in phase 4, at the shapes the 8b main path
-     launched them with (its L-layer cache, the deepest layer);
+     launched them with (its L-layer cache, the deepest layer), and the
+     RoPE + KV-write kernel against its plain form, q and both caches bit
+     for bit, at the rows and positions of the path's last decode step
+     (so at every path that calls attention_rows: 2b, boot, 8b and the
+     serve paths of phase 13);
   8. int8 kernels: each against its plain version at the five main-path
      shapes (wqkv, wo, w13, w2 of the last layer; the LM head), timed with
      the weights cold in L2 (the (K, N) kernel walks the layers), beside
@@ -627,6 +634,10 @@ class ShapeLog:
         "rms_norm_bwd": lambda a, keep: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "model" else None,
         "rms_norm_bwd_fused": lambda a, keep: (*a[0].shape, a[0].dtype, a[5]) if a[4] == "fused"
         else None,
+        # (q, k, v, cos, sin, cache_k, cache_v, rows, pos): the shapes and
+        # dtypes, the destination of the call
+        "rope_kv": lambda a, keep: (tuple(a[0].shape), tuple(a[1].shape), tuple(a[5].shape),
+                                    a[0].dtype, a[5].dtype, keep(a[7]), keep(a[8])),
     }
     OPEN = []  # the logs recording now
     capture = None  # the summaries of the capture under way
@@ -687,7 +698,7 @@ class ShapeLog:
         self.calls = {name: [] for name in kernels}
 
     def add(self, name, summary):
-        if name in ("flash_decode", "paged_flash_decode"):  # the last step's mask only
+        if name in ("flash_decode", "paged_flash_decode", "rope_kv"):  # the last step's only
             self.calls[name] = self.calls[name][-1:]
         self.calls[name].append(summary)
 
@@ -3853,6 +3864,7 @@ def main() -> int:
         from callireader_tpu_torch.kernels import int8_matmul as k_i8
         from callireader_tpu_torch.kernels import paged_decode as k_paged
         from callireader_tpu_torch.kernels import rmsnorm as k_rms
+        from callireader_tpu_torch.kernels import rope_kv as k_rope
         from callireader_tpu_torch.kernels import tolerance
         from callireader_tpu_torch.kernels import vit_attention as k_vit
         from callireader_tpu_torch.models import internlm2, internvit
@@ -3873,9 +3885,10 @@ def main() -> int:
     dev = torch.device("cuda")
 
     def kernel(module, counter, launch, source, replaces, tol):
+        """``replaces`` None: a kernel the JAX package has none for."""
         return types.SimpleNamespace(module=module, counter=counter, launch=launch, tol=tol,
                                      source=f"callireader_tpu_torch/csrc/{source}.cu",
-                                     replaces=f"callireader_tpu/kernels/{replaces}")
+                                     replaces=replaces and f"callireader_tpu/kernels/{replaces}")
 
     kernels = {
         "vit_attention": kernel(k_vit, k_vit.KERNEL, "_launch", "vit_attention",
@@ -3912,11 +3925,14 @@ def main() -> int:
                                      "rmsnorm.py:55 rms_norm_pallas, forward (:68)", "rms_norm"),
         "rms_norm_bwd_fused": kernel(k_rms, k_rms.KERNELS_BWD["fused"], "_launch_bwd", "rmsnorm",
                                      "rmsnorm.py:93 _bwd_rule (:100)", "rms_norm"),
+        # the decode token's RoPE and KV-cache write (XLA's fusion in the JAX
+        # package), held to its plain form bit for bit
+        "rope_kv": kernel(k_rope, k_rope.KERNEL, "_launch", "rope_kv", None, None),
     }
-    path_2b = ("vit_attention", "flash_attention", "flash_decode", "rms_norm_fwd")
+    path_2b = ("vit_attention", "flash_attention", "flash_decode", "rms_norm_fwd", "rope_kv")
     batch_path = path_2b + ("int8_matmul", "int8_matmul_nt")  # batch_chat_ocr, 8b int8
     serve_path = ("vit_attention", "flash_attention", "paged_flash_decode", "int8_matmul",
-                  "int8_matmul_nt", "rms_norm_fwd")  # serve --paged, 8b int8
+                  "int8_matmul_nt", "rms_norm_fwd", "rope_kv")  # serve --paged, 8b int8
     plain_rms = dict(_fwd=lambda x, w, eps, mode, want_r: k_rms.rms_norm_fused_reference(
         x, w, eps, mode), _bwd=k_rms.rms_norm_bwd_reference)
 
@@ -3932,6 +3948,13 @@ def main() -> int:
                  f"want {want} = (2 x {L} + 1) x {n_calls} / 0 / 0 / 0")
         log(f"[{label}] RMSNorm forward launches {want} = (2 x {L} + 1) x {n_calls} prefills and "
             f"decode steps")
+
+    def check_rope(label, launches, L, n_dec):
+        """The RoPE + KV-write kernel once a layer and decode step."""
+        if launches["rope_kv"] != L * n_dec:
+            fail(f"[{label}] RoPE + KV-write launches {launches['rope_kv']}, want {L} x {n_dec} "
+                 f"decode steps")
+        log(f"[{label}] RoPE + KV-write launches {launches['rope_kv']} = {L} x {n_dec} decode steps")
 
     def zero_counts():
         """Every kernel's launch count and the model's count of decode steps
@@ -4108,6 +4131,7 @@ def main() -> int:
             f"with syncs) with {n_dec} decode "
             f"steps enqueued, {prepared['pad_steps']} of them after every row was done (pad steps)")
         check_norms(label, launches, engine.cfg.llm.num_hidden_layers, steps.n["prefill"] + n_dec)
+        check_rope(label, launches, engine.cfg.llm.num_hidden_layers, n_dec)
         return types.SimpleNamespace(prepared=prepared, shapes=shapes, launches=launches, wall=wall,
                                      peak=peak, steps=steps, n_dec=n_dec, ordered=ordered,
                                      spans=dict(SPANS.totals))
@@ -4154,7 +4178,8 @@ def main() -> int:
                    for a, b in ((lg_k, lg_p), (st_k, st_p)))
 
     plain_attention = dict(flash_attention=k_attn.attention_reference,
-                           flash_decode=k_dec.flash_decode_reference)
+                           flash_decode=k_dec.flash_decode_reference,
+                           rope_kv=k_rope.rope_kv_reference)
     llm_rel = llm_rel_err(engine, embeds, plain_attention)
     log(f"reference check: tile tower rel err {vit_rel:.3e}, LLM prefill+decode logits rel err "
         f"{llm_rel:.3e} (attention and RMSNorm plain)")
@@ -4300,6 +4325,51 @@ def main() -> int:
         del qd, kpool, vpool
         torch.cuda.empty_cache()
 
+    def rope_kv_row(path, shapes, launches):
+        """The RoPE + KV-write kernel against its plain form (the sixteen
+        eager ops a layer it replaced) at ``path``'s shapes and the rows and
+        positions of its last decode step: q and both caches bit for bit
+        (a destination two rows share, the paged route's trash page, left
+        out: either write is right)."""
+        q_shape, k_shape, c_shape, x_dtype, c_dtype, rows, pos = shapes.calls["rope_kv"][-1]
+        B, Hq, _, D = q_shape
+        Hkv = k_shape[1]
+        N, _, T, _ = c_shape
+        # a captured launch's rows and positions are kept by reference, and
+        # the batch route's slot has moved one past its last write since
+        rows, pos = rows.clamp(0, N - 1), pos.clamp(0, T - 1)
+        qkv = torch.randn((B, 1, (Hq + 2 * Hkv) * D), generator=gen, device=dev).to(x_dtype)
+        q, k, v = (t.reshape(B, 1, -1, D).transpose(1, 2)
+                   for t in torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], dim=-1))
+        cos, sin = (torch.rand((B, 1, D), generator=gen, device=dev) * 2 - 1 for _ in range(2))
+        caches = {side: torch.randn((2,) + c_shape, generator=gen, device=dev).to(c_dtype)
+                  for side in ("kernel", "plain")}
+        caches["plain"].copy_(caches["kernel"])
+        hits = torch.zeros((N, T), dtype=torch.int32, device=dev)
+        hits.index_put_((rows, pos), torch.ones_like(rows, dtype=torch.int32), accumulate=True)
+        once = hits <= 1
+
+        def run(fn, side):
+            return fn(q, k, v, cos, sin, caches[side][0], caches[side][1], rows, pos)
+
+        def check(q_k, q_p):
+            by_slot = [c.permute(0, 1, 3, 2, 4)[:, once] for c in caches.values()]
+            ok = torch.equal(q_k, q_p) and torch.equal(*by_slot)
+            return ok, (f"q and both caches bit-equal to the plain form "
+                        f"({int((hits > 1).sum())} shared destinations left out)")
+
+        xb, cb = q.element_size(), caches["plain"].element_size()
+        r = row_for("rope_kv", f"[{path}] B={B} Hq={Hq} Hkv={Hkv} D={D}, caches {c_shape} "
+                    f"{c_dtype}, activations {x_dtype}",
+                    lambda: run(k_rope.rope_kv, "kernel"),
+                    lambda: run(k_rope.rope_kv_reference, "plain"), None,
+                    nbytes=B * D * ((2 * Hq + 2 * Hkv) * xb + 2 * Hkv * cb + 8) + 16 * B,
+                    flops=3 * B * (Hq + Hkv) * D, check=check)
+        results.setdefault("rope_kv", []).append(
+            (f"{path} B={B} N={N} T={T}", launches["rope_kv"], r))
+        del qkv, caches
+        torch.cuda.empty_cache()
+
     h = types.SimpleNamespace(torch=torch, dev=dev, kernels=kernels, zero_counts=zero_counts,
                               rows_kernel=rows_kernel,
                               read_counts=read_counts, rnd=rnd, bound=bound, row_for=row_for,
@@ -4316,7 +4386,8 @@ def main() -> int:
     h.keep_norms = keep_norms
     h.smi = smi
     ATTENTION_ROWS = {"vit_attention": vit_rows, "flash_attention": flash_attention_rows,
-                      "flash_decode": flash_decode_row, "paged_flash_decode": paged_row}
+                      "flash_decode": flash_decode_row, "paged_flash_decode": paged_row,
+                      "rope_kv": rope_kv_row}
 
     def attention_rows(path, shapes, launches):
         """Each attention kernel ``path`` launched against its plain version
@@ -4516,6 +4587,9 @@ def main() -> int:
     for norms in ("kernel", "plain", "plain", "kernel"):
         with Swap(k_rms, **(plain_rms if norms == "plain" else {})):
             decode_step_profile(f"RMSNorm {norms}")
+    for rope in ("kernel", "plain", "plain", "kernel"):
+        with Swap(internlm2, **({"rope_kv": k_rope.rope_kv_reference} if rope == "plain" else {})):
+            decode_step_profile(f"RoPE + KV write {rope}")
     del logits, cache, state, embeds8
 
     # ---------------------------------------------------------- 7. attention kernels, 8b
@@ -4737,6 +4811,7 @@ def main() -> int:
         if launches["flash_attention"] != L * n_pre:
             fail(f"[{label}] prefill attention launches {launches['flash_attention']} != {L} x {n_pre}")
         check_norms(label, launches, L, n_pre + n_dec)
+        check_rope(label, launches, L, n_dec)
         if not eager and not batcher._tick.captured:
             fail(f"[{label}] the ticks were not captured")
         return types.SimpleNamespace(rows=rows, launches=launches, shapes=shapes, n_dec=n_dec,
