@@ -19,7 +19,7 @@ Reference citations (for parity checking):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +88,64 @@ class LLMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAMoEConfig:
+    """DeepSeek-V3-style decoder (models/mla_moe.py): multi-head latent
+    attention (MLA) over a cache of one latent row a token, sparse experts
+    routed by sigmoid scores with a selection-only correction bias
+    (``noaux_tc``) plus always-on shared experts, the first
+    ``first_k_dense_replace`` layers dense SwiGLU, pairwise RoPE on the
+    ``qk_rope_head_dim`` part of each head. The key names are the published
+    config.json's (e.g. moonshotai/Moonlight-16B-A3B)."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264  # the dense layers' SwiGLU width
+    moe_intermediate_size: int = 1408  # an expert's SwiGLU width
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None  # None: q = h W_q, no low-rank query
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    rms_norm_eps: float = 1e-5
+    # the kv_a norm's eps: the published config does not give it, the
+    # modeling code's RMSNorm defaults to 1e-6
+    kv_norm_eps: float = 1e-6
+    rope_theta: float = 50000.0
+    max_position_embeddings: int = 8192
+    # as LLMConfig: ids >= real_vocab_size carry the logits' minimum
+    real_vocab_size: Optional[int] = None
+    tie_word_embeddings: bool = False
+    pad_token_id: int = 2
+    bos_token_id: int = 1
+    eos_token_id: int = 2
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """A token's cached row a layer: the normed latent and its RoPE key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def moe_layers(self) -> int:
+        return self.num_hidden_layers - self.first_k_dense_replace
+
+
+@dataclasses.dataclass(frozen=True)
 class ResamplerConfig:
     """Perceiver resampler ("CalliAlign"): compresses 256 image-patch embeds
     into `num_learns` pseudo-text embeddings."""
@@ -143,7 +201,9 @@ class VLMConfig:
     """Top-level composition = vision tower + projector + LLM + plug-ins."""
 
     vision: VisionConfig = dataclasses.field(default_factory=VisionConfig)
-    llm: LLMConfig = dataclasses.field(default_factory=LLMConfig)
+    # InternLM2 (models/internlm2.py) or the MLA-MoE block (models/mla_moe.py):
+    # the page route calls the family the config names
+    llm: Union[LLMConfig, MLAMoEConfig] = dataclasses.field(default_factory=LLMConfig)
     # Dedicated char-path encoder. The reference deploys its char encoder as
     # a SEPARATE module (params/vit_model.pt, config/configu.py:7 +
     # models/model.py:20-30) — same freedom here: when set, the calli_align
@@ -227,10 +287,45 @@ def callireader_tiny() -> VLMConfig:
     )
 
 
+# the compact char tower of the committed CalliAlign asset (runtime/weights.py's
+# CHAR_VISION_V3, CHAR_RESAMPLER_V3), for an LLM whose width the asset's
+# 4096-wide readout does not fit: the same shapes, drawn from the seed
+COMPACT_CHAR_VISION = VisionConfig(hidden_size=256, intermediate_size=1024, num_hidden_layers=6,
+                                   num_attention_heads=8, image_size=224, patch_size=14)
+
+
+def moonlight_16b_a3b() -> VLMConfig:
+    """CalliReader's front half (InternViT-300M tile tower, detector,
+    OrderFormer, a compact char tower) in front of Moonlight-16B-A3B's
+    language model (moonshotai/Moonlight-16B-A3B config.json): 27 MLA
+    layers at 2048, the first dense, then 64 routed experts (6 a token) and
+    2 shared. The projector maps the tile tower's 4 x 1024 to 2048; the
+    compact char tower's resampler reads out at 2048."""
+    return VLMConfig(
+        llm=MLAMoEConfig(),
+        char_vision=COMPACT_CHAR_VISION,
+        resampler=ResamplerConfig(dim=512, depth=3, dim_head=64, heads=8, num_learns=3, ff_mult=2,
+                                  out_dim=2048),
+    )
+
+
+def moonlight_tiny() -> VLMConfig:
+    """The tiny preset's towers in front of a tiny MLA-MoE LLM (1 dense and
+    2 expert layers, 8 experts, 3 a token, 1 shared), for unit tests."""
+    tiny = callireader_tiny()
+    return dataclasses.replace(tiny, llm=MLAMoEConfig(
+        vocab_size=92554, hidden_size=64, intermediate_size=96, moe_intermediate_size=32,
+        num_hidden_layers=3, num_attention_heads=4, kv_lora_rank=32, qk_nope_head_dim=16,
+        qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8, n_shared_experts=1,
+        num_experts_per_tok=3, routed_scaling_factor=2.446, max_position_embeddings=512))
+
+
 PRESETS = {
     "callireader-8b": callireader_8b,
     "callireader-2b": callireader_2b,
     "callireader-tiny": callireader_tiny,
+    "moonlight-16b-a3b": moonlight_16b_a3b,
+    "moonlight-tiny": moonlight_tiny,
 }
 
 

@@ -43,7 +43,8 @@
 //
 // Operands are 4-D (D, S, H, B) bf16 views with any 16-byte aligned strides
 // (elements) of S, H and B; the Python wrappers check D % 8 == 0 and the base
-// pointers.
+// pointers. V may be narrower than Q and K (DV < D: latent attention's
+// prefill, Dqk 192 and Dv 128); DV = D unless a launch says otherwise.
 #pragma once
 
 #include <limits.h>
@@ -75,9 +76,10 @@ struct AttnArgs {
 
 // the Q tile, a ring of STAGES (K tile, V tile, the keys' segment ids), and
 // the mbarriers full[STAGES], empty[STAGES], q_full, from a 1024-byte aligned base
-template <int D, int STAGES>
+template <int D, int STAGES, int DV = D>
 constexpr int smem_bytes() {
-  return 1024 + (1 + 2 * STAGES) * Tile<D>::BYTES + STAGES * SEGW * 4 + (2 * STAGES + 1) * 8;
+  return 1024 + (1 + STAGES) * Tile<D>::BYTES + STAGES * Tile<DV>::BYTES + STAGES * SEGW * 4 +
+         (2 * STAGES + 1) * 8;
 }
 
 // ------------------------------------------------------------------ kernel
@@ -87,21 +89,23 @@ constexpr int smem_bytes() {
 // producer warp; MINB blocks an SM (it caps the registers a thread); IDS:
 // the launch may pass segment ids (without, the ids' masks, the tile skip
 // and the ring's end marker compile out, as the ViT towers take none); LSE:
-// also write each row's natural-log log-sum-exp to a.lse
-template <int D, int G, int STAGES, int MINB, bool IDS, bool LSE>
+// also write each row's natural-log log-sum-exp to a.lse; DV: V's width
+template <int D, int G, int STAGES, int MINB, bool IDS, bool LSE, int DV = D>
 __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
     flash_fwd_kernel(const __grid_constant__ AttnArgs a) {
   using T = Tile<D>;
-  constexpr int QW = WG_ROWS / G;       // query positions of a block
-  constexpr int NO = D >= 64 ? 64 : D;  // N of one P V product
-  constexpr int NCH = D / NO;
+  using TV = Tile<DV>;
+  constexpr int QW = WG_ROWS / G;         // query positions of a block
+  constexpr int NO = DV >= 64 ? 64 : DV;  // N of one P V product
+  constexpr int NCH = DV / NO;
+  constexpr int KV_BYTES = T::BYTES + TV::BYTES;  // a stage's K tile and V tile
   static_assert(WG_ROWS % G == 0 && (G == 1 || QW == 16), "a warp holds 16 rows of one head");
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t q_s = (raw + 1023u) & ~1023u;          // the Q tile
-  const uint32_t kv_s = q_s + T::BYTES;                 // STAGES x (K tile, V tile)
-  const uint32_t seg_s = kv_s + 2 * STAGES * T::BYTES;  // STAGES x SEGW segment ids
+  const uint32_t kv_s = q_s + T::BYTES;               // STAGES x (K tile, V tile)
+  const uint32_t seg_s = kv_s + STAGES * KV_BYTES;    // STAGES x SEGW segment ids
   const uint32_t bar_s = seg_s + STAGES * SEGW * 4;
   int* segs = reinterpret_cast<int*>(smem_raw + (seg_s - raw));
   const uint32_t q_full = bar_s + 16 * STAGES;
@@ -176,12 +180,12 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
         }
       }
       if (lane == 0 && t < ntiles) {
-        mbar_arrive_tx(full(st), 2 * T::BYTES);
-        const uint32_t ks = kv_s + st * 2 * T::BYTES;
-        for (int cb = 0; cb < T::NCB; ++cb) {
+        mbar_arrive_tx(full(st), KV_BYTES);
+        const uint32_t ks = kv_s + st * KV_BYTES;
+        for (int cb = 0; cb < T::NCB; ++cb)
           tma_load(ks + cb * 64 * T::RB, &a.tk, full(st), cb * T::RB / 2, k0, hkv, b);
-          tma_load(ks + T::BYTES + cb * 64 * T::RB, &a.tv, full(st), cb * T::RB / 2, k0, hkv, b);
-        }
+        for (int cb = 0; cb < TV::NCB; ++cb)
+          tma_load(ks + T::BYTES + cb * 64 * TV::RB, &a.tv, full(st), cb * TV::RB / 2, k0, hkv, b);
       } else {
         mbar_arrive(full(st));
       }
@@ -222,7 +226,7 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
     const int* sg = segs + st * SEGW;
     const int k0 = ids ? sg[KT + 1] : it * KT;
     if (k0 < 0) break;
-    const uint32_t ks = kv_s + st * 2 * T::BYTES, vs = ks + T::BYTES;
+    const uint32_t ks = kv_s + st * KV_BYTES, vs = ks + T::BYTES;
 
     // S = Q K^T
     wgmma_fence();
@@ -288,7 +292,7 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
     for (int kt = 0; kt < 4; ++kt) {
 #pragma unroll
       for (int ci = 0; ci < NCH; ++ci) {
-        const uint64_t dv = T::mn_step(vs, ci, kt);
+        const uint64_t dv = TV::mn_step(vs, ci, kt);
         if constexpr (NO == 64) {
           wgmma_rs_n64(o[ci], ph[kt], dv);
           wgmma_rs_n64(o[ci], pl[kt], dv);
@@ -331,20 +335,21 @@ __global__ void __launch_bounds__(WG_THREADS + 32, MINB)
   }
 }
 
-template <int D, int G, int STAGES, int MINB, bool IDS, bool LSE = false>
+template <int D, int G, int STAGES, int MINB, bool IDS, bool LSE = false, int DV = D>
 inline int launch_flash(AttnArgs a, const Operand& q, const Operand& k, const Operand& v,
                         cudaStream_t stream) {
   constexpr int QW = WG_ROWS / G;
-  constexpr int smem = smem_bytes<D, STAGES>();
+  constexpr int smem = smem_bytes<D, STAGES, DV>();
   if (!encode_map<D>(&a.tq, q, WG_ROWS / G) || !encode_map<D>(&a.tk, k, KT) ||
-      !encode_map<D>(&a.tv, v, KT))
+      !encode_map<DV>(&a.tv, v, KT))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, G, STAGES, MINB, IDS, LSE>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, G, STAGES, MINB, IDS, LSE, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (long long)((a.Sq + QW - 1) / QW) * a.Hkv * q.B;
   if (blocks == 0) return 0;
-  flash_fwd_kernel<D, G, STAGES, MINB, IDS, LSE><<<(unsigned)blocks, WG_THREADS + 32, smem, stream>>>(a);
+  flash_fwd_kernel<D, G, STAGES, MINB, IDS, LSE, DV>
+      <<<(unsigned)blocks, WG_THREADS + 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -232,14 +232,15 @@ __device__ __forceinline__ void split_bf16_frags(const float (&d)[32], uint32_t 
 
 // ---------------------------------------------------- shared-memory tiles
 
-// A tile of 64 rows by D bf16 columns, stored as D / (RB / 2) column blocks
+// A tile of 64 rows by D bf16 columns (192: latent attention's query and key
+// heads, three column blocks), stored as D / (RB / 2) column blocks
 // of 64 rows of RB bytes (RB = 128, or 64 when D = 32), each with the swizzle
 // of that width that TMA writes and wgmma reads: the 16-byte chunk c of row r
 // sits at chunk c ^ (address bits 7..9), so a row's chunks land in distinct
 // banks. Tile bases are 1024-byte aligned.
 template <int D>
 struct Tile {
-  static_assert(D == 32 || D == 64 || D == 128, "head dim must be 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 192, "head dim must be 32, 64, 128 or 192");
   static constexpr int RB = D * 2 >= 128 ? 128 : D * 2;  // bytes of a row of a column block
   static constexpr int NCB = D * 2 / RB;                 // column blocks
   static constexpr int BYTES = 64 * D * 2;

@@ -77,6 +77,7 @@ import torch
 
 BF16_ROUNDING = 2.0**-8
 ATOL = {"vit_attention": 1e-5, "flash_attention": 1e-5, "flash_decode": 1e-5,
+        "mla_prefill": 1e-5, "latent_decode": 1e-5,
         "int8_matmul": 1e-5, "int8_matmul_nt": 1e-5, "paged_flash_decode": 1e-5,
         "attn_train_fwd": 1e-5, "attn_train_dq": 1e-4, "attn_train_dkv": 2e-4,
         "rms_norm": 1e-5}

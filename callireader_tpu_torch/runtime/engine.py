@@ -58,11 +58,11 @@ import torch
 
 from callireader_tpu_torch.align import vq as vq_mod
 from callireader_tpu_torch.core import partition
-from callireader_tpu_torch.core.config import VLMConfig, get_config
+from callireader_tpu_torch.core.config import MLAMoEConfig, VLMConfig, get_config
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy, require_device
 from callireader_tpu_torch.kernels._build import Counter
 from callireader_tpu_torch.models import detector as detector_mod
-from callireader_tpu_torch.models import internlm2, internvit, orderformer, projector, resampler
+from callireader_tpu_torch.models import internlm2, internvit, mla_moe, orderformer, projector, resampler
 from callireader_tpu_torch.parallel import spmd
 from callireader_tpu_torch.runtime import generate as gen
 from callireader_tpu_torch.runtime import quantize, weights
@@ -116,6 +116,10 @@ class CalliReaderEngine:
     ):
         self.device = require_device(device)
         self.mesh = mesh
+        if isinstance(cfg.llm, MLAMoEConfig) and "llm" in params:
+            if mesh is not None:
+                raise NotImplementedError("the MLA-MoE LLM runs on one device: no mesh")
+            mla_moe.prepare(params["llm"], cfg.llm)  # the served layout of a drawn tree
         if mesh is not None and "llm" in params:
             cfg, params = self.shard_llm(cfg, params, mesh)
         self.cfg = cfg
@@ -660,8 +664,8 @@ class CalliReaderEngine:
 
     def _build_embeds(self, input_ids: torch.Tensor, img_embeds, pseudo_embeds) -> torch.Tensor:
         """Token embed + double splice (<IMG_CONTEXT> = image, ALIGNED = pseudo)."""
-        embeds = internlm2.embed_tokens(self.params["llm"], input_ids, self.policy.compute_dtype,
-                                        self.mesh, self.cfg.llm)
+        embeds = gen.llm_family(self.cfg.llm).embed_tokens(
+            self.params["llm"], input_ids, self.policy.compute_dtype, self.mesh, self.cfg.llm)
         if img_embeds is not None:
             embeds = vq_mod.splice_embeds(embeds, input_ids, img_embeds,
                                           self.cfg.img_context_token_id)
@@ -1093,6 +1097,8 @@ def build_engine(
         raise ValueError(f"quant={quant!r}: the port has None (bf16), 'int8' and 'int8-all'")
     dev = require_device(device)
     cfg = get_config(preset)
+    if quant is not None and isinstance(cfg.llm, MLAMoEConfig):
+        raise ValueError(f"{preset}: the MLA-MoE LLM is served in bf16, as published (quant=None)")
     params = weights.init_params(cfg, seed, dtype=torch.bfloat16, device=dev,
                                  llm_int8=quant is not None)
     if quant is not None:

@@ -43,11 +43,11 @@ import numpy as np
 
 import torch
 
-from callireader_tpu_torch.core.config import LLMConfig
+from callireader_tpu_torch.core.config import LLMConfig, MLAMoEConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
-from callireader_tpu_torch.models import internlm2
+from callireader_tpu_torch.models import internlm2, mla_moe
 from callireader_tpu_torch.runtime import decode_graph
-from callireader_tpu_torch.utils.profiling import SPANS, readback, upload
+from callireader_tpu_torch.utils.profiling import SPANS, readback, snapshot_tallies, upload
 
 SYNC_EVERY = 8  # decode steps between host checks of `done`: a chunk, one graph
 # decode graphs with their state kept between calls; each holds its KV cache
@@ -55,6 +55,13 @@ SYNC_EVERY = 8  # decode steps between host checks of `done`: a chunk, one graph
 # 4096 slots) and a memory pool of one chunk's temporaries
 GRAPHS = decode_graph.GraphCache(capacity=2)
 PROMPT_BUCKETS = (128, 256, 512, 1024, 2048, 3072, 3584, 4096, 6144, 8192)
+
+
+def llm_family(cfg):
+    """The model module of an LLM config: InternLM2, or the MLA-MoE block
+    (models/mla_moe.py); both give ``KVCache.create``, ``prefill``,
+    ``decode_step_at`` and ``embed_tokens`` with one signature."""
+    return mla_moe if isinstance(cfg, MLAMoEConfig) else internlm2
 
 
 def bucket_length(n: int, buckets: Sequence[int] = PROMPT_BUCKETS) -> int:
@@ -124,7 +131,7 @@ class DecodeState:
     index of the next token (``step``) and the cache slot it writes
     (``slot``), both (1,) int64."""
 
-    cache: internlm2.KVCache
+    cache: "internlm2.KVCache | mla_moe.LatentCache"  # the family's cache
     logits: torch.Tensor  # (B, V) in the policy's logits dtype
     seen: torch.Tensor  # (B, V) bool
     tokens: torch.Tensor  # (B, T) int32
@@ -141,7 +148,7 @@ class DecodeState:
                logits_dtype, mesh=None) -> "DecodeState":
         z = dict(device=device)
         return cls(
-            cache=internlm2.KVCache.create(cfg, B, max_len, torch.bfloat16, device, mesh),
+            cache=llm_family(cfg).KVCache.create(cfg, B, max_len, torch.bfloat16, device, mesh),
             logits=torch.zeros((B, cfg.vocab_size), dtype=logits_dtype, **z),
             seen=torch.zeros((B, cfg.vocab_size), dtype=torch.bool, **z),
             tokens=torch.zeros((B, T), dtype=torch.int32, **z),
@@ -185,7 +192,7 @@ def _decode_chunk(st: DecodeState, params, cfg: LLMConfig, gen_cfg: GenerateConf
         idx = next_tok.long()
         st.seen[st.rows, idx] = st.seen[st.rows, idx] | ~st.done
         st.done.logical_or_(is_eos)
-        st.logits.copy_(internlm2.decode_step_at(
+        st.logits.copy_(llm_family(cfg).decode_step_at(
             params, cfg, input_ids=next_tok[:, None], cache=st.cache, kv_valid=st.kv_valid,
             slot=st.slot, policy=policy, mesh=mesh))
         st.step.add_(1)
@@ -334,7 +341,7 @@ def start_generate(
         if own_generator:
             g.generator.manual_seed(0)
         with SPANS.device("prefill"):
-            logits, _ = internlm2.prefill(
+            logits, _ = llm_family(cfg).prefill(
                 params, cfg, inputs_embeds=inputs_embeds, attention_mask=attention_mask,
                 max_len=max_cache_len, policy=policy, cache=g.st.cache, mesh=mesh,
             )
@@ -371,7 +378,9 @@ def generate_from_embeds(
                          max_cache_len=max_cache_len, generator=generator, policy=policy,
                          eager=eager, mesh=mesh)
     with SPANS.span("decode"):
-        return run.enqueue_all() if overlap else run.finish()
+        out = run.enqueue_all() if overlap else run.finish()
+    snapshot_tallies()  # the device tallies as this decode leaves them, read back with its tokens
+    return out
 
 
 @torch.inference_mode()
@@ -395,6 +404,9 @@ def beam_generate_from_embeds(
     (1, T), lengths (1,)) of the best beam, generate_from_embeds' contract."""
     k = gen_cfg.num_beams
     B, S, _ = inputs_embeds.shape
+    if isinstance(cfg, MLAMoEConfig):
+        raise NotImplementedError("beam search reorders InternLM2's K/V cache; the MLA-MoE LLM "
+                                  "decodes greedy or sampled only")
     if B != 1:
         raise ValueError(f"beam search serves a single prompt, got {B} rows")
     dev = inputs_embeds.device

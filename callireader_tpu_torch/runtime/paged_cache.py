@@ -25,7 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from callireader_tpu_torch.core.config import LLMConfig
+from callireader_tpu_torch.core.config import LLMConfig, MLAMoEConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.kernels.paged_decode import paged_flash_decode
 from callireader_tpu_torch.models import internlm2
@@ -89,6 +89,10 @@ class PagedBatcher(PrefixCacheMixin):
         eager: bool = False,
         mesh=None,
     ):
+        if isinstance(cfg, MLAMoEConfig):
+            raise NotImplementedError(
+                "the paged server serves InternLM2's K/V cache; the MLA-MoE LLM serves through the "
+                "engine's batch route (a paged latent-cache decode is later work)")
         self.params = llm_params
         self.cfg = cfg
         self.mesh = mesh

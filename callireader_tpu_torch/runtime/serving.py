@@ -43,7 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from callireader_tpu_torch.core.config import LLMConfig
+from callireader_tpu_torch.core.config import LLMConfig, MLAMoEConfig
 from callireader_tpu_torch.core.dtypes import DEFAULT_POLICY, DTypePolicy
 from callireader_tpu_torch.models import internlm2
 from callireader_tpu_torch.runtime import decode_graph
@@ -288,6 +288,10 @@ class ContinuousBatcher(PrefixCacheMixin):
         eager: bool = False,
         mesh=None,
     ):
+        if isinstance(cfg, MLAMoEConfig):
+            raise NotImplementedError(
+                "the contiguous server serves InternLM2's K/V cache; the MLA-MoE LLM serves through the "
+                "engine's batch route (a multislot latent-cache decode is later work)")
         self.params = llm_params
         self.cfg = cfg
         self.mesh = mesh

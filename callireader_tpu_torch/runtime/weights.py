@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from callireader_tpu_torch.core.config import (
-    DetectorConfig, LLMConfig, OrderFormerConfig, ResamplerConfig, VisionConfig,
+    DetectorConfig, LLMConfig, MLAMoEConfig, OrderFormerConfig, ResamplerConfig, VisionConfig,
     VLMConfig,
 )
 from callireader_tpu_torch.models import detector as detector_mod
@@ -510,8 +510,14 @@ class _HostInit(_Init):
 
 def draw_llm(cfg: LLMConfig, seed: int, *, dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
     """The engine's bf16 LLM drawn for ``seed``: on the device, by its own
-    generator (``init_params``)."""
-    return init_llm(_Init(component_generator(seed, "llm", device), device, dtype), cfg)
+    generator (``init_params``); an MLA-MoE config draws models/mla_moe.py's
+    tree, in the published layout."""
+    r = _Init(component_generator(seed, "llm", device), device, dtype)
+    if isinstance(cfg, MLAMoEConfig):
+        from callireader_tpu_torch.models import mla_moe
+
+        return mla_moe.init_params(r, cfg)
+    return init_llm(r, cfg)
 
 
 def draw_vision(cfg: VisionConfig, seed: int, *, dtype=torch.bfloat16, device="cuda",
@@ -556,6 +562,8 @@ def init_params(cfg: VLMConfig, seed: int = 0, dtype=torch.bfloat16,
     trained it.
     ``llm_int8``: the LLM is drawn directly as int8 + scales in the fused
     layout (runtime/quantize.init_llm_int8), never as a bf16 tree."""
+    if llm_int8 and isinstance(cfg.llm, MLAMoEConfig):
+        raise ValueError("the MLA-MoE LLM is drawn in bf16 only")
     llm = (quantize.init_llm_int8(cfg.llm, component_generator(seed, "llm", device), dtype=dtype,
                                   device=device) if llm_int8
            else draw_llm(cfg.llm, seed, dtype=dtype, device=device))

@@ -33,6 +33,12 @@ lays a range that encloses kernel launches onto the device's timeline, where
 a reader of the trace would take it for device work. Its stamps on the
 profiler's clock let a trace's gaps be named by the program's spans instead.
 
+``DEVICE_SPANS`` are device brackets with no host span of their own (each
+MLA-MoE prefill layer's routed experts); a bracket read counts as a call.
+``DeviceTally`` keeps a data-dependent count on the device (the expert
+layer's touched experts, which a captured decode step adds into) and
+publishes it as a ``Counter`` with the next ``readback``, never waiting.
+
 ``Spans.enabled = False`` turns every recorder off: a span then costs one
 attribute check.
 
@@ -73,8 +79,13 @@ SPAN_NAMES = (
 # the stages of the route: every span but those only ever opened inside
 # another (the host NMS, the waits)
 STAGE_SPANS = tuple(n for n in SPAN_NAMES if n != "nms" and not n.startswith(BLOCKED))
+# device brackets with no host span of their own, inside a stage: a bracket
+# counts as a call when its time is read (models/mla_moe.py: each prefill
+# layer's routed experts)
+DEVICE_SPANS = ("prefill_experts",)
 SPAN_FIELDS = ("host_ns", "device_ns", "blocked_ns", "calls")
-_COUNTERS = {name: tuple(_build.Counter(f"span.{name}.{f}") for f in SPAN_FIELDS) for name in SPAN_NAMES}
+_COUNTERS = {name: tuple(_build.Counter(f"span.{name}.{f}") for f in SPAN_FIELDS)
+             for name in SPAN_NAMES + DEVICE_SPANS}
 UPLOAD_BYTES = _build.Counter("blocked.upload.bytes")
 
 _NULL = contextlib.nullcontext()
@@ -220,6 +231,8 @@ class Spans:
                 self._pool += (start, end)
                 if c is not None:
                     c[1].add(ns)
+                    if name in DEVICE_SPANS:
+                        c[3].add(1)
             if entry is not None:
                 entry[5] = (entry[5] or 0) + ns
         if left:
@@ -292,11 +305,68 @@ def upload(t: torch.Tensor, device, dtype: Optional[torch.dtype] = None) -> torc
 
 def readback(t: torch.Tensor) -> torch.Tensor:
     """``t.cpu()``, timed as a ``blocked.readback`` span inside its site's
-    span; then the pending device brackets are resolved."""
+    span; then the pending device brackets and tallies are resolved."""
     with SPANS.span("blocked.readback"):
         out = t.cpu()
     SPANS.resolve()
+    for tally in TALLIES:
+        tally.collect()
     return out
+
+
+class DeviceTally:
+    """A count the device keeps, published as the ``Counter`` ``name`` of
+    ``kernels/_build.COUNTS``: work adds into ``acc(device)``, a (1,) int64
+    tensor made once a device (before any graph captures an add into it, so
+    that replays add too); ``snapshot()`` (generate's decode routes, after
+    their steps are enqueued) queues a copy into pinned host memory behind
+    the work so far, without waiting; ``collect()`` (each ``readback``, so
+    with the tokens) adds to the counter what the copies the stream has
+    passed show. No read of its own ever waits for the device."""
+
+    def __init__(self, name: str):
+        self.counter = _build.Counter(name)
+        self._acc: Dict[str, torch.Tensor] = {}
+        self._seen: Dict[str, int] = {}
+        self._pending: List[Tuple[str, torch.Tensor, Optional[torch.cuda.Event]]] = []
+        TALLIES.append(self)
+
+    def acc(self, device) -> torch.Tensor:
+        key = str(torch.device(device))
+        t = self._acc.get(key)
+        if t is None:
+            with torch.inference_mode(False):
+                t = self._acc[key] = torch.zeros(1, dtype=torch.int64, device=device)
+        return t
+
+    def snapshot(self) -> None:
+        for key, t in self._acc.items():
+            if t.device.type != "cuda":
+                self._pending.append((key, t.clone(), None))
+                continue
+            host = torch.empty(1, dtype=torch.int64, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            self._pending.append((key, host, ev))
+
+    def collect(self) -> None:
+        while self._pending:
+            key, host, ev = self._pending[0]
+            if ev is not None and not ev.query():
+                return
+            self._pending.pop(0)
+            value = int(host[0])
+            self.counter.add(value - self._seen.get(key, 0))
+            self._seen[key] = value
+
+
+TALLIES: List[DeviceTally] = []
+
+
+def snapshot_tallies() -> None:
+    for tally in TALLIES:
+        tally.snapshot()
 
 
 class TrainThroughput:

@@ -323,6 +323,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
      made ahead in a worker process during phases 14-28 (it fits the card),
      mb_scan_int8 at MB_SCAN_L layers (stacked, unrolled and graph give the
      same bits; the (K, N) kernel's row at its shape);
+ 31. the MLA-MoE LLM (moonlight_phase): moonlight-16b-a3b at its published
+     widths with its LLM cut to MOON_LAYERS layers, 4 pages through the box
+     stage and batch_build_rows, MOON_TOKENS tokens decoded as CUDA graphs
+     and uncaptured (the same ids); the latent prefill, grouped expert and
+     latent decode kernels' launches on the route required; each held to
+     its plain version at the route's shapes;
  19. the RMSNorm kernels against their plain versions at every path's shapes
      (E = 4096; 8b batch, serve, 2b CLI, beams: decode and prefill rows; train:
      2 x 2048 rows, forward and backward with dw on and off), both roundings:
@@ -453,6 +459,10 @@ CHARPREP_TOL, RESIZE_TOL, RESIZE_CROPS = 3, 2, 64
 # S=2048, each row two segments split here; LLaVA at the 2b's widths, B=2,
 # 256 text tokens and a 448 px image (1024 patches), the placeholders here
 MOE_LAYERS, MOE_B, MOE_S, MOE_SPLITS = 4, 2, 2048, (1200, 900)
+# phase 31: the MLA-MoE LLM (moonlight-16b-a3b) on the page route, its depth
+# cut to the dense layer and 3 expert layers (the whole model is the
+# benchmark cell's), 4 pages, new tokens
+MOON_LAYERS, MOON_TOKENS = 4, 64
 MODEL_REL_TOL = 5e-2  # the model bound of PERF.md section 2
 LLAVA_TEXT, LLAVA_IMAGE_AT, LLAVA_PROMPT = 256, (5, 100), 8
 # phase 27: the asset trainers
@@ -638,6 +648,10 @@ class ShapeLog:
         # dtypes, the destination of the call
         "rope_kv": lambda a, keep: (tuple(a[0].shape), tuple(a[1].shape), tuple(a[5].shape),
                                     a[0].dtype, a[5].dtype, keep(a[7]), keep(a[8])),
+        # the MLA-MoE kernels (phase 31): (h, sel, ...) / (q, kv, ...) shapes
+        "moe_experts": lambda a, keep: (tuple(a[0].shape), tuple(a[1].shape), tuple(a[3].shape)),
+        "latent_decode": lambda a, keep: (tuple(a[0].shape), tuple(a[1].shape)),
+        "mla_prefill": lambda a, keep: (tuple(a[0].shape), tuple(a[2].shape)),
     }
     OPEN = []  # the logs recording now
     capture = None  # the summaries of the capture under way
@@ -3104,6 +3118,121 @@ def charprep_phase(h, crops, size, char_crops_s):
         fail("[char prep] the native library disagrees with the plain route")
 
 
+def moonlight_phase(h):
+    """Phase 31: the MLA-MoE LLM on the page route. moonlight-16b-a3b at its
+    published widths (the tile tower, the compact char tower at 2048, the LLM
+    cut to MOON_LAYERS layers: the dense layer 0, then expert layers), drawn
+    for seed 31 with the committed detector and OrderFormer: the box stage,
+    batch_build_rows, then the greedy decode of MOON_TOKENS tokens as CUDA
+    graphs and uncaptured, the same token ids. Launches on the graph route:
+    the latent prefill once a layer, the grouped expert kernel once an
+    expert layer per prefill block of mla_moe.PREFILL_CHUNK tokens and per
+    decode step, the latent decode once a layer and step; then each kernel
+    against its plain version at the route's shapes (the grouped kernel at a
+    decode step's rows and at a prefill block, each within the bf16
+    rounding of the experts' outputs: the two sum in other orders)."""
+    import torch
+
+    from callireader_tpu_torch.core.config import get_config
+    from callireader_tpu_torch.kernels import mla_decode as k_mla_dec
+    from callireader_tpu_torch.kernels import mla_prefill as k_mla_pre
+    from callireader_tpu_torch.kernels import moe_experts as k_moe
+    from callireader_tpu_torch.models import mla_moe
+    from callireader_tpu_torch.runtime import generate as gen
+    from callireader_tpu_torch.runtime import weights
+    from callireader_tpu_torch.runtime.engine import CalliReaderEngine
+    from callireader_tpu_torch.runtime.tokenizer import InternLM2Tokenizer
+
+    dev = h.dev
+    base = get_config("moonlight-16b-a3b")
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(base.llm, num_hidden_layers=MOON_LAYERS))
+    llm_cfg = cfg.llm
+    L, Lm, k = MOON_LAYERS, cfg.llm.moe_layers, llm_cfg.num_experts_per_tok
+    params = weights.init_params(cfg, 31, dtype=torch.bfloat16, device=dev)
+    cfg, loaded = weights.overlay_trained_assets(params, cfg, dtype=torch.bfloat16, device=dev,
+                                                 names=("detector", "orderformer"))
+    engine = CalliReaderEngine(cfg, params, InternLM2Tokenizer(), device=dev, device_tile_pages=True)
+    pages = [make_page(s)[0] for s in range(N_PAGES)]
+    with torch.inference_mode():
+        rows = engine.batch_build_rows(pages, [QUESTION] * N_PAGES,
+                                       ordered_lists=engine.batch_sort_boxes(pages))
+        B, S = rows["embeds"].shape[:2]
+        mask = torch.from_numpy(np.ascontiguousarray(rows["mask"]))
+        gen_cfg = gen.GenerateConfig(max_new_tokens=MOON_TOKENS, eos_token_ids=(-1,),
+                                     pad_token_id=engine.tok.pad_token_id)
+        llm = engine.params["llm"]
+
+        def decode(eager):
+            t0 = time.perf_counter()
+            out = gen.generate_from_embeds(llm, llm_cfg, rows["embeds"], mask, gen_cfg=gen_cfg,
+                                           max_cache_len=S + MOON_TOKENS, eager=eager)
+            torch.cuda.synchronize()
+            return out[0].cpu(), (time.perf_counter() - t0) * 1e3
+
+        decode(False)  # the capture
+        h.zero_counts()
+        tok_graph, graph_ms = decode(False)
+        launches = h.read_counts()
+        steps = mla_moe.DECODE_STEPS.launches
+        tok_eager, eager_ms = decode(True)  # its first readback collects the graph decode's tally
+        touched = mla_moe.EXPERTS_TOUCHED.counter.launches
+    blocks = -(-B * S // mla_moe.PREFILL_CHUNK)
+    want = {"mla_prefill": L, "moe_experts": Lm * (blocks + steps), "latent_decode": L * steps}
+    got = {n: launches[n] for n in want}
+    if got != want or steps != MOON_TOKENS:
+        fail(f"[mla-moe] launches {got} over {steps} decode steps, want {want} over {MOON_TOKENS}")
+    if not torch.equal(tok_graph, tok_eager):
+        fail("[mla-moe] the graph decode's token ids differ from the eager chunks'")
+    log(f"[mla-moe] {B} pages, bucket {S}, {MOON_TOKENS} tokens: launches {got} (prefill blocks {blocks}), "
+        f"{touched} (step, layer, expert) touched (of {Lm * 64 * steps}), assets {loaded}; decode "
+        f"{graph_ms:.1f} ms as graphs, {eager_ms:.1f} ms eager, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # ---------------------------------------------------------- the kernels at the route's shapes
+    E, Me, n = llm_cfg.hidden_size, llm_cfg.moe_intermediate_size, llm_cfg.n_routed_experts
+    p = {key: v[0] for key, v in llm["moe"].items()}
+
+    def experts_check(out_k, out_p):
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        tol = 2 * 2 ** -8 * out_p.float().abs().max().item() + 1e-3
+        return err <= tol, f"max_abs_err {err:.3e} (tol {tol:.3e}: the experts' bf16 outputs, summed in other orders)"
+
+    for label, T in (("decode", B), ("prefill block", mla_moe.PREFILL_CHUNK)):
+        x = h.rnd((T, E))
+        sel, w = mla_moe.route(p, llm_cfg, x)
+        r = h.row_for("moe_experts", f"{label}: T={T} E={E} Me={Me} n={n} k={k}",
+                      lambda: k_moe.moe_experts(x, sel, w, p["w13"], p["w2"]),
+                      lambda: k_moe.moe_experts_reference(x, sel, w, p["w13"], p["w2"]), None,
+                      2 * (len(set(sel.flatten().tolist())) * 3 * E * Me + T * k * 2 * (E + Me)),
+                      2 * T * k * 3 * E * Me, check=experts_check)
+        h.results.setdefault("moe_experts", []).append((f"mla-moe {label}", got["moe_experts"], r))
+    R, Dl = llm_cfg.kv_lora_rank, llm_cfg.latent_dim
+    T = S + MOON_TOKENS
+    q, kv = h.rnd((B, 16, Dl)), h.rnd((B, T, Dl))
+    valid = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    valid[:, :S] = torch.from_numpy(np.asarray(rows["mask"])).to(dev)
+    valid[:, S:] = 1
+    slot = torch.tensor([T - 1], device=dev)
+    keys = int(valid.sum())
+    scale = llm_cfg.qk_head_dim ** -0.5
+    r = h.row_for("latent_decode", f"B={B} H=16 T={T} R={R} Dr={Dl - R}, {keys} valid keys",
+                  lambda: k_mla_dec.latent_decode(q, kv, valid, slot, R, scale),
+                  lambda: k_mla_dec.latent_decode_reference(q.float(), kv.float(), valid, slot, R, scale),
+                  None, 2 * (keys * Dl + B * 16 * (Dl + R)), 2 * keys * 16 * (Dl + R))
+    h.results.setdefault("latent_decode", []).append(("mla-moe", got["latent_decode"], r))
+    seg = torch.where(valid[:, :S] > 0, 0, -1).to(torch.int32)
+    qp, kp, kvb = h.rnd((B, S, 16, 192)), h.rnd((B, S, 16, 192)), h.rnd((B, S, 16, 256))
+    pairs = sum(int(m) * (int(m) + 1) // 2 for m in valid[:, :S].sum(1).tolist())
+    r = h.row_for("mla_prefill", f"B={B} S={S} H=16 Dqk=192 Dv=128 causal, left-padded",
+                  lambda: k_mla_pre.mla_prefill_attention(qp, kp, kvb[..., 128:], seg, scale=scale),
+                  lambda: k_mla_pre.mla_prefill_reference(qp.float(), kp.float(), kvb[..., 128:].float(),
+                                                          seg, scale), None,
+                  2 * B * S * 16 * (192 * 2 + 128 * 2), 2 * pairs * 16 * (192 + 128))
+    h.results.setdefault("mla_prefill", []).append(("mla-moe", got["mla_prefill"], r))
+    del engine, params, llm, p
+    gen.GRAPHS.clear()
+
+
 def library_models_phase(h):
     """Phase 26: the library models on the card. models/moe.forward at the
     default MoEConfig widths (MOE_LAYERS layers) on B=2 S=2048 rows of two
@@ -3862,6 +3991,9 @@ def main() -> int:
         from callireader_tpu_torch.kernels import attention_bwd as k_bwd
         from callireader_tpu_torch.kernels import decode_attention as k_dec
         from callireader_tpu_torch.kernels import int8_matmul as k_i8
+        from callireader_tpu_torch.kernels import mla_decode as k_mla_dec
+        from callireader_tpu_torch.kernels import mla_prefill as k_mla_pre
+        from callireader_tpu_torch.kernels import moe_experts as k_moe
         from callireader_tpu_torch.kernels import paged_decode as k_paged
         from callireader_tpu_torch.kernels import rmsnorm as k_rms
         from callireader_tpu_torch.kernels import rope_kv as k_rope
@@ -3928,6 +4060,14 @@ def main() -> int:
         # the decode token's RoPE and KV-cache write (XLA's fusion in the JAX
         # package), held to its plain form bit for bit
         "rope_kv": kernel(k_rope, k_rope.KERNEL, "_launch", "rope_kv", None, None),
+        # the MLA-MoE LLM's (phase 31): the grouped expert product (its gate-up
+        # launch counted; its down launch follows each), the latent decode and
+        # the latent prefill attention, none with a JAX counterpart
+        "moe_experts": kernel(k_moe, k_moe.KERNEL_GATE_UP, "_launch", "moe_experts", None, None),
+        "latent_decode": kernel(k_mla_dec, k_mla_dec.KERNEL, "_launch", "mla_decode", None,
+                                "latent_decode"),
+        "mla_prefill": kernel(k_mla_pre, k_mla_pre.KERNEL, "_launch", "mla_prefill", None,
+                              "mla_prefill"),
     }
     path_2b = ("vit_attention", "flash_attention", "flash_decode", "rms_norm_fwd", "rope_kv")
     batch_path = path_2b + ("int8_matmul", "int8_matmul_nt")  # batch_chat_ocr, 8b int8
@@ -5119,6 +5259,11 @@ def main() -> int:
     # ---------------------------------------------------------- 30. the measurement scripts
     phase("30 scripts")
     scripts_phase(h, ahead_8b)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---------------------------------------------------------- 31. the MLA-MoE LLM
+    phase("31 mla-moe")
+    moonlight_phase(h)
     gc.collect()
     torch.cuda.empty_cache()
     # ---------------------------------------------------------- 19. RMSNorm at every path's shapes
